@@ -1,0 +1,292 @@
+"""LXMERT cross-modal encoder (counterpart of `xggm_tpu/models/lxmert.py`).
+
+The parameter tree is the JAX package's: one fused `qkv` projection per
+self-attention, `query` plus a fused `kv` for cross-attention, and the
+x-layer's cross-attention weights shared in both directions. Submodules carry
+the flax names, with the per-layer lists as `encoder.layer`, `.r_layers` and
+`.x_layers`, so `checkpoint.jax_params.from_jax_params` maps a JAX tree onto
+`state_dict()` key by key.
+
+Parameters are float32; matmul inputs are cast to the compute dtype
+(bfloat16 on the card); LayerNorm and softmax run in float32. Every
+attention goes through `ops.attention.mha`: the CUDA kernel on the card, its
+plain version on the CPU. Inference only: there is no dropout in this port
+yet, so every forward is the JAX package's `deterministic=True` one.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from xggm_tpu_torch.config import BertConfig, LxmertConfig
+from xggm_tpu_torch.ops.attention import mha
+from xggm_tpu_torch.ops.basic import Dense, Embedding, LayerNorm, gelu
+from xggm_tpu_torch.utils.device import resolve_device
+
+NEG_INF_MASK = -10000.0
+
+
+def additive_mask(mask: torch.Tensor) -> torch.Tensor:
+    """[B, L] {0,1} -> [B, L] float32 additive key bias in {0, -10000}
+    (the JAX version's [B, 1, 1, L] without the broadcast axes)."""
+    return (1.0 - mask.float()) * NEG_INF_MASK
+
+
+def _dense(c: BertConfig, n_in: int, n_out: int, dtype, device) -> Dense:
+    return Dense(n_in, n_out, dtype, stddev=c.initializer_range, device=device)
+
+
+class BertEmbeddings(nn.Module):
+    """Word + position + token-type embeddings, then LayerNorm."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(stddev=c.initializer_range, device=device)
+        self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, **kw)
+        self.position_embeddings = Embedding(c.max_position_embeddings,
+                                             c.hidden_size, **kw)
+        self.token_type_embeddings = Embedding(c.type_vocab_size,
+                                               c.hidden_size, **kw)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                   device=device)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(pos.expand_as(input_ids))
+             + self.token_type_embeddings(token_type_ids))
+        return self.LayerNorm(x).to(self.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head attention core. Self-attention fuses Q, K, V into `qkv`;
+    cross-attention has `query` and a fused `kv` over the context."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, cross: bool,
+                 device=None):
+        super().__init__()
+        h = c.hidden_size
+        self.heads = c.num_attention_heads
+        self.dtype = dtype
+        self.cross = cross
+        if cross:
+            self.query = _dense(c, h, h, dtype, device)
+            self.kv = _dense(c, h, 2 * h, dtype, device)
+        else:
+            self.qkv = _dense(c, h, 3 * h, dtype, device)
+
+    def forward(self, hidden: torch.Tensor, context: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+        b, lq, width = hidden.shape
+        lk = context.shape[1]
+        if self.cross:
+            q = self.query(hidden)
+            k, v = self.kv(context).chunk(2, dim=-1)
+        else:
+            q, k, v = self.qkv(hidden).chunk(3, dim=-1)
+
+        def heads_first(x, length):
+            return x.view(b, length, self.heads, -1).transpose(1, 2)
+
+        ctx = mha(heads_first(q, lq), heads_first(k, lk),
+                  heads_first(v, lk), bias)
+        return ctx.transpose(1, 2).reshape(b, lq, width).to(self.dtype)
+
+
+class AttOutput(nn.Module):
+    """Projection + residual LayerNorm."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.dense = _dense(c, c.hidden_size, c.hidden_size, dtype, device)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                   device=device)
+
+    def forward(self, hidden: torch.Tensor,
+                residual: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(self.dense(hidden) + residual)
+
+
+class SelfAttLayer(nn.Module):
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.self = Attention(c, dtype, cross=False, device=device)
+        self.output = AttOutput(c, dtype, device=device)
+
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.output(self.self(x, x, bias), x)
+
+
+class CrossAttLayer(nn.Module):
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.att = Attention(c, dtype, cross=True, device=device)
+        self.output = AttOutput(c, dtype, device=device)
+
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor,
+                ctx_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.output(self.att(x, ctx, ctx_bias), x)
+
+
+class Mlp(nn.Module):
+    """Intermediate + output FFN with residual LayerNorm."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.intermediate = _dense(c, c.hidden_size, c.intermediate_size,
+                                   dtype, device)
+        self.output = _dense(c, c.intermediate_size, c.hidden_size, dtype,
+                             device)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                   device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(x + self.output(gelu(self.intermediate(x))))
+
+
+class BertLayer(nn.Module):
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.attention = SelfAttLayer(c, dtype, device=device)
+        self.mlp = Mlp(c, dtype, device=device)
+
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.mlp(self.attention(x, bias))
+
+
+class XLayer(nn.Module):
+    """Cross-modality layer. One cross-attention block serves both
+    directions, and both read the layer's inputs before either update."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.visual_attention = CrossAttLayer(c, dtype, device=device)
+        self.lang_self_att = SelfAttLayer(c, dtype, device=device)
+        self.visn_self_att = SelfAttLayer(c, dtype, device=device)
+        self.lang_mlp = Mlp(c, dtype, device=device)
+        self.visn_mlp = Mlp(c, dtype, device=device)
+
+    def forward(self, lang: torch.Tensor, lang_bias: Optional[torch.Tensor],
+                visn: torch.Tensor, visn_bias: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        lang_x = self.visual_attention(lang, visn, visn_bias)
+        visn_x = self.visual_attention(visn, lang, lang_bias)
+        lang_x = self.lang_self_att(lang_x, lang_bias)
+        visn_x = self.visn_self_att(visn_x, visn_bias)
+        return self.lang_mlp(lang_x), self.visn_mlp(visn_x)
+
+
+class VisualFeatEncoder(nn.Module):
+    """(LN(W_f feats) + LN(W_b boxes)) / 2."""
+
+    def __init__(self, cfg: LxmertConfig, *, device=None):
+        super().__init__()
+        c, v, dt = cfg.bert, cfg.visual, cfg.compute_dtype
+        self.dtype = dt
+        self.visn_fc = _dense(c, v.visual_feat_dim, c.hidden_size, dt, device)
+        self.visn_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                         device=device)
+        self.box_fc = _dense(c, v.visual_pos_dim, c.hidden_size, dt, device)
+        self.box_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                        device=device)
+
+    def forward(self, feats: torch.Tensor,
+                boxes: torch.Tensor) -> torch.Tensor:
+        x = self.visn_layer_norm(self.visn_fc(feats.to(self.dtype)))
+        y = self.box_layer_norm(self.box_fc(boxes.to(self.dtype)))
+        return (x + y) * 0.5
+
+
+class Pooler(nn.Module):
+    """tanh(dense(hidden[:, 0]))."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.dense = _dense(c, c.hidden_size, c.hidden_size, dtype, device)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(hidden[:, 0]))
+
+
+class LxmertEncoder(nn.Module):
+    """Visual embedding -> language layers -> relational (visual) layers ->
+    cross-modality layers."""
+
+    def __init__(self, cfg: LxmertConfig, *, device=None):
+        super().__init__()
+        if cfg.stacked_layers or cfg.remat or cfg.pp_stages > 1:
+            raise NotImplementedError(
+                "stacked_layers, remat and pp_stages are not ported; the "
+                "port runs the per-layer encoder (see ROADMAP.md)")
+        c, v, dt = cfg.bert, cfg.visual, cfg.compute_dtype
+        self.visn_fc = VisualFeatEncoder(cfg, device=device)
+        self.layer = nn.ModuleList(
+            BertLayer(c, dt, device=device) for _ in range(v.l_layers))
+        self.r_layers = nn.ModuleList(
+            BertLayer(c, dt, device=device) for _ in range(v.r_layers))
+        self.x_layers = nn.ModuleList(
+            XLayer(c, dt, device=device) for _ in range(v.x_layers))
+
+    def forward(self, lang: torch.Tensor, lang_bias: Optional[torch.Tensor],
+                feats: torch.Tensor, boxes: torch.Tensor,
+                visn_bias: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        visn = self.visn_fc(feats, boxes)
+        for layer in self.layer:
+            lang = layer(lang, lang_bias)
+        for layer in self.r_layers:
+            visn = layer(visn, visn_bias)
+        for layer in self.x_layers:
+            lang, visn = layer(lang, lang_bias, visn, visn_bias)
+        return lang, visn
+
+
+class LxmertModel(nn.Module):
+    """Embeddings + encoder + pooler. Returns ((lang_seq, visn_seq), pooled).
+
+    Parameters are created uninitialised on `device`; draw them with
+    `ops.basic.init_weights(model, generator)` or load a state dict."""
+
+    def __init__(self, cfg: LxmertConfig, *, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        dt = cfg.compute_dtype
+        self.embeddings = BertEmbeddings(cfg.bert, dt, device=dev)
+        self.encoder = LxmertEncoder(cfg, device=dev)
+        self.pooler = Pooler(cfg.bert, dt, device=dev)
+
+    def forward(self, input_ids: torch.Tensor,
+                input_mask: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None,
+                feats: Optional[torch.Tensor] = None,
+                boxes: Optional[torch.Tensor] = None,
+                visn_mask: Optional[torch.Tensor] = None):
+        if input_mask is None:
+            input_mask = torch.ones_like(input_ids)
+        lang_bias = additive_mask(input_mask)
+        visn_bias = None if visn_mask is None else additive_mask(visn_mask)
+        emb = self.embeddings(input_ids, token_type_ids)
+        lang, visn = self.encoder(emb, lang_bias, feats, boxes, visn_bias)
+        return (lang, visn), self.pooler(lang)
+
+
+class AnswerHead(nn.Module):
+    """hid -> 2 hid -> GeLU -> LN(1e-12) -> num_answers, float32 logits."""
+
+    def __init__(self, hidden_size: int, num_answers: int,
+                 dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.fc1 = Dense(hidden_size, 2 * hidden_size, dtype, device=device)
+        self.ln = LayerNorm(2 * hidden_size, device=device)
+        self.fc2 = Dense(2 * hidden_size, num_answers, dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.ln(gelu(self.fc1(x)))).float()

@@ -1,0 +1,104 @@
+"""Shared NN primitives: erf GeLU, float32 LayerNorm, BERT-init Dense and the
+torch-default-init TorchLinear (counterpart of `xggm_tpu/ops/basic.py`).
+
+Every module creates its parameters uninitialised on `device`;
+`reset_parameters(generator)` draws them from an explicit torch.Generator on
+the same device. Parameters are float32 masters; `Dense` casts its input and
+weights to its compute dtype at use, as flax `nn.Dense(dtype=...)` does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """erf-based GeLU, not the tanh approximation."""
+    return F.gelu(x, approximate="none")
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in float32 with a configurable epsilon; the output
+    takes the input's dtype. eps 1e-12 is BertLayerNorm; 1e-5 the torch
+    default used by the GGM modules."""
+
+    def __init__(self, dim: int, eps: float = 1e-12, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim, device=device))
+        self.bias = nn.Parameter(torch.empty(dim, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = (x32 - mean).square().mean(-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
+
+
+class Dense(nn.Module):
+    """y = x W^T + b in `dtype`, with float32 weight [out, in] and BERT
+    normal(stddev) init (flax Dense through `xggm_tpu.ops.basic.dense`)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32, *, stddev: float = 0.02,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.stddev = stddev
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               device=device))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, self.stddev, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class TorchLinear(Dense):
+    """Dense with torch nn.Linear's default init: kaiming-uniform weight and
+    uniform bias, both in +-1/sqrt(fan_in)."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+
+class Embedding(nn.Module):
+    """float32 lookup table [num, dim] with BERT normal(stddev) init."""
+
+    def __init__(self, num: int, dim: int, *, stddev: float = 0.02,
+                 device=None):
+        super().__init__()
+        self.stddev = stddev
+        self.weight = nn.Parameter(torch.empty(num, dim, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, self.stddev, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of `module` from `generator`, submodule by
+    submodule in registration order; returns `module`."""
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+    return module
