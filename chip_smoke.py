@@ -6,22 +6,54 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device   the card's name, count and power limit; TF32 off for matmuls.
-2. build    nvcc builds every kernel of the serving path for sm_90a (with
-            -Xptxas -v: registers, shared memory, spills).
-3. kernel   the attention kernel against its plain PyTorch version at the
-            four shapes of the serving path, batch 512, bf16 with and
-            without a key mask, plus one fp32 check: max abs error against
-            the stated tolerance, kernel / plain / SDPA times (CUDA events)
-            and the bandwidth bound.
-4. serving  gqa_ood_config() at full width (9/5/5 layers, hidden 768, 12
+2. build    nvcc builds every kernel source for sm_90a, one nvcc per source,
+            all started together: attention_fwd.cu (kernel 1) and
+            attention_dropout.cu (kernels 2 and 3), with -Xptxas -v
+            (registers, shared memory, spills).
+3. kernel   kernel 1 against its plain PyTorch version at the four shapes
+            of the serving path, batch 512, bf16 with and without a key
+            mask, plus one fp32 check: max abs error against the stated
+            tolerance, kernel / plain / SDPA times (CUDA events) and the
+            bandwidth bound.
+4. dropout  kernels 2 and 3, and kernel 1's backward (kernel 3 at rate 0),
+            at the training batch (B = 96, H = 12), the four shapes of the
+            path x {bf16, fp32}, rate 0.1: kernel 2 against the plain
+            forward fed the mask ops/philox.py draws, kernel 3 and kernel
+            1's backward against torch.autograd.grad through the plain
+            versions; the kernel's own mask (read out through an identity v)
+            against the Philox mask, its keep fraction against 0.9 +- 5
+            sigma, and its dependence on the row and the seed; kernel, plain
+            and library times (SDPA with dropout_p=0.1 forward and
+            forward+backward; the memory-efficient attention's backward alone
+            from a saved forward) and the bandwidth bounds.
+5. serving  gqa_ood_config() at full width (9/5/5 layers, hidden 768, 12
             heads, 1842 answers, 2048-d features) in bf16 with seeded random
             weights, behind the HTTP server: POSTs of 1, 16 and 64 queries,
             answers checked against the answer vocabulary, 34 kernel
             launches per forward, logits against the same model with the
             plain attention.
-5. timing   served pairs/s and p50 latency at batch 64, predict_logits
+6. timing   served pairs/s and p50 latency at batch 64, predict_logits
             pairs/s at batch 512, peak device memory.
-6. summary  the kernels line, the card's name and power limit, and last
+7. train    the same configuration as a training model (GCN generator, 2
+            layers, sigma 1; hidden and attention dropout 0.1, GGM dropout
+            0.5), bf16 compute over fp32 masters, BertAdam at lr 4 x 5e-6
+            with lxrt at 1/4 of it, warmup 0.1 of t_total 10000, one
+            synthetic batch of 96 with an adjacency: the branch plan
+            relation, representation, relation, representation, with 68
+            kernel-2 and 66 kernel-3 launches per batch (the clean phase
+            backpropagates through neither visual-stream attention of the
+            last x-layer, which its loss does not read), finite losses, two
+            optimizer updates per batch and node_fc joining BertAdam at the
+            first representation batch; then, from that state and without an
+            update, the loss of each GGM branch and of the clean phase and
+            its gradient for every parameter, once through kernels 2 and 3
+            and once through the plain attention (same Philox masks): losses
+            within 1e-4 relative, gradients within 1e-2 relative L2 over all
+            parameters and 5e-2 for each; then ms per two-phase batch over
+            10 batches, pairs/s and peak device memory; and one batch under
+            torch.profiler: the device's busy and idle share and its time by
+            kernel.
+8. summary  the kernels line, the card's name and power limit, and last
             {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
@@ -29,13 +61,16 @@ without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 SEED = 0
@@ -59,6 +94,29 @@ MIN_ARGMAX_AGREEMENT = 0.9
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 SERVE_BATCHES = (1, 16, 64)
+KERNEL_SOURCES = ("attention_fwd", "attention_dropout")
+# The training path: attention-probability dropout 0.1 at the batch of the
+# GQA-OOD recipe (96); a two-phase batch runs two forwards and two backwards.
+RATE = 0.1
+FWD_LAUNCHES_PER_BATCH = 2 * LAUNCHES_PER_FORWARD
+# The clean phase's loss reads only the language stream, so the last
+# x-layer's visual self-attention and visual->language cross-attention get
+# no gradient, and autograd runs no backward for those two.
+BWD_LAUNCHES_PER_BATCH = 2 * LAUNCHES_PER_FORWARD - 2
+PLAN = ("relation", "representation", "relation", "representation")
+TIMED_BATCHES = 10
+T_TOTAL = 10_000
+# One phase's loss and gradients through the kernels vs through the plain
+# attention, same masks, no update. Kernel 2 equals its plain version bit for
+# bit, so the losses agree but for nondeterministic reductions. Kernel 3
+# differs by one bf16 ulp, carried through 19 layers: the relative L2
+# distance of the gradients over all parameters together, and the largest
+# over single parameters whose plain gradient is nonzero. On an H100 80GB
+# HBM3 (700 W) the losses agreed exactly, and the gradients within 1.0e-3
+# to 1.4e-3 together and 1.2e-2 for the worst parameter (visn_fc's weight).
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-2
+PARAM_GRAD_RTOL = 5e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,16 +143,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(lq: int, lk: int, masked: bool, elem: int):
-    """(least ms for one call, "bytes" or "operations"): each input byte read
-    once and each output byte written once over HBM bandwidth, against the
-    call's FLOPs at the bf16 peak; the larger bounds it."""
-    bh = B * H
-    nbytes = elem * bh * D * (2 * lq + 2 * lk) + (4 * B * lk if masked else 0)
-    flops = 4 * bh * lq * lk * D
+def bound(nbytes: float, flops: float):
+    """(least ms, "bytes" or "operations"): the bytes over HBM bandwidth
+    against the FLOPs at the bf16 peak; the larger bounds it."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+def attention_bound(lq: int, lk: int, masked: bool, elem: int):
+    """Kernel 1 at B=512: each input byte read once and each output byte
+    written once, against 4 B H Lq Lk D FLOPs."""
+    bh = B * H
+    nbytes = elem * bh * D * (2 * lq + 2 * lk) + (4 * B * lk if masked else 0)
+    return bound(nbytes, 4 * bh * lq * lk * D)
+
+
+def within(got, want, tol) -> bool:
+    err = (got.float() - want.float()).abs()
+    return bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
 
 
 def phase_kernel(torch, attn):
@@ -116,16 +187,13 @@ def phase_kernel(torch, attn):
             got = attn.fused_attention(q, k, v, bias, H)
             want = attn.attention_reference(q, k, v, bias, H)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            ok = bool((err <= BF16_TOL["atol"] + BF16_TOL["rtol"]
-                       * want.float().abs()).all())
             q4, k4, v4 = (t.view(B, H, -1, D) for t in (q, k, v))
             mask4 = None if bias is None else \
                 bias.to(torch.bfloat16)[:, None, None, :]
             row = dict(
                 lq=lq, lk=lk, mask=masked, dtype="bfloat16",
-                max_abs_err=float(err.max()), tolerance=BF16_TOL,
-                within_tolerance=ok,
+                max_abs_err=max_err(got, want), tolerance=BF16_TOL,
+                within_tolerance=within(got, want, BF16_TOL),
                 kernel_ms=cuda_ms(lambda: attn.fused_attention(q, k, v, bias, H)),
                 plain_ms=cuda_ms(lambda: attn.attention_reference(q, k, v, bias, H)),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -149,19 +217,387 @@ def phase_kernel(torch, attn):
     bias = (torch.rand(B, 36, device="cuda", generator=g) < 0.2).float() * -1e4
     got = attn.fused_attention(q, k, v, bias, H)
     want = attn.attention_reference(q, k, v, bias, H)
-    err = (got - want).abs()
-    ok = bool((err <= FP32_TOL["atol"] + FP32_TOL["rtol"] * want.abs()).all())
+    ok = within(got, want, FP32_TOL)
     # the same function in float64: how far both fp32 versions are from it
     s64 = (q.double() @ k.double().transpose(-1, -2) / 8.0
            + bias.double().repeat_interleave(H, dim=0)[:, None, :])
     exact = torch.softmax(s64, dim=-1) @ v.double()
     emit("kernel", lq=36, lk=36, mask=True, dtype="float32",
-         max_abs_err=float(err.max()), tolerance=FP32_TOL,
+         max_abs_err=max_err(got, want), tolerance=FP32_TOL,
          within_tolerance=ok,
          kernel_max_abs_err_vs_float64=float((got.double() - exact).abs().max()),
          plain_max_abs_err_vs_float64=float((want.double() - exact).abs().max()))
-    check(ok, f"fp32 attention kernel vs plain: max abs err {float(err.max())}")
+    check(ok, f"fp32 attention kernel vs plain: max abs err "
+              f"{max_err(got, want)}")
     return rows
+
+
+def float64_grads(q, k, v, bias, keep, g):
+    """(dq, dk, dv) of the dropout attention in float64."""
+    import torch
+
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) / 8.0
+    if bias is not None:
+        s = s + bias.double().repeat_interleave(H, dim=0)[:, None, :]
+    o = (torch.softmax(s, dim=-1) * keep.double()) @ v
+    return torch.autograd.grad(o, (q, k, v), g.double())
+
+
+def phase_dropout(torch, attn, philox, train_b: int):
+    """Kernels 2 and 3 and kernel 1's backward at the training batch."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bh = train_b * H
+    rows = []
+    for lq, lk, masked, per_fwd in PATH_SHAPES:
+        seed = 1000 * lq + lk
+        keep = philox.dropout_keep(seed, bh, lq, lk, RATE, "cuda")
+
+        def plain_keep():
+            return philox.dropout_keep(seed, bh, lq, lk, RATE, "cuda")
+
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+            q, k, v, gout = (
+                torch.randn(bh, n, D, device="cuda", generator=g).to(dtype)
+                for n in (lq, lk, lk, lq))
+            bias = None
+            if masked:
+                bias = (torch.rand(train_b, lk, device="cuda", generator=g)
+                        < 0.2).float() * -10000.0
+            o = attn.attention_dropout_fwd(q, k, v, bias, H, seed, RATE)
+            grads = attn.attention_dropout_bwd(q, k, v, bias, H, seed, RATE,
+                                               gout)
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            k1_grads = torch.autograd.grad(
+                attn.fused_attention(*qkv, bias, H), qkv, gout)
+            torch.cuda.synchronize()
+            # the plain forward fed the Philox mask; torch.autograd.grad
+            # through it, on fp32 copies for bf16 (the kernels' backward
+            # computes in fp32 and rounds its outputs once)
+            want_o = attn.attention_dropout_reference(q, k, v, bias, H, keep)
+            want = attn.attention_dropout_reference_grads(q, k, v, bias, H,
+                                                          keep, gout)
+            want_k1 = attn.attention_dropout_reference_grads(q, k, v, bias, H,
+                                                             None, gout)
+            row = dict(
+                lq=lq, lk=lk, mask=masked, dtype=str(dtype).split(".")[1],
+                tolerance=tol, launches_per_forward=per_fwd,
+                fwd_max_abs_err=max_err(o, want_o),
+                fwd_within=within(o, want_o, tol),
+                bwd_max_abs_err=max(max_err(a, w) for a, w in zip(grads, want)),
+                bwd_within=all(within(a, w, tol) for a, w in zip(grads, want)),
+                k1_bwd_max_abs_err=max(max_err(a, w)
+                                       for a, w in zip(k1_grads, want_k1)),
+                k1_bwd_within=all(within(a, w, tol)
+                                  for a, w in zip(k1_grads, want_k1)))
+            if dtype == torch.float32:
+                # how far both fp32 versions are from float64
+                exact = float64_grads(q, k, v, bias, keep, gout)
+                row.update(
+                    bwd_kernel_max_abs_err_vs_float64=max(
+                        max_err(a, w) for a, w in zip(grads, exact)),
+                    bwd_plain_max_abs_err_vs_float64=max(
+                        max_err(a, w) for a, w in zip(want, exact)))
+            else:
+                q4, k4, v4, g4 = (t.view(train_b, H, -1, D)
+                                  for t in (q, k, v, gout))
+                mask4 = None if bias is None else \
+                    bias.to(dtype)[:, None, None, :]
+                r4 = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+
+                def sdpa_fwd_bwd():
+                    out = F.scaled_dot_product_attention(
+                        *r4, attn_mask=mask4, dropout_p=RATE)
+                    torch.autograd.grad(out, r4, g4)
+
+                # the library's backward alone: the memory-efficient
+                # attention's, from its own forward's output, log-sum-exp
+                # and Philox state (its own RNG: timing only). Its bias is
+                # [B, H, Lq, Lk] with rows padded to 16 elements, as SDPA
+                # pads it.
+                lib_bias = None if mask4 is None else F.pad(
+                    mask4.expand(train_b, H, lq, lk), (0, -lk % 16))[..., :lk]
+                lib_out, lse, pseed, poff = \
+                    torch.ops.aten._scaled_dot_product_efficient_attention(
+                        q4, k4, v4, lib_bias, True, RATE)
+
+                def library_bwd():
+                    torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                        g4, q4, k4, v4, lib_bias, lib_out, lse, pseed, poff,
+                        RATE, [True, True, True, False])
+
+                elem = 2
+                bias_bytes = 4 * train_b * lk if masked else 0
+                fwd_bound = bound(elem * bh * D * (2 * lq + 2 * lk)
+                                  + bias_bytes, 4 * bh * lq * lk * D)
+                bwd_bound = bound(elem * bh * D * (3 * lq + 4 * lk)
+                                  + bias_bytes, 10 * bh * lq * lk * D)
+                row.update(
+                    fwd_ms=cuda_ms(lambda: attn.attention_dropout_fwd(
+                        q, k, v, bias, H, seed, RATE)),
+                    bwd_ms=cuda_ms(lambda: attn.attention_dropout_bwd(
+                        q, k, v, bias, H, seed, RATE, gout)),
+                    k1_bwd_ms=cuda_ms(lambda: attn.attention_dropout_bwd(
+                        q, k, v, bias, H, 0, 0.0, gout)),
+                    mask_ms=cuda_ms(plain_keep),
+                    plain_fwd_ms=cuda_ms(lambda: attn.attention_dropout_reference(
+                        q, k, v, bias, H, plain_keep())),
+                    plain_bwd_ms=cuda_ms(
+                        lambda: attn.attention_dropout_reference_grads(
+                            q, k, v, bias, H, plain_keep(), gout)),
+                    sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
+                    sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd),
+                    library_bwd_ms=cuda_ms(library_bwd),
+                    fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+                row["fwd_bound_share"] = row["fwd_bound_ms"] / row["fwd_ms"]
+                row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
+            emit("dropout", **row)
+            rows.append(row)
+
+        # the kernel's own mask: with q = k = 0 every p is 1 / Lk, and an
+        # identity v makes o[:, i, j] = p * m[i, j] for j < Lk
+        def kernel_mask(s):
+            zq = torch.zeros(bh, lq, D, device="cuda")
+            zk = torch.zeros(bh, lk, D, device="cuda")
+            eye = torch.eye(lk, D, device="cuda").expand(bh, lk, D).contiguous()
+            return attn.attention_dropout_fwd(zq, zk, eye, None, H, s,
+                                              RATE)[..., :lk] > 0
+
+        drawn = kernel_mask(seed)
+        n = drawn.numel()
+        frac = float(drawn.float().mean())
+        sigma = math.sqrt(0.9 * 0.1 / n)
+        stats = dict(lq=lq, lk=lk, draws=n, keep_fraction=frac,
+                     keep_fraction_sigma=sigma,
+                     equals_philox_mask=bool(torch.equal(drawn, keep > 0)),
+                     rows_differ=not bool(torch.equal(drawn[0], drawn[1])),
+                     seeds_differ=not bool(torch.equal(drawn,
+                                                       kernel_mask(seed + 1))),
+                     same_seed_same_mask=bool(torch.equal(drawn,
+                                                          kernel_mask(seed))))
+        emit("dropout_mask", **stats)
+        check(abs(frac - 0.9) <= 5 * sigma,
+              f"keep fraction {frac} at {(lq, lk)}: not within 0.9 +- 5 sigma")
+        for key in ("equals_philox_mask", "rows_differ", "seeds_differ",
+                    "same_seed_same_mask"):
+            check(stats[key], f"dropout mask at {(lq, lk)}: {key} is False")
+
+    for key in ("fwd_within", "bwd_within", "k1_bwd_within"):
+        bad = [(r["lq"], r["lk"], r["dtype"]) for r in rows if not r[key]]
+        check(not bad, f"dropout phase {key} failed at {bad}")
+    return rows
+
+
+def grad_agreement(torch, names, kernels, plain) -> dict:
+    """Relative L2 distance of two gradient lists (None: outside the
+    graph): over all parameters together, and the largest over single
+    parameters whose plain gradient is nonzero."""
+    same_graph = all((a is None) == (b is None)
+                     for a, b in zip(kernels, plain))
+    pairs = [(n, a.float(), b.float()) for n, a, b in zip(names, kernels, plain)
+             if a is not None and b is not None]
+    diff = torch.stack([(a - b).norm() for _, a, b in pairs])
+    norm = torch.stack([b.norm() for _, _, b in pairs])
+    rel = torch.where(norm > 0, diff / norm, 0.0)
+    worst = int(rel.argmax())
+    return dict(same_graph=same_graph, params_with_grad=len(pairs),
+                grad_rel_l2=float(diff.norm() / norm.norm()),
+                max_param_grad_rel_l2=float(rel[worst]),
+                worst_param=pairs[worst][0],
+                median_param_grad_rel_l2=float(rel[norm > 0].median()))
+
+
+def phase_train(torch, attn, philox):
+    """The GGM train step at full width through kernels 2 and 3."""
+    from xggm_tpu_torch.config import gqa_ood_config
+    from xggm_tpu_torch.data.synthetic import synthetic_train_batch
+    from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.ops.basic import init_weights
+    from xggm_tpu_torch.training.bert_adam import BertAdam, lr_scale_tree
+    from xggm_tpu_torch.training.steps import (
+        TrainState, make_clean_loss, make_ggm_loss, make_ggm_train_step,
+        phase_seeds)
+
+    cfg = gqa_ood_config()
+    lx, tc = cfg.lxmert.replace(dtype="bfloat16"), cfg.train
+    train_b = tc.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_weights(
+        XGGMModel(lx, cfg.num_answers, cfg.ggm, device="cuda"), gen)
+    names = [n for n, _ in model.named_parameters()]
+    mult = tc.downstream_lr_mult
+    opt = BertAdam(tc.lr * mult, warmup=tc.warmup, t_total=T_TOTAL,
+                   weight_decay=tc.weight_decay,
+                   lr_scale=lr_scale_tree(
+                       names, lambda n: not n.startswith("lxrt."), 1.0,
+                       1.0 / mult))
+    state = TrainState.create(model, opt)
+    steps = {br: make_ggm_train_step(model, opt, tc, br)
+             for br in ("relation", "representation")}
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             synthetic_train_batch(train_b, cfg.num_answers,
+                                   lx.visual.visual_feat_dim,
+                                   seed=SEED).items()}
+    for k in ("input_ids", "input_mask", "segment_ids"):
+        batch[k] = batch[k].long()
+    node_fc = [n for n in names if n.startswith("node_fc.")]
+
+    # the main path: counts at 0 just before, read just after
+    attn.fused_attention.launches = 0
+    attn.attention_dropout_fwd.launches = 0
+    attn.attention_dropout_bwd.launches = 0
+    metrics, node_fc_trace = [], []
+    for i, br in enumerate(PLAN):
+        state, m = steps[br](state, batch, i)
+        metrics.append(m)
+        active, counts = (state.opt_state.active_flags(),
+                          state.opt_state.leaf_counts())
+        node_fc_trace.append((all(active[n] for n in node_fc),
+                              any(active[n] for n in node_fc),
+                              sorted({counts[n] for n in node_fc})))
+    torch.cuda.synchronize()
+    launches = {"attention_fwd": attn.fused_attention.launches,
+                "attention_dropout_fwd": attn.attention_dropout_fwd.launches,
+                "attention_dropout_bwd": attn.attention_dropout_bwd.launches}
+    losses = [{k: float(v) for k, v in m.items() if v.dim() == 0}
+              for m in metrics]
+    lxrt_count = state.opt_state.leaf_counts()["lxrt.pooler.dense.weight"]
+    emit("train", plan=list(PLAN), losses=losses, launches=launches,
+         launches_per_batch={k: v / len(PLAN) for k, v in launches.items()},
+         optimizer_count=state.opt_state.count,
+         lxrt_pooler_leaf_count=lxrt_count,
+         node_fc_all_active_any_active_counts=node_fc_trace,
+         params=sum(p.numel() for p in model.parameters()))
+    check(all(math.isfinite(x) for d in losses for x in d.values()),
+          f"non-finite train loss: {losses}")
+    check(state.opt_state.count == 2 * len(PLAN),
+          f"optimizer count {state.opt_state.count} after {len(PLAN)} batches")
+    check(lxrt_count == 2 * len(PLAN), f"lxrt leaf count {lxrt_count}")
+    # node_fc joins at the first representation batch (the second), then
+    # updates in both phases of every batch
+    check(node_fc_trace[0][:2] == (False, False)
+          and node_fc_trace[1] == (True, True, [2])
+          and node_fc_trace[3] == (True, True, [6]),
+          f"node_fc activation {node_fc_trace}")
+    for key, per_batch in (("attention_dropout_fwd", FWD_LAUNCHES_PER_BATCH),
+                           ("attention_dropout_bwd", BWD_LAUNCHES_PER_BATCH)):
+        check(launches[key] == per_batch * len(PLAN),
+              f"{launches[key]} {key} launches for {len(PLAN)} batches, "
+              f"expected {per_batch} each")
+
+    # each phase's loss and gradients from this state and seeds, through the
+    # kernels and through the plain attention: the same Philox masks, so
+    # they agree; no update
+    def plain_dropout(q, k, v, bias, heads, seed, rate):
+        keep = philox.dropout_keep(seed, q.shape[0], q.shape[1], k.shape[1],
+                                   rate, q.device)
+        return attn.attention_dropout_reference(q, k, v, bias, heads, keep)
+
+    ggm_dropout, ggm_noise, clean_dropout = phase_seeds(100)
+    params = [state.params[n] for n in names]
+    phases = {f"{br}_ggm_loss": (make_ggm_loss(model, tc, br),
+                                 (batch, ggm_dropout, ggm_noise))
+              for br in ("relation", "representation")}
+    phases["clean_loss"] = (make_clean_loss(model, cfg.num_answers),
+                            (batch, clean_dropout))
+
+    def loss_and_grads(fn, args):
+        loss = fn(*args)[0]
+        return float(loss.detach()), torch.autograd.grad(loss, params,
+                                                         allow_unused=True)
+
+    agreement = []
+    for key, (fn, args) in phases.items():
+        loss_k, grads_k = loss_and_grads(fn, args)
+        with mock.patch.object(attn, "fused_attention_dropout",
+                               plain_dropout):
+            loss_p, grads_p = loss_and_grads(fn, args)
+        agreement.append(dict(
+            phase=key, kernels=loss_k, plain=loss_p,
+            loss_rel_diff=abs(loss_k - loss_p) / max(abs(loss_p), 1e-12),
+            **grad_agreement(torch, names, grads_k, grads_p)))
+        del grads_k, grads_p
+    emit("train_vs_plain", rows=agreement, loss_rtol=LOSS_RTOL,
+         grad_rtol=GRAD_RTOL, param_grad_rtol=PARAM_GRAD_RTOL)
+    bad = [r for r in agreement
+           if not (r["same_graph"] and r["loss_rel_diff"] <= LOSS_RTOL
+                   and r["grad_rel_l2"] <= GRAD_RTOL
+                   and r["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL)]
+    check(not bad, f"losses and gradients with kernels vs plain "
+                   f"attention: {bad}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TIMED_BATCHES):
+        br = ("relation", "representation")[i % 2]
+        state, m = steps[br](state, batch, 1000 + i)
+    final = float(m["clean_loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timing = dict(batches=TIMED_BATCHES, batch_size=train_b,
+                  ms_per_batch=dt / TIMED_BATCHES * 1e3,
+                  pairs_per_s=train_b * TIMED_BATCHES / dt,
+                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                  final_clean_loss=final)
+    emit("train_timing", **timing)
+    check(math.isfinite(final), "non-finite loss in the timed batches")
+    emit("train_profile", **profile_batch(torch, steps["relation"], state,
+                                          batch, timing["ms_per_batch"]))
+    return launches
+
+
+def kernel_category(name: str) -> str:
+    if "attention_dropout" in name or "attention_fwd" in name:
+        return "attention kernels (ours)"
+    if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas",
+                               "sm90_")):
+        return "GEMM (cuBLAS)"
+    if "multi_tensor_apply" in name or "foreach" in name.lower():
+        return "optimizer and clip (foreach)"
+    if "copy" in name.lower() or "memset" in name.lower():
+        return "casts and copies"
+    return "elementwise and reductions"
+
+
+def profile_batch(torch, step, state, batch, timed_ms: float) -> dict:
+    """Device time of one two-phase batch by kernel, from torch.profiler
+    (CUDA activity only): the sum of kernel durations is the device's busy
+    time (one stream), and its idle share is taken against the unprofiled
+    ms per batch of the timing run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch, 2000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, 2001)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, by_cat, launches = {}, {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + us / 1e3
+        cat = kernel_category(evt.name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3
+        launches += 1
+    busy = sum(by_cat.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms_profiled=wall_ms, timed_ms_per_batch=timed_ms,
+                device_busy_ms=busy,
+                device_idle_share=(1.0 - busy / timed_ms) if busy else None,
+                device_events=launches, device_ms_by_category=by_cat,
+                top_kernels_ms=[[n[:120], ms] for n, ms in top],
+                note=("no device events: not measured" if not busy
+                      else "device events from torch.profiler (CUPTI)"))
 
 
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
@@ -185,7 +621,7 @@ def main() -> int:
     from xggm_tpu_torch.data.tokenizer import BertTokenizer
     from xggm_tpu_torch.models.task_model import XGGMModel
     from xggm_tpu_torch.ops import attention as attn
-    from xggm_tpu_torch.ops import build
+    from xggm_tpu_torch.ops import build, philox
     from xggm_tpu_torch.ops.basic import init_weights
     from xggm_tpu_torch.serving.artifact import ServingModel
     from xggm_tpu_torch.serving.server import InferenceEngine, make_server
@@ -204,18 +640,25 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32="off: torch.backends.cuda.matmul.allow_tf32 = False")
 
-    # 2. build
-    res = build.build("attention_fwd")
-    emit("build", kernel="attention_fwd", seconds=res.seconds,
-         library=res.path,
-         ptxas=[ln.strip() for ln in res.log.splitlines()
-                if "ptxas info" in ln or "spill" in ln])
+    # 2. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = list(pool.map(build.build, KERNEL_SOURCES))
+    for src, res in zip(KERNEL_SOURCES, builds):
+        emit("build", kernel=src, seconds=res.seconds, library=res.path,
+             ptxas=[ln.strip() for ln in res.log.splitlines()
+                    if "ptxas info" in ln or "spill" in ln])
+    emit("build", wall_seconds=time.perf_counter() - t0)
 
     # 3. kernel check and times
     rows = phase_kernel(torch, attn)
 
-    # 4. serving at full width
+    # 4. dropout kernels at the training batch
     cfg = gqa_ood_config()
+    train_b = cfg.train.batch_size
+    drop_rows = phase_dropout(torch, attn, philox, train_b)
+
+    # 5. serving at full width
     lx = cfg.lxmert.replace(dtype="bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = init_weights(XGGMModel(lx, cfg.num_answers, device="cuda"), gen)
@@ -282,7 +725,7 @@ def main() -> int:
         check(diff <= LOGITS_ATOL, f"logits vs plain attention: {diff}")
         check(agree >= MIN_ARGMAX_AGREEMENT, f"argmax agreement {agree}")
 
-        # 5. timing
+        # 6. timing
         torch.cuda.reset_peak_memory_stats()
         lat, t0 = [], time.perf_counter()
         n_req = 20
@@ -311,11 +754,26 @@ def main() -> int:
         server.server_close()
         thread.join(timeout=60)
 
-    # 6. summary: one entry per kernel, over one forward's launches at B=512
-    path = [r for r in rows if r["on_path"]]
+    # free the serving model, so that the training peak memory is its own
+    del server, engine, sm, model, batch, big, logits, plain
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    def per_forward(key):
-        return sum(r[key] * r["launches_per_forward"] for r in path)
+    # 7. training at full width
+    train_launches = phase_train(torch, attn, philox)
+
+    # 8. summary: one entry per kernel. Kernel 1 over one forward's launches
+    # at B=512; kernels 2 and 3 over one training forward's or backward's
+    # launches at B=96, in bf16 (the path's type).
+    path = [r for r in rows if r["on_path"]]
+    drop_path = [r for r in drop_rows if "fwd_ms" in r]
+
+    def per_forward(key, table=path):
+        return sum(r[key] * r["launches_per_forward"] for r in table)
+
+    def bound_by(key, table):
+        return ("bytes" if all(r[key] == "bytes" for r in table)
+                else "operations")
 
     print(json.dumps({"kernels": [{
         "name": "attention_fwd", "route": "cuda",
@@ -325,11 +783,43 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in path)
-                     else "operations"),
+        "bound_by": bound_by("bound_by", path),
         "library_ms": per_forward("library_ms"),
         "timed_over": f"one forward's {LAUNCHES_PER_FORWARD} launches at "
-                      f"B={B}"}]}), flush=True)
+                      f"B={B}",
+        "backward_ms": per_forward("k1_bwd_ms", drop_path),
+        "backward_max_abs_err": max(r["k1_bwd_max_abs_err"]
+                                    for r in drop_rows),
+        "backward_timed_over": f"one backward's {LAUNCHES_PER_FORWARD} "
+                               f"launches of kernel 3 at rate 0, B={train_b}"},
+        {"name": "attention_dropout_fwd", "route": "cuda",
+         "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
+         "replaces": "xggm_tpu/ops/pallas_attention.py:237",
+         "launches": train_launches["attention_dropout_fwd"],
+         "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
+         "ms": per_forward("fwd_ms", drop_path),
+         "plain_ms": per_forward("plain_fwd_ms", drop_path),
+         "bound_ms": per_forward("fwd_bound_ms", drop_path),
+         "bound_by": bound_by("fwd_bound_by", drop_path),
+         "library_ms": per_forward("sdpa_fwd_ms", drop_path),
+         "timed_over": f"one training forward's {LAUNCHES_PER_FORWARD} "
+                       f"launches at B={train_b}"},
+        {"name": "attention_dropout_bwd", "route": "cuda",
+         "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
+         "replaces": "xggm_tpu/ops/pallas_attention.py:250",
+         "launches": train_launches["attention_dropout_bwd"],
+         "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
+         "ms": per_forward("bwd_ms", drop_path),
+         "plain_ms": per_forward("plain_bwd_ms", drop_path),
+         "bound_ms": per_forward("bwd_bound_ms", drop_path),
+         "bound_by": bound_by("bwd_bound_by", drop_path),
+         "library_ms": per_forward("library_bwd_ms", drop_path),
+         "library_fwd_bwd_ms": per_forward("sdpa_fwd_bwd_ms", drop_path),
+         "timed_over": f"one training backward's {LAUNCHES_PER_FORWARD} "
+                       f"launches at B={train_b}; library_ms is "
+                       "_scaled_dot_product_efficient_attention_backward "
+                       "from a saved forward, library_fwd_bwd_ms SDPA "
+                       "forward + backward"}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

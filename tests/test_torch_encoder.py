@@ -107,7 +107,9 @@ def test_port_names():
         == "encoder.r_layers.0.mlp.LayerNorm.weight"
     assert port_name("embeddings/word_embeddings/embedding") \
         == "embeddings.word_embeddings.weight"
-    assert port_name("params/node_fc/fc/kernel") is None
+    assert port_name("params/node_fc/fc/kernel") == "node_fc.fc.weight"
+    assert port_name("params/generator/gnn_1/conv_0/layer_norm/scale") \
+        == "generator.gnn.1.conv.0.layer_norm.weight"
     with pytest.raises(KeyError):
         port_name("params/lxrt/pooler/dense/weight")
 

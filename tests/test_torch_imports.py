@@ -54,7 +54,8 @@ def test_port_sources_are_not_ignored_by_git():
     if probe.returncode != 0:
         pytest.skip("not a git work tree")
     files = [os.path.relpath(p, REPO) for p in _port_sources()]
-    files.append(os.path.join("xggm_tpu_torch", "csrc", "attention_fwd.cu"))
+    csrc = os.path.join("xggm_tpu_torch", "csrc")
+    files += [os.path.join(csrc, f) for f in os.listdir(os.path.join(REPO, csrc))]
     proc = subprocess.run(["git", "check-ignore", "--no-index", *files],
                           cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 1 and not proc.stdout, \
@@ -90,6 +91,7 @@ def test_entry_points_default_to_the_card():
 
     cfg = tiny_test_config()
     for make in (lambda: XGGMModel(cfg.lxmert, cfg.num_answers),
+                 lambda: XGGMModel(cfg.lxmert, cfg.num_answers, cfg.ggm),
                  lambda: LxmertModel(cfg.lxmert)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

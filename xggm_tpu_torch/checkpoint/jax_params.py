@@ -5,9 +5,10 @@ the format `xggm_tpu/serving/artifact.py::_flatten` writes to `params.npz`
 (bf16 leaves stored as uint16 bit patterns, their dtypes in `meta.json`).
 The port keeps the same tree, so the mapping is by name: '/' becomes '.',
 the per-layer lists `layer_i`, `r_layer_i`, `x_layer_i` become
-`layer.i`, `r_layers.i`, `x_layers.i`, a Dense `kernel` [in, out] becomes
-`weight` [out, in], and LayerNorm `scale` and Embed `embedding` become
-`weight`.
+`layer.i`, `r_layers.i`, `x_layers.i` (and the GGM's `gnn_i`, `conv_i`,
+`proj_i` become `gnn.i`, `conv.i`, `proj.i`), a Dense `kernel` [in, out]
+becomes `weight` [out, in], and LayerNorm `scale` and Embed `embedding`
+become `weight`.
 """
 from __future__ import annotations
 
@@ -18,14 +19,15 @@ import numpy as np
 import torch
 from torch import nn
 
-# Top-level submodules of the JAX XGGMModel that the serving path does not
-# run; the port gains them with the training slice.
+# Top-level submodules of the JAX XGGMModel that only a training model holds;
+# a serving model (and a serving artifact) has none of them.
 GGM_SUBMODULES = frozenset({"generator", "encoder_adj", "node_fc",
                             "fusion_fc"})
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "bias": "bias"}
-_LAYER_LIST = re.compile(r"^(layer|r_layer|x_layer)_(\d+)$")
-_LIST_NAMES = {"layer": "layer", "r_layer": "r_layers", "x_layer": "x_layers"}
+_LAYER_LIST = re.compile(r"^(layer|r_layer|x_layer|gnn|conv|proj)_(\d+)$")
+_LIST_NAMES = {"layer": "layer", "r_layer": "r_layers", "x_layer": "x_layers",
+               "gnn": "gnn", "conv": "conv", "proj": "proj"}
 
 
 def bf16_bits_to_float32(bits: np.ndarray) -> np.ndarray:
@@ -33,14 +35,12 @@ def bf16_bits_to_float32(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
-def port_name(jax_key: str) -> Optional[str]:
-    """The port's state-dict key for a JAX parameter path, or None for a GGM
-    parameter the port does not hold. Raises KeyError on an unknown leaf."""
+def port_name(jax_key: str) -> str:
+    """The port's state-dict key for a JAX parameter path. Raises KeyError
+    on an unknown leaf."""
     parts = jax_key.split("/")
     if parts[0] == "params":
         parts = parts[1:]
-    if parts[0] in GGM_SUBMODULES:
-        return None
     *path, leaf = parts
     if leaf not in _LEAVES:
         raise KeyError(f"JAX parameter {jax_key!r}: unknown leaf {leaf!r}")
@@ -58,14 +58,17 @@ def from_jax_params(flat: Mapping[str, np.ndarray], model: nn.Module,
     tensors, ready for `load_state_dict`).
 
     `dtypes` gives each key's true dtype where a bf16 leaf arrives as its
-    uint16 bits. GGM parameters are skipped; any other key without a
-    counterpart in `model`, a shape mismatch, or a parameter of `model` left
-    unfilled raises."""
+    uint16 bits. The parameters of a GGM submodule that `model` does not hold
+    (a serving model) are skipped; any other key without a counterpart in
+    `model`, a shape mismatch, or a parameter of `model` left unfilled
+    raises."""
     expected = model.state_dict()
+    held = {n.split(".")[0] for n in expected}
     out: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         name = port_name(key)
-        if name is None:
+        top = name.split(".")[0]
+        if top in GGM_SUBMODULES and top not in held:
             continue
         if name not in expected:
             raise KeyError(f"JAX parameter {key!r} has no counterpart "

@@ -1,7 +1,8 @@
-"""Configuration dataclasses read by the serving path.
+"""Configuration dataclasses read by the serving and training paths.
 
-Mirrors the fields of `xggm_tpu/config.py` that the encoder, the answer head
-and the server read, with torch dtypes in place of `jnp` ones.
+Mirrors the fields of `xggm_tpu/config.py` that the encoder, the answer head,
+the GGM modules, the optimizer and the server read, with torch dtypes in
+place of `jnp` ones.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ NUM_OBJECTS = 36
 VISUAL_FEAT_DIM = 2048
 VISUAL_POS_DIM = 4
 MAX_SEQ_LENGTH = 20
+# C(36, 2) free upper-triangular adjacency entries (encoder_adj's width).
+NUM_TRIU_EDGES = NUM_OBJECTS * (NUM_OBJECTS - 1) // 2
 
 
 @dataclass(frozen=True)
@@ -26,6 +29,8 @@ class BertConfig:
     hidden_size: int = 768
     num_attention_heads: int = 12
     intermediate_size: int = 3072
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     initializer_range: float = 0.02
@@ -73,10 +78,44 @@ class LxmertConfig:
 
 
 @dataclass(frozen=True)
+class GGMConfig:
+    """Graph-generative-module config."""
+
+    gnn: str = "GCN"  # 'GCN' | 'GIN' | 'GAT'; the port runs GCN
+    num_layers: int = 2
+    sigma: float = 1.0  # score-matching noise scale
+    delta: int = 5  # relation-branch probability delta / 10
+    dropout: float = 0.5  # generator dropout
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Train-step and BertAdam hyperparameters."""
+
+    batch_size: int = 32
+    lr: float = 1e-5
+    warmup: float = 0.1
+    downstream_lr_mult: float = 4.0  # all but lxrt train at 4x the base lr
+    weight_decay: float = 0.01
+    grad_clip: float = 5.0
+    # Loss multipliers: the GQA values; VQA-CP uses rel_d_mult 8.
+    rel_d_mult: float = 12.0
+    rel_sm_mult: float = 6.0
+    rep_d_mult: float = 0.15
+    rep_grad_mult: float = 6.0
+    rep_sm_mult: float = 1.1
+    # VQA-CP runs the clean phase before the GGM phase; GQA the reverse.
+    clean_phase_first: bool = False
+
+
+@dataclass(frozen=True)
 class XGGMConfig:
-    """Top-level bundle: encoder config + answer vocabulary size."""
+    """Top-level bundle: encoder, GGM and training configs + answer
+    vocabulary size."""
 
     lxmert: LxmertConfig = field(default_factory=LxmertConfig)
+    ggm: GGMConfig = field(default_factory=GGMConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     num_answers: int = 1842  # GQA-OOD trainval answer vocabulary size
 
     def replace(self, **kw) -> "XGGMConfig":
@@ -84,10 +123,29 @@ class XGGMConfig:
 
 
 def gqa_ood_config(**overrides) -> XGGMConfig:
-    """GQA-OOD recipe widths: 9/5/5 layers, hidden 768, 1842 answers."""
+    """GQA-OOD recipe: 9/5/5 layers, hidden 768, 1842 answers, GCN
+    generator, batch 96, GGM phase first."""
     cfg = XGGMConfig(
         lxmert=LxmertConfig(visual=VisualConfig(l_layers=9, x_layers=5,
-                                                r_layers=5)))
+                                                r_layers=5)),
+        ggm=GGMConfig(gnn="GCN", num_layers=2, sigma=1.0, delta=5),
+        train=TrainConfig(batch_size=96, lr=5e-6,
+                          clean_phase_first=False, rel_d_mult=12.0),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def vqacpv2_config(**overrides) -> XGGMConfig:
+    """VQA-CP v2 recipe: delta 0 (the relation branch never fires), clean
+    phase first, batch 92, 16039 answers."""
+    cfg = XGGMConfig(
+        lxmert=LxmertConfig(visual=VisualConfig(l_layers=9, x_layers=5,
+                                                r_layers=5)),
+        ggm=GGMConfig(gnn="GCN", num_layers=2, sigma=1.0, delta=0),
+        train=TrainConfig(batch_size=92, lr=1e-6,
+                          clean_phase_first=True, rel_d_mult=8.0),
+        num_answers=16039,
+    )
     return cfg.replace(**overrides) if overrides else cfg
 
 
@@ -101,6 +159,8 @@ def tiny_test_config(**overrides) -> XGGMConfig:
             visual=VisualConfig(l_layers=2, x_layers=1, r_layers=1,
                                 visual_feat_dim=32, visual_pos_dim=4),
         ),
+        ggm=GGMConfig(gnn="GCN", num_layers=2, sigma=1.0, delta=5),
+        train=TrainConfig(batch_size=4, lr=1e-4),
         num_answers=16,
     )
     return cfg.replace(**overrides) if overrides else cfg

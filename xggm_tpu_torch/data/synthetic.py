@@ -3,17 +3,19 @@
 `make_synthetic_gqa` writes the same miniature GQA-OOD corpus, file for file
 and value for value, as the JAX package's (it needs `h5py`, imported inside
 it). `synthetic_obj36` makes features and boxes in memory for a machine
-without `h5py`.
+without `h5py`, and `synthetic_train_batch` a whole training batch.
 """
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
-from xggm_tpu_torch.config import NUM_OBJECTS, VISUAL_FEAT_DIM
+from xggm_tpu_torch.config import (
+    MAX_SEQ_LENGTH, NUM_OBJECTS, VISUAL_FEAT_DIM)
 from xggm_tpu_torch.data.datasets import MemoryFeatureStore
+from xggm_tpu_torch.data.tokenizer import BertTokenizer, encode_batch
 from xggm_tpu_torch.utils.io import save_json
 
 WORDS = ["what", "is", "the", "color", "of", "shape", "near", "left", "right",
@@ -63,6 +65,36 @@ def synthetic_obj36(n_images: int, feat_dim: int = VISUAL_FEAT_DIM,
     return MemoryFeatureStore(items)
 
 
+def synthetic_adjacency(rng: np.random.RandomState) -> np.ndarray:
+    """A symmetric [36, 36] float32 relation matrix scaled to max 1, as the
+    synthetic corpus stores it."""
+    a = rng.rand(NUM_OBJECTS, NUM_OBJECTS).astype(np.float32)
+    a = (a + a.T) / 2
+    return a / a.max()
+
+
+def synthetic_train_batch(n: int, num_answers: int,
+                          feat_dim: int = VISUAL_FEAT_DIM,
+                          seq_len: int = MAX_SEQ_LENGTH,
+                          seed: int = 0) -> Dict[str, np.ndarray]:
+    """One training batch of `n` synthetic questions on `n` synthetic
+    images: input_ids, input_mask, segment_ids [n, seq_len] int32 from the
+    tokenized questions, feats [n, 36, feat_dim] and boxes [n, 36, 4]
+    float32, adj [n, 36, 36] float32 and one-hot targets [n, num_answers]."""
+    tokenizer = BertTokenizer({t: i for i, t in enumerate(vocab_tokens())})
+    ids, mask, segs = encode_batch(tokenizer, synthetic_questions(n, seed),
+                                   seq_len)
+    feats, boxes = zip(*synthetic_obj36(n, feat_dim, seed).items.values())
+    rng = np.random.RandomState(seed)
+    return {
+        "input_ids": ids, "input_mask": mask, "segment_ids": segs,
+        "feats": np.stack(feats), "boxes": np.stack(boxes),
+        "adj": np.stack([synthetic_adjacency(rng) for _ in range(n)]),
+        "target": np.eye(num_answers, dtype=np.float32)[
+            rng.randint(0, num_answers, n)],
+    }
+
+
 def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
                        n_questions: int = 96, feat_dim: int = 2048,
                        seed: int = 0) -> None:
@@ -95,10 +127,7 @@ def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
             grp.create_dataset("features",
                                data=rng.randn(36, feat_dim).astype(np.float32))
             grp.create_dataset("boxes", data=boxes)
-            a = rng.rand(36, 36).astype(np.float32)
-            a = (a + a.T) / 2
-            a /= a.max()
-            adjf.create_dataset(img_id, data=a)
+            adjf.create_dataset(img_id, data=synthetic_adjacency(rng))
             info.append({"img_id": img_id, "img_h": h, "img_w": w,
                          "num_boxes": 36})
     save_json(info, os.path.join(feat, f"{split}_obj36_info.json"))

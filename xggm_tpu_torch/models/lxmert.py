@@ -8,10 +8,16 @@ the flax names, with the per-layer lists as `encoder.layer`, `.r_layers` and
 `state_dict()` key by key.
 
 Parameters are float32; matmul inputs are cast to the compute dtype
-(bfloat16 on the card); LayerNorm and softmax run in float32. Every
-attention goes through `ops.attention.mha`: the CUDA kernel on the card, its
-plain version on the CPU. Inference only: there is no dropout in this port
-yet, so every forward is the JAX package's `deterministic=True` one.
+(bfloat16 on the card); LayerNorm and softmax run in float32.
+
+Every forward takes an optional `rng` (`ops.basic.DropoutRng`). Without one
+it is the JAX package's `deterministic=True` forward, and every attention
+goes through `ops.attention.mha` (kernel 1). With one it is the training
+forward: hidden dropout at the JAX package's four sites (embeddings,
+AttOutput, Mlp, VisualFeatEncoder) draws from the rng's device generator,
+and every attention goes through `ops.attention.mha_dropout` (kernels 2 and
+3) with a fresh 31-bit seed per call, as the JAX package draws one per call.
+At probability 0 the dropout is skipped and attention takes `mha`.
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ import torch
 from torch import nn
 
 from xggm_tpu_torch.config import BertConfig, LxmertConfig
-from xggm_tpu_torch.ops.attention import mha
-from xggm_tpu_torch.ops.basic import Dense, Embedding, LayerNorm, gelu
+from xggm_tpu_torch.ops.attention import mha, mha_dropout
+from xggm_tpu_torch.ops.basic import (
+    Dense, DropoutRng, Embedding, LayerNorm, gelu, maybe_dropout)
 from xggm_tpu_torch.utils.device import resolve_device
 
 NEG_INF_MASK = -10000.0
@@ -38,12 +45,23 @@ def _dense(c: BertConfig, n_in: int, n_out: int, dtype, device) -> Dense:
     return Dense(n_in, n_out, dtype, stddev=c.initializer_range, device=device)
 
 
+def _lookup(table: Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows for `ids`, with the gradient of every position whose
+    id is 0 dropped (torch's padding_idx=0, as the JAX package's `lookup`):
+    the padding row, and the [CLS] position's row, do not train."""
+    out = table(ids)
+    if not out.requires_grad:
+        return out
+    return torch.where((ids != 0)[..., None], out, out.detach())
+
+
 class BertEmbeddings(nn.Module):
     """Word + position + token-type embeddings, then LayerNorm."""
 
     def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
         super().__init__()
         self.dtype = dtype
+        self.p = c.hidden_dropout_prob
         kw = dict(stddev=c.initializer_range, device=device)
         self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, **kw)
         self.position_embeddings = Embedding(c.max_position_embeddings,
@@ -54,14 +72,16 @@ class BertEmbeddings(nn.Module):
                                    device=device)
 
     def forward(self, input_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(pos.expand_as(input_ids))
-             + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(x).to(self.dtype)
+        x = (_lookup(self.word_embeddings, input_ids)
+             + _lookup(self.position_embeddings, pos.expand_as(input_ids))
+             + _lookup(self.token_type_embeddings, token_type_ids))
+        x = maybe_dropout(self.LayerNorm(x), self.p, rng)
+        return x.to(self.dtype)
 
 
 class Attention(nn.Module):
@@ -75,6 +95,7 @@ class Attention(nn.Module):
         self.heads = c.num_attention_heads
         self.dtype = dtype
         self.cross = cross
+        self.p = c.attention_probs_dropout_prob
         if cross:
             self.query = _dense(c, h, h, dtype, device)
             self.kv = _dense(c, h, 2 * h, dtype, device)
@@ -82,7 +103,8 @@ class Attention(nn.Module):
             self.qkv = _dense(c, h, 3 * h, dtype, device)
 
     def forward(self, hidden: torch.Tensor, context: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
+                bias: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         b, lq, width = hidden.shape
         lk = context.shape[1]
         if self.cross:
@@ -94,8 +116,11 @@ class Attention(nn.Module):
         def heads_first(x, length):
             return x.view(b, length, self.heads, -1).transpose(1, 2)
 
-        ctx = mha(heads_first(q, lq), heads_first(k, lk),
-                  heads_first(v, lk), bias)
+        q, k, v = heads_first(q, lq), heads_first(k, lk), heads_first(v, lk)
+        if rng is None or self.p == 0.0:
+            ctx = mha(q, k, v, bias)
+        else:
+            ctx = mha_dropout(q, k, v, bias, rng.seed31(), self.p)
         return ctx.transpose(1, 2).reshape(b, lq, width).to(self.dtype)
 
 
@@ -107,10 +132,12 @@ class AttOutput(nn.Module):
         self.dense = _dense(c, c.hidden_size, c.hidden_size, dtype, device)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps,
                                    device=device)
+        self.p = c.hidden_dropout_prob
 
-    def forward(self, hidden: torch.Tensor,
-                residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(hidden) + residual)
+    def forward(self, hidden: torch.Tensor, residual: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        x = maybe_dropout(self.dense(hidden), self.p, rng)
+        return self.LayerNorm(x + residual)
 
 
 class SelfAttLayer(nn.Module):
@@ -119,9 +146,9 @@ class SelfAttLayer(nn.Module):
         self.self = Attention(c, dtype, cross=False, device=device)
         self.output = AttOutput(c, dtype, device=device)
 
-    def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.output(self.self(x, x, bias), x)
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.output(self.self(x, x, bias, rng), x, rng)
 
 
 class CrossAttLayer(nn.Module):
@@ -131,8 +158,9 @@ class CrossAttLayer(nn.Module):
         self.output = AttOutput(c, dtype, device=device)
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor,
-                ctx_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.output(self.att(x, ctx, ctx_bias), x)
+                ctx_bias: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.output(self.att(x, ctx, ctx_bias, rng), x, rng)
 
 
 class Mlp(nn.Module):
@@ -146,9 +174,13 @@ class Mlp(nn.Module):
                              device)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps,
                                    device=device)
+        self.p = c.hidden_dropout_prob
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(x + self.output(gelu(self.intermediate(x))))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        h = maybe_dropout(self.output(gelu(self.intermediate(x))), self.p,
+                          rng)
+        return self.LayerNorm(x + h)
 
 
 class BertLayer(nn.Module):
@@ -157,9 +189,9 @@ class BertLayer(nn.Module):
         self.attention = SelfAttLayer(c, dtype, device=device)
         self.mlp = Mlp(c, dtype, device=device)
 
-    def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.mlp(self.attention(x, bias))
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.mlp(self.attention(x, bias, rng), rng)
 
 
 class XLayer(nn.Module):
@@ -175,13 +207,14 @@ class XLayer(nn.Module):
         self.visn_mlp = Mlp(c, dtype, device=device)
 
     def forward(self, lang: torch.Tensor, lang_bias: Optional[torch.Tensor],
-                visn: torch.Tensor, visn_bias: Optional[torch.Tensor]
+                visn: torch.Tensor, visn_bias: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        lang_x = self.visual_attention(lang, visn, visn_bias)
-        visn_x = self.visual_attention(visn, lang, lang_bias)
-        lang_x = self.lang_self_att(lang_x, lang_bias)
-        visn_x = self.visn_self_att(visn_x, visn_bias)
-        return self.lang_mlp(lang_x), self.visn_mlp(visn_x)
+        lang_x = self.visual_attention(lang, visn, visn_bias, rng)
+        visn_x = self.visual_attention(visn, lang, lang_bias, rng)
+        lang_x = self.lang_self_att(lang_x, lang_bias, rng)
+        visn_x = self.visn_self_att(visn_x, visn_bias, rng)
+        return self.lang_mlp(lang_x, rng), self.visn_mlp(visn_x, rng)
 
 
 class VisualFeatEncoder(nn.Module):
@@ -197,12 +230,13 @@ class VisualFeatEncoder(nn.Module):
         self.box_fc = _dense(c, v.visual_pos_dim, c.hidden_size, dt, device)
         self.box_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps,
                                         device=device)
+        self.p = c.hidden_dropout_prob
 
-    def forward(self, feats: torch.Tensor,
-                boxes: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, boxes: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         x = self.visn_layer_norm(self.visn_fc(feats.to(self.dtype)))
         y = self.box_layer_norm(self.box_fc(boxes.to(self.dtype)))
-        return (x + y) * 0.5
+        return maybe_dropout((x + y) * 0.5, self.p, rng)
 
 
 class Pooler(nn.Module):
@@ -237,15 +271,16 @@ class LxmertEncoder(nn.Module):
 
     def forward(self, lang: torch.Tensor, lang_bias: Optional[torch.Tensor],
                 feats: torch.Tensor, boxes: torch.Tensor,
-                visn_bias: Optional[torch.Tensor] = None
+                visn_bias: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        visn = self.visn_fc(feats, boxes)
+        visn = self.visn_fc(feats, boxes, rng)
         for layer in self.layer:
-            lang = layer(lang, lang_bias)
+            lang = layer(lang, lang_bias, rng)
         for layer in self.r_layers:
-            visn = layer(visn, visn_bias)
+            visn = layer(visn, visn_bias, rng)
         for layer in self.x_layers:
-            lang, visn = layer(lang, lang_bias, visn, visn_bias)
+            lang, visn = layer(lang, lang_bias, visn, visn_bias, rng)
         return lang, visn
 
 
@@ -268,13 +303,15 @@ class LxmertModel(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 feats: Optional[torch.Tensor] = None,
                 boxes: Optional[torch.Tensor] = None,
-                visn_mask: Optional[torch.Tensor] = None):
+                visn_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None):
         if input_mask is None:
             input_mask = torch.ones_like(input_ids)
         lang_bias = additive_mask(input_mask)
         visn_bias = None if visn_mask is None else additive_mask(visn_mask)
-        emb = self.embeddings(input_ids, token_type_ids)
-        lang, visn = self.encoder(emb, lang_bias, feats, boxes, visn_bias)
+        emb = self.embeddings(input_ids, token_type_ids, rng)
+        lang, visn = self.encoder(emb, lang_bias, feats, boxes, visn_bias,
+                                  rng)
         return (lang, visn), self.pooler(lang)
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source `xggm_tpu_torch/csrc/<name>.cu` has a plain C interface.
-It is compiled with `nvcc` for `sm_90a` into `build/xggm_tpu_torch/lib<name>.so`
-at the checkout's root, on first use, and loaded with ctypes. A missing `nvcc`
+Each kernel source `xggm_tpu_torch/csrc/<name>.cu` has a plain C interface
+and may include the shared headers `csrc/*.cuh`. It is compiled with `nvcc`
+for `sm_90a` into `build/xggm_tpu_torch/lib<name>.so` at the checkout's
+root, on first use, and loaded with ctypes. A missing `nvcc`
 or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
@@ -35,6 +36,12 @@ class BuildResult:
 
 def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def _newest_input(name: str) -> float:
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+               if f.endswith(".cuh")]
+    return max(os.path.getmtime(p) for p in [source_path(name), *headers])
 
 
 def library_path(name: str) -> str:
@@ -72,13 +79,13 @@ def build(name: str) -> BuildResult:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if it is missing
-    or older than its source."""
+    or older than its source or a shared header."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             out = library_path(name)
-            if (not os.path.exists(out) or os.path.getmtime(out)
-                    < os.path.getmtime(source_path(name))):
+            if (not os.path.exists(out)
+                    or os.path.getmtime(out) < _newest_input(name)):
                 build(name)
             lib = _LIBS[name] = ctypes.CDLL(out)
         return lib

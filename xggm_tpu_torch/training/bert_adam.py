@@ -1,0 +1,168 @@
+"""BertAdam (counterpart of the default tree path of
+`xggm_tpu/training/bert_adam.py::bert_adam` and of `lr_scale_tree`).
+
+It keeps the quirks that change training dynamics:
+* no bias correction: the update is m / (sqrt(v) + eps);
+* decoupled weight decay on every parameter: the update adds wd * p;
+* the scheduled lr of a parameter is taken from its own counter BEFORE the
+  counter increments, so under warmup its first update has lr 0;
+* lazy activation: a parameter is skipped until its first nonzero
+  gradient; from then on it updates at every step (moment decay and weight
+  decay on zero gradients) with its own counter. A gradient of None (a
+  parameter outside the step's graph) counts as zero.
+
+Parameters and gradients are dicts keyed by the model's parameter names.
+The per-parameter counters, flags and schedule live on the device as
+vectors, so a step reads nothing back to the host.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterable, Mapping, Optional, Set
+
+import torch
+
+
+def _w(x: torch.Tensor, warmup: float) -> torch.Tensor:
+    return torch.tensor(warmup, dtype=torch.float32, device=x.device)
+
+
+def warmup_linear(x: torch.Tensor, warmup: float = 0.002) -> torch.Tensor:
+    """Triangular: x / warmup up to warmup, then down to 0 at x = 1."""
+    w = _w(x, warmup)
+    return torch.where(x < w, x / w, ((x - 1.0) / (w - 1.0)).clamp_min(0.0))
+
+
+def warmup_cosine(x: torch.Tensor, warmup: float = 0.002) -> torch.Tensor:
+    w = _w(x, warmup)
+    return torch.where(x < w, x / w, 0.5 * (1.0 + torch.cos(math.pi * x)))
+
+
+def warmup_constant(x: torch.Tensor, warmup: float = 0.002) -> torch.Tensor:
+    w = _w(x, warmup)
+    return torch.where(x < w, x / w, torch.ones_like(x))
+
+
+SCHEDULES = {
+    "warmup_linear": warmup_linear,
+    "warmup_cosine": warmup_cosine,
+    "warmup_constant": warmup_constant,
+}
+
+
+@dataclass
+class BertAdamState:
+    """Moments per parameter; per-parameter lr scales, counters and
+    activation flags as vectors in `names` order; the global update count;
+    and the names that have had a gradient (the others are certainly
+    inactive and are skipped)."""
+
+    names: list
+    m: Dict[str, torch.Tensor]
+    v: Dict[str, torch.Tensor]
+    lr_scale: torch.Tensor  # float32 [n]
+    leaf_count: torch.Tensor  # int32 [n]
+    active: torch.Tensor  # bool [n]
+    count: int = 0
+    touched: Set[str] = field(default_factory=set)
+
+    def leaf_counts(self) -> Dict[str, int]:
+        return dict(zip(self.names, self.leaf_count.tolist()))
+
+    def active_flags(self) -> Dict[str, bool]:
+        return dict(zip(self.names, self.active.tolist()))
+
+
+class BertAdam:
+    """Adam without bias correction, with a scheduled lr per parameter and
+    decoupled weight decay. `lr_scale` maps parameter names to lr
+    multipliers (1.0 where absent). Gradient clipping stays with the caller
+    (the train steps clip to a global norm first)."""
+
+    def __init__(self, lr: float, warmup: float = -1.0, t_total: int = -1,
+                 schedule: str = "warmup_linear", b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.01,
+                 lr_scale: Optional[Mapping[str, float]] = None):
+        if schedule not in SCHEDULES:
+            raise ValueError(f"unknown schedule {schedule!r}")
+        self.lr, self.warmup, self.t_total = lr, warmup, t_total
+        self.schedule = SCHEDULES[schedule]
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.lr_scale = dict(lr_scale or {})
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> BertAdamState:
+        names = list(params)
+        dev = next(iter(params.values())).device
+        return BertAdamState(
+            names=names,
+            m={n: torch.zeros_like(p) for n, p in params.items()},
+            v={n: torch.zeros_like(p) for n, p in params.items()},
+            lr_scale=torch.tensor([self.lr_scale.get(n, 1.0) for n in names],
+                                  dtype=torch.float32, device=dev),
+            leaf_count=torch.zeros(len(names), dtype=torch.int32, device=dev),
+            active=torch.zeros(len(names), dtype=torch.bool, device=dev))
+
+    def _leaf_lr(self, cnt: torch.Tensor) -> torch.Tensor:
+        if self.t_total != -1 and self.warmup != -1:
+            progress = cnt.float() / float(self.t_total)
+            return self.lr * self.schedule(progress, self.warmup)
+        return torch.full(cnt.shape, self.lr, dtype=torch.float32,
+                          device=cnt.device)
+
+    @torch.no_grad()
+    def step(self, params: Mapping[str, torch.Tensor],
+             grads: Mapping[str, Optional[torch.Tensor]],
+             state: BertAdamState) -> None:
+        """One update of `params` in place from `grads` (None: zero)."""
+        b1, b2 = self.b1, self.b2
+        index = {n: i for i, n in enumerate(state.names)}
+        with_grad = [n for n in state.names if grads.get(n) is not None]
+        state.touched.update(with_grad)
+        no_grad = [n for n in state.names
+                   if grads.get(n) is None and n in state.touched]
+        live = with_grad + no_grad
+
+        if with_grad:
+            gs = [grads[n] for n in with_grad]
+            idx = torch.tensor([index[n] for n in with_grad],
+                               device=state.active.device)
+            nonzero = torch.stack(torch._foreach_norm(gs, float("inf"))) > 0
+            state.active[idx] |= nonzero
+            ms = [state.m[n] for n in with_grad]
+            vs = [state.v[n] for n in with_grad]
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, torch._foreach_mul(
+                torch._foreach_mul(gs, 1.0 - b2), gs))
+        if no_grad:
+            torch._foreach_mul_([state.m[n] for n in no_grad], b1)
+            torch._foreach_mul_([state.v[n] for n in no_grad], b2)
+
+        if live:
+            ps = [params[n] for n in live]
+            denom = torch._foreach_sqrt([state.v[n] for n in live])
+            torch._foreach_add_(denom, self.eps)
+            upd = torch._foreach_div([state.m[n] for n in live], denom)
+            if self.weight_decay > 0.0:
+                torch._foreach_add_(upd, torch._foreach_mul(
+                    ps, self.weight_decay))
+            lr = self._leaf_lr(state.leaf_count) * state.lr_scale
+            factor = torch.where(state.active, -lr, 0.0)
+            idx = torch.tensor([index[n] for n in live],
+                               device=factor.device)
+            torch._foreach_mul_(upd, factor[idx].unbind())
+            torch._foreach_add_(ps, upd)
+        state.leaf_count += state.active.int()
+        state.count += 1
+
+
+def lr_scale_tree(names: Iterable[str], predicate: Callable[[str], bool],
+                  scale_true: float, scale_false: float) -> Dict[str, float]:
+    """{name: scale_true if predicate(name) else scale_false}: e.g. the
+    encoder at 1/4 of the downstream lr with
+    `predicate=lambda n: not n.startswith("lxrt.")`."""
+    return {n: scale_true if predicate(n) else scale_false for n in names}
