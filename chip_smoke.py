@@ -7,9 +7,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device   the card's name, count and power limit; TF32 off for matmuls.
 2. build    nvcc builds every kernel source for sm_90a, one nvcc per source,
-            all started together: attention_fwd.cu (kernel 1) and
-            attention_dropout.cu (kernels 2 and 3), with -Xptxas -v
-            (registers, shared memory, spills).
+            all started together: attention_fwd.cu (kernel 1),
+            attention_dropout.cu (kernels 2 and 3), attention_blhd.cu
+            (kernels 4, 5 and 6) and bert_adam.cu (kernel 7), with
+            -Xptxas -v (registers, shared memory, spills).
 3. kernel   kernel 1 against its plain PyTorch version at the four shapes
             of the serving path, batch 512, bf16 with and without a key
             mask, plus one fp32 check: max abs error against the stated
@@ -25,16 +26,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             sigma, and its dependence on the row and the seed; kernel, plain
             and library times (SDPA with dropout_p=0.1 forward and
             forward+backward; the memory-efficient attention's backward alone
-            from a saved forward) and the bandwidth bounds.
-5. serving  gqa_ood_config() at full width (9/5/5 layers, hidden 768, 12
+            from a saved forward, at dropout_p 0.1 and, for kernel 1's
+            backward, 0) and the bandwidth bounds.
+5. blhd     kernels 4, 5 and 6 (the [B, L, H, 64] layout) at the training
+            batch, the four shapes x {bf16, fp32}, rate 0.1: each against its
+            plain version and against kernels 1, 2 and 3 on the permuted
+            inputs with the same seed (bit for bit expected; at most one
+            bf16 ulp allowed), kernel 5's own mask against the Philox mask of
+            row b * H + h; kernel, plain and library times (SDPA, and the
+            memory-efficient attention's backward from a saved forward, on
+            strided views of the same BLHD storage) and the bandwidth bounds;
+            then the entry points mha_blhd and mha_dropout_blhd forward and
+            backward, as many times as a training forward attends (34 per
+            kernel, 68 for kernel 6).
+6. serving  gqa_ood_config() at full width (9/5/5 layers, hidden 768, 12
             heads, 1842 answers, 2048-d features) in bf16 with seeded random
             weights, behind the HTTP server: POSTs of 1, 16 and 64 queries,
             answers checked against the answer vocabulary, 34 kernel
             launches per forward, logits against the same model with the
             plain attention.
-6. timing   served pairs/s and p50 latency at batch 64, predict_logits
+7. timing   served pairs/s and p50 latency at batch 64, predict_logits
             pairs/s at batch 512, peak device memory.
-7. train    the same configuration as a training model (GCN generator, 2
+8. train    the same configuration as a training model (GCN generator, 2
             layers, sigma 1; hidden and attention dropout 0.1, GGM dropout
             0.5), bf16 compute over fp32 masters, BertAdam at lr 4 x 5e-6
             with lxrt at 1/4 of it, warmup 0.1 of t_total 10000, one
@@ -53,8 +66,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             10 batches, pairs/s and peak device memory; and one batch under
             torch.profiler: the device's busy and idle share and its time by
             kernel.
-8. summary  the kernels line, the card's name and power limit, and last
-            {"ok": true, "device": {...}}.
+9. fused    the same training model with BertAdam(fused=True) (kernel 7, one
+   train    launch per update): the branch plan with 8 kernel-7 launches
+            for 4 batches and the checks of phase 8; kernel 7 against its
+            plain version over the full 395-parameter state with one null
+            gradient and one inactive parameter (rtol 1e-6, atol 1e-7), and
+            its time per update against its bound, beside
+            torch._fused_adamw_ over the same tensors (another function: it
+            corrects the moments' bias); from one copied state and one
+            batch, one GGM-phase update through the fused path against the
+            tree path (the same tolerances, counters and flags exactly);
+            then ms per two-phase batch over 10 batches, pairs/s and peak
+            device memory for the tree and the fused update in turns on this
+            one model (tree, fused, fused, tree), and one profiled batch
+            with BertAdam's device time against phase 8's.
+10. summary the kernels line (all seven kernels), the card's name and power
+            limit, and last {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -90,11 +117,14 @@ FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 # attention outputs carried through 19 layers; logits have std ~0.8 here.
 LOGITS_ATOL = 0.1
 MIN_ARGMAX_AGREEMENT = 0.9
-# H100 SXM published peaks (dense): HBM bytes/s and bf16 FLOP/s.
+# H100 SXM published peaks (dense): HBM bytes/s, bf16 FLOP/s on the tensor
+# cores, fp32 FLOP/s outside them.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 SERVE_BATCHES = (1, 16, 64)
-KERNEL_SOURCES = ("attention_fwd", "attention_dropout")
+KERNEL_SOURCES = ("attention_fwd", "attention_dropout", "attention_blhd",
+                  "bert_adam")
 # The training path: attention-probability dropout 0.1 at the batch of the
 # GQA-OOD recipe (96); a two-phase batch runs two forwards and two backwards.
 RATE = 0.1
@@ -117,6 +147,14 @@ T_TOTAL = 10_000
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-2
 PARAM_GRAD_RTOL = 5e-2
+# Kernel 7 against its plain version, and the fused update against the tree
+# update: the tolerances of tests/test_fused_optim.py (fp32 on both sides;
+# the kernel rounds every operation as the plain version does).
+ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
+UPDATES_PER_BATCH = 2
+# An update reads g, m, v, p and writes m, v, p: 28 bytes per fp32 element
+# (24 where the gradient is null), and some 15 FLOPs.
+ADAM_BYTES, ADAM_FLOPS = 28, 15
 
 
 def emit(phase: str, **fields) -> None:
@@ -143,12 +181,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     """(least ms, "bytes" or "operations"): the bytes over HBM bandwidth
-    against the FLOPs at the bf16 peak; the larger bounds it."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    against the FLOPs at `peak` (the bf16 peak unless said); the larger
+    bounds it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+def pass_bounds(lq: int, lk: int, masked: bool, b: int, elem: int):
+    """Bounds of one forward (kernels 2 and 5) and one backward (kernels 3
+    and 6) at batch b: q, k, v (and g) read once, o (dq, dk, dv) written
+    once, the bias read once; 4 and 10 B H Lq Lk D FLOPs."""
+    bh = b * H
+    bias_bytes = 4 * b * lk if masked else 0
+    return (bound(elem * bh * D * (2 * lq + 2 * lk) + bias_bytes,
+                  4 * bh * lq * lk * D),
+            bound(elem * bh * D * (3 * lq + 4 * lk) + bias_bytes,
+                  10 * bh * lq * lk * D))
 
 
 def attention_bound(lq: int, lk: int, masked: bool, elem: int):
@@ -232,6 +283,30 @@ def phase_kernel(torch, attn):
     return rows
 
 
+def library_padded_bias(F, mask4, b, lq, lk):
+    """The library's bias [B, H, Lq, Lk] with rows padded to 16 elements,
+    as SDPA pads it (None: no mask)."""
+    if mask4 is None:
+        return None
+    return F.pad(mask4.expand(b, H, lq, lk), (0, -lk % 16))[..., :lk]
+
+
+def library_backward(torch, q4, k4, v4, g4, lib_bias, rate: float):
+    """The memory-efficient attention's backward alone, as a function of no
+    arguments: fed its own forward's output, log-sum-exp and Philox state
+    (its own RNG: timing only), at dropout_p `rate`."""
+    out, lse, pseed, poff = \
+        torch.ops.aten._scaled_dot_product_efficient_attention(
+            q4, k4, v4, lib_bias, True, rate)
+
+    def run():
+        torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            g4, q4, k4, v4, lib_bias, out, lse, pseed, poff, rate,
+            [True, True, True, False])
+
+    return run
+
+
 def float64_grads(q, k, v, bias, keep, g):
     """(dq, dk, dv) of the dropout attention in float64."""
     import torch
@@ -313,28 +388,12 @@ def phase_dropout(torch, attn, philox, train_b: int):
                         *r4, attn_mask=mask4, dropout_p=RATE)
                     torch.autograd.grad(out, r4, g4)
 
-                # the library's backward alone: the memory-efficient
-                # attention's, from its own forward's output, log-sum-exp
-                # and Philox state (its own RNG: timing only). Its bias is
-                # [B, H, Lq, Lk] with rows padded to 16 elements, as SDPA
-                # pads it.
-                lib_bias = None if mask4 is None else F.pad(
-                    mask4.expand(train_b, H, lq, lk), (0, -lk % 16))[..., :lk]
-                lib_out, lse, pseed, poff = \
-                    torch.ops.aten._scaled_dot_product_efficient_attention(
-                        q4, k4, v4, lib_bias, True, RATE)
-
-                def library_bwd():
-                    torch.ops.aten._scaled_dot_product_efficient_attention_backward(
-                        g4, q4, k4, v4, lib_bias, lib_out, lse, pseed, poff,
-                        RATE, [True, True, True, False])
-
-                elem = 2
-                bias_bytes = 4 * train_b * lk if masked else 0
-                fwd_bound = bound(elem * bh * D * (2 * lq + 2 * lk)
-                                  + bias_bytes, 4 * bh * lq * lk * D)
-                bwd_bound = bound(elem * bh * D * (3 * lq + 4 * lk)
-                                  + bias_bytes, 10 * bh * lq * lk * D)
+                lib_bias = library_padded_bias(F, mask4, train_b, lq, lk)
+                library_bwd = library_backward(torch, q4, k4, v4, g4,
+                                               lib_bias, RATE)
+                library_bwd0 = library_backward(torch, q4, k4, v4, g4,
+                                                lib_bias, 0.0)
+                fwd_bound, bwd_bound = pass_bounds(lq, lk, masked, train_b, 2)
                 row.update(
                     fwd_ms=cuda_ms(lambda: attn.attention_dropout_fwd(
                         q, k, v, bias, H, seed, RATE)),
@@ -352,6 +411,7 @@ def phase_dropout(torch, attn, philox, train_b: int):
                         q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
                     sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd),
                     library_bwd_ms=cuda_ms(library_bwd),
+                    k1_library_bwd_ms=cuda_ms(library_bwd0),
                     fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                     bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
                 row["fwd_bound_share"] = row["fwd_bound_ms"] / row["fwd_ms"]
@@ -393,6 +453,165 @@ def phase_dropout(torch, attn, philox, train_b: int):
     return rows
 
 
+def phase_blhd(torch, attn, philox, train_b: int):
+    """Kernels 4, 5 and 6 at the training batch, in the BLHD layout."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bh = train_b * H
+
+    def rows_of(x):  # [B, L, H, n] -> [B * H, L, n]
+        return x.transpose(1, 2).reshape(bh, x.shape[1], x.shape[3])
+
+    def blhd_of(x):  # [B * H, L, n] -> [B, L, H, n]
+        return x.view(train_b, H, x.shape[1], x.shape[2]).transpose(1, 2)
+
+    def inputs(lq, lk, masked, dtype):
+        q, k, v, gout = (
+            torch.randn(train_b, n, H, D, device="cuda", generator=g).to(dtype)
+            for n in (lq, lk, lk, lq))
+        bias = None
+        if masked:
+            bias = (torch.rand(train_b, lk, device="cuda", generator=g)
+                    < 0.2).float() * -10000.0
+        return q, k, v, bias, gout
+
+    rows = []
+    for lq, lk, masked, per_fwd in PATH_SHAPES:
+        seed = 3000 * lq + lk
+        keep = philox.dropout_keep(seed, bh, lq, lk, RATE, "cuda")
+
+        def plain_keep():
+            return philox.dropout_keep(seed, bh, lq, lk, RATE, "cuda")
+
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+            q, k, v, bias, gout = inputs(lq, lk, masked, dtype)
+            ours = [attn._attention_blhd_fwd(q, k, v, bias),
+                    attn.attention_dropout_blhd_fwd(q, k, v, bias, seed,
+                                                    RATE),
+                    *attn.attention_dropout_blhd_bwd(q, k, v, bias, seed,
+                                                     RATE, gout),
+                    *attn.attention_dropout_blhd_bwd(q, k, v, bias, 0, 0.0,
+                                                     gout)]
+            # kernels 1 to 3 on the permuted inputs, the same seed
+            qf, kf, vf, gf = (rows_of(t).contiguous()
+                              for t in (q, k, v, gout))
+            flat = [attn._attention_fwd(qf, kf, vf, bias, H),
+                    attn.attention_dropout_fwd(qf, kf, vf, bias, H, seed,
+                                               RATE),
+                    *attn.attention_dropout_bwd(qf, kf, vf, bias, H, seed,
+                                                RATE, gf),
+                    *attn.attention_dropout_bwd(qf, kf, vf, bias, H, 0, 0.0,
+                                                gf)]
+            torch.cuda.synchronize()
+            plain = [attn.attention_blhd_reference(q, k, v, bias),
+                     attn.attention_dropout_blhd_reference(q, k, v, bias,
+                                                           keep),
+                     *attn.attention_dropout_blhd_reference_grads(
+                         q, k, v, bias, keep, gout),
+                     *attn.attention_dropout_blhd_reference_grads(
+                         q, k, v, bias, None, gout)]
+            errs = [max_err(a, w) for a, w in zip(ours, plain)]
+            row = dict(
+                lq=lq, lk=lk, mask=masked, dtype=str(dtype).split(".")[1],
+                tolerance=tol, launches_per_forward=per_fwd,
+                k4_max_abs_err=errs[0], k5_max_abs_err=errs[1],
+                k6_max_abs_err=max(errs[2:5]),
+                k6_rate0_max_abs_err=max(errs[5:]),
+                within=all(within(a, w, tol) for a, w in zip(ours, plain)),
+                vs_kernels_1_to_3_max_abs_err=max(
+                    max_err(a, blhd_of(w)) for a, w in zip(ours, flat)),
+                vs_kernels_1_to_3_within_one_bf16_ulp=all(
+                    within(a, blhd_of(w), BF16_TOL)
+                    for a, w in zip(ours, flat)))
+            if dtype == torch.bfloat16:
+                # the library on strided [B, H, L, D] views of the same
+                # BLHD storage: no copy
+                q4, k4, v4, g4 = (t.transpose(1, 2) for t in (q, k, v, gout))
+                mask4 = None if bias is None else \
+                    bias.to(dtype)[:, None, None, :]
+                library_bwd = library_backward(
+                    torch, q4, k4, v4, g4,
+                    library_padded_bias(F, mask4, train_b, lq, lk), RATE)
+                fwd_bound, bwd_bound = pass_bounds(lq, lk, masked, train_b, 2)
+                row.update(
+                    k4_ms=cuda_ms(lambda: attn._attention_blhd_fwd(
+                        q, k, v, bias)),
+                    k5_ms=cuda_ms(lambda: attn.attention_dropout_blhd_fwd(
+                        q, k, v, bias, seed, RATE)),
+                    k6_ms=cuda_ms(lambda: attn.attention_dropout_blhd_bwd(
+                        q, k, v, bias, seed, RATE, gout)),
+                    k4_bwd_ms=cuda_ms(lambda: attn.attention_dropout_blhd_bwd(
+                        q, k, v, bias, 0, 0.0, gout)),
+                    plain_k4_ms=cuda_ms(lambda: attn.attention_blhd_reference(
+                        q, k, v, bias)),
+                    plain_k5_ms=cuda_ms(
+                        lambda: attn.attention_dropout_blhd_reference(
+                            q, k, v, bias, plain_keep())),
+                    plain_k6_ms=cuda_ms(
+                        lambda: attn.attention_dropout_blhd_reference_grads(
+                            q, k, v, bias, plain_keep(), gout)),
+                    sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4)),
+                    sdpa_dropout_fwd_ms=cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
+                    library_bwd_ms=cuda_ms(library_bwd),
+                    fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+            emit("blhd", **row)
+            rows.append(row)
+
+        # kernel 5's own mask: q = k = 0 makes every p 1 / Lk, and an
+        # identity v puts p * m[i, j] at o[b, i, h, j]
+        zq = torch.zeros(train_b, lq, H, D, device="cuda")
+        zk = torch.zeros(train_b, lk, H, D, device="cuda")
+        eye = torch.eye(lk, D, device="cuda")[None, :, None, :].expand(
+            train_b, lk, H, D).contiguous()
+        drawn = attn.attention_dropout_blhd_fwd(zq, zk, eye, None, seed,
+                                                RATE)[..., :lk] > 0
+        same = bool(torch.equal(rows_of(drawn), keep > 0))
+        emit("blhd_mask", lq=lq, lk=lk, draws=drawn.numel(),
+             equals_philox_mask_of_row_b_times_h_plus_h=same)
+        check(same, f"kernel 5's mask at {(lq, lk)} is not the Philox mask "
+                    "of row b * H + h")
+
+    bad = [(r["lq"], r["lk"], r["dtype"]) for r in rows if not r["within"]]
+    check(not bad, f"kernels 4 to 6 vs their plain versions failed at {bad}")
+    bad = [(r["lq"], r["lk"], r["dtype"], r["vs_kernels_1_to_3_max_abs_err"])
+           for r in rows if not r["vs_kernels_1_to_3_within_one_bf16_ulp"]]
+    check(not bad, f"kernels 4 to 6 vs kernels 1 to 3 on the permuted "
+                   f"inputs, more than one bf16 ulp apart: {bad}")
+
+    # the main path of kernels 4 to 6, their entry points: mha_blhd and
+    # mha_dropout_blhd forward and backward at each shape as often as a
+    # training forward attends there; counts at 0 just before, read after
+    path = [(inputs(lq, lk, masked, torch.bfloat16), per_fwd)
+            for lq, lk, masked, per_fwd in PATH_SHAPES]
+    counters = {"attention_blhd_fwd": attn.fused_attention_blhd,
+                "attention_dropout_blhd_fwd": attn.attention_dropout_blhd_fwd,
+                "attention_dropout_blhd_bwd": attn.attention_dropout_blhd_bwd}
+    for c in counters.values():
+        c.launches = 0
+    for (q, k, v, bias, gout), per_fwd in path:
+        for i in range(per_fwd):
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            torch.autograd.grad(attn.mha_blhd(*qkv, bias), qkv, gout)
+            torch.autograd.grad(attn.mha_dropout_blhd(*qkv, bias, 100 + i,
+                                                      RATE), qkv, gout)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    emit("blhd_path", launches=launches,
+         calls="mha_blhd and mha_dropout_blhd, forward and backward, "
+               f"{LAUNCHES_PER_FORWARD} times each at B={train_b}, bf16")
+    want = {"attention_blhd_fwd": LAUNCHES_PER_FORWARD,
+            "attention_dropout_blhd_fwd": LAUNCHES_PER_FORWARD,
+            "attention_dropout_blhd_bwd": 2 * LAUNCHES_PER_FORWARD}
+    check(launches == want, f"BLHD launches {launches}, expected {want}")
+    return rows, launches
+
+
 def grad_agreement(torch, names, kernels, plain) -> dict:
     """Relative L2 distance of two gradient lists (None: outside the
     graph): over all parameters together, and the largest over single
@@ -412,16 +631,17 @@ def grad_agreement(torch, names, kernels, plain) -> dict:
                 median_param_grad_rel_l2=float(rel[norm > 0].median()))
 
 
-def phase_train(torch, attn, philox):
-    """The GGM train step at full width through kernels 2 and 3."""
+def train_setup(torch, fused: bool):
+    """The full-width training model, BertAdam (`fused`: kernel 7), its
+    state, the two branch steps and one synthetic batch of 96."""
+    from types import SimpleNamespace
+
     from xggm_tpu_torch.config import gqa_ood_config
     from xggm_tpu_torch.data.synthetic import synthetic_train_batch
     from xggm_tpu_torch.models.task_model import XGGMModel
     from xggm_tpu_torch.ops.basic import init_weights
     from xggm_tpu_torch.training.bert_adam import BertAdam, lr_scale_tree
-    from xggm_tpu_torch.training.steps import (
-        TrainState, make_clean_loss, make_ggm_loss, make_ggm_train_step,
-        phase_seeds)
+    from xggm_tpu_torch.training.steps import TrainState, make_ggm_train_step
 
     cfg = gqa_ood_config()
     lx, tc = cfg.lxmert.replace(dtype="bfloat16"), cfg.train
@@ -431,11 +651,15 @@ def phase_train(torch, attn, philox):
         XGGMModel(lx, cfg.num_answers, cfg.ggm, device="cuda"), gen)
     names = [n for n, _ in model.named_parameters()]
     mult = tc.downstream_lr_mult
-    opt = BertAdam(tc.lr * mult, warmup=tc.warmup, t_total=T_TOTAL,
-                   weight_decay=tc.weight_decay,
-                   lr_scale=lr_scale_tree(
-                       names, lambda n: not n.startswith("lxrt."), 1.0,
-                       1.0 / mult))
+
+    def make_opt(fused_opt: bool) -> BertAdam:
+        return BertAdam(tc.lr * mult, warmup=tc.warmup, t_total=T_TOTAL,
+                        weight_decay=tc.weight_decay,
+                        lr_scale=lr_scale_tree(
+                            names, lambda n: not n.startswith("lxrt."), 1.0,
+                            1.0 / mult), fused=fused_opt)
+
+    opt = make_opt(fused)
     state = TrainState.create(model, opt)
     steps = {br: make_ggm_train_step(model, opt, tc, br)
              for br in ("relation", "representation")}
@@ -445,15 +669,22 @@ def phase_train(torch, attn, philox):
                                    seed=SEED).items()}
     for k in ("input_ids", "input_mask", "segment_ids"):
         batch[k] = batch[k].long()
-    node_fc = [n for n in names if n.startswith("node_fc.")]
+    return SimpleNamespace(cfg=cfg, tc=tc, train_b=train_b, model=model,
+                           names=names, opt=opt, make_opt=make_opt,
+                           state=state, steps=steps, batch=batch)
 
-    # the main path: counts at 0 just before, read just after
-    attn.fused_attention.launches = 0
-    attn.attention_dropout_fwd.launches = 0
-    attn.attention_dropout_bwd.launches = 0
+
+def drive_plan(torch, t, phase: str, counters: dict) -> dict:
+    """The main path: the branch plan through the train steps, every count
+    of `counters` ({name: wrapper}) at 0 just before and read just after;
+    the plan's checks. Returns the counts."""
+    node_fc = [n for n in t.names if n.startswith("node_fc.")]
+    for c in counters.values():
+        c.launches = 0
     metrics, node_fc_trace = [], []
+    state = t.state
     for i, br in enumerate(PLAN):
-        state, m = steps[br](state, batch, i)
+        state, m = t.steps[br](state, t.batch, i)
         metrics.append(m)
         active, counts = (state.opt_state.active_flags(),
                           state.opt_state.leaf_counts())
@@ -461,23 +692,22 @@ def phase_train(torch, attn, philox):
                               any(active[n] for n in node_fc),
                               sorted({counts[n] for n in node_fc})))
     torch.cuda.synchronize()
-    launches = {"attention_fwd": attn.fused_attention.launches,
-                "attention_dropout_fwd": attn.attention_dropout_fwd.launches,
-                "attention_dropout_bwd": attn.attention_dropout_bwd.launches}
+    launches = {name: c.launches for name, c in counters.items()}
     losses = [{k: float(v) for k, v in m.items() if v.dim() == 0}
               for m in metrics]
     lxrt_count = state.opt_state.leaf_counts()["lxrt.pooler.dense.weight"]
-    emit("train", plan=list(PLAN), losses=losses, launches=launches,
+    emit(phase, plan=list(PLAN), losses=losses, launches=launches,
          launches_per_batch={k: v / len(PLAN) for k, v in launches.items()},
          optimizer_count=state.opt_state.count,
          lxrt_pooler_leaf_count=lxrt_count,
          node_fc_all_active_any_active_counts=node_fc_trace,
-         params=sum(p.numel() for p in model.parameters()))
+         params=sum(p.numel() for p in t.model.parameters()))
     check(all(math.isfinite(x) for d in losses for x in d.values()),
           f"non-finite train loss: {losses}")
-    check(state.opt_state.count == 2 * len(PLAN),
+    check(state.opt_state.count == UPDATES_PER_BATCH * len(PLAN),
           f"optimizer count {state.opt_state.count} after {len(PLAN)} batches")
-    check(lxrt_count == 2 * len(PLAN), f"lxrt leaf count {lxrt_count}")
+    check(lxrt_count == UPDATES_PER_BATCH * len(PLAN),
+          f"lxrt leaf count {lxrt_count}")
     # node_fc joins at the first representation batch (the second), then
     # updates in both phases of every batch
     check(node_fc_trace[0][:2] == (False, False)
@@ -489,6 +719,43 @@ def phase_train(torch, attn, philox):
         check(launches[key] == per_batch * len(PLAN),
               f"{launches[key]} {key} launches for {len(PLAN)} batches, "
               f"expected {per_batch} each")
+    return launches
+
+
+def time_batches(torch, t) -> dict:
+    """ms per two-phase batch over TIMED_BATCHES batches of the branches in
+    turn, pairs/s and peak device memory."""
+    state = t.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TIMED_BATCHES):
+        br = ("relation", "representation")[i % 2]
+        state, m = t.steps[br](state, t.batch, 1000 + i)
+    final = float(m["clean_loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(math.isfinite(final), "non-finite loss in the timed batches")
+    return dict(batches=TIMED_BATCHES, batch_size=t.train_b,
+                ms_per_batch=dt / TIMED_BATCHES * 1e3,
+                pairs_per_s=t.train_b * TIMED_BATCHES / dt,
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                final_clean_loss=final)
+
+
+def phase_train(torch, attn, philox):
+    """The GGM train step at full width through kernels 2 and 3, with the
+    tree BertAdam. Returns the main path's counts and the profile."""
+    from xggm_tpu_torch.training.steps import (
+        make_clean_loss, make_ggm_loss, phase_seeds)
+
+    t = train_setup(torch, fused=False)
+    model, tc, cfg, names, batch = t.model, t.tc, t.cfg, t.names, t.batch
+    launches = drive_plan(torch, t, "train", {
+        "attention_fwd": attn.fused_attention,
+        "attention_dropout_fwd": attn.attention_dropout_fwd,
+        "attention_dropout_bwd": attn.attention_dropout_bwd})
+    state = t.state
 
     # each phase's loss and gradients from this state and seeds, through the
     # kernels and through the plain attention: the same Philox masks, so
@@ -531,35 +798,216 @@ def phase_train(torch, attn, philox):
     check(not bad, f"losses and gradients with kernels vs plain "
                    f"attention: {bad}")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i in range(TIMED_BATCHES):
-        br = ("relation", "representation")[i % 2]
-        state, m = steps[br](state, batch, 1000 + i)
-    final = float(m["clean_loss"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    timing = dict(batches=TIMED_BATCHES, batch_size=train_b,
-                  ms_per_batch=dt / TIMED_BATCHES * 1e3,
-                  pairs_per_s=train_b * TIMED_BATCHES / dt,
-                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-                  final_clean_loss=final)
+    timing = time_batches(torch, t)
     emit("train_timing", **timing)
-    check(math.isfinite(final), "non-finite loss in the timed batches")
-    emit("train_profile", **profile_batch(torch, steps["relation"], state,
-                                          batch, timing["ms_per_batch"]))
-    return launches
+    profile = profile_batch(torch, t.steps["relation"], t.state, t.batch,
+                            timing["ms_per_batch"])
+    emit("train_profile", **profile)
+    return launches, profile
+
+
+def copy_train_state(state):
+    """A copy of a TrainState's parameters and BertAdam state."""
+    from dataclasses import replace
+
+    s = state.opt_state
+    params = {n: p.detach().clone() for n, p in state.params.items()}
+    return params, replace(
+        s, m={n: x.clone() for n, x in s.m.items()},
+        v={n: x.clone() for n, x in s.v.items()},
+        lr_scale=s.lr_scale.clone(), leaf_count=s.leaf_count.clone(),
+        active=s.active.clone(), touched=set(s.touched))
+
+
+def check_kernel7(torch, fa, t) -> dict:
+    """Kernel 7 against its plain version over the full state, on copies:
+    random gradients, one null (node_fc's first parameter, touched before),
+    one parameter inactive (rate 0); then its time per update with every
+    gradient present, its plain version's, and torch._fused_adamw_'s."""
+    state, names, opt = t.state, t.names, t.opt
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    ps = [state.params[n].detach() for n in names]
+    grads = [torch.randn(p.shape, device="cuda", generator=gen) * 1e-2
+             for p in ps]
+    null = next(i for i, n in enumerate(names) if n.startswith("node_fc."))
+    inactive = names.index("lxrt.encoder.visn_fc.visn_fc.weight")
+    some_null = [None if i == null else g for i, g in enumerate(grads)]
+    lr_eff = torch.rand(len(names), device="cuda", generator=gen) * 1e-2
+    lr_eff[inactive] = 0.0
+    clip = torch.tensor(0.37, device="cuda")
+    idx = list(range(len(names)))
+
+    def copies():
+        return ([p.clone() for p in ps],
+                [state.opt_state.m[n].clone() for n in names],
+                [state.opt_state.v[n].clone() for n in names])
+
+    kernel_pmv, plain_pmv = copies(), copies()
+    fa.fused_adam(some_null, *kernel_pmv[1:], kernel_pmv[0], idx, clip,
+                  lr_eff, **hyper)
+    fa.fused_adam_reference(some_null, *plain_pmv[1:], plain_pmv[0], idx,
+                            clip, lr_eff, **hyper)
+    torch.cuda.synchronize()
+    errs = {k: max(max_err(a, b) for a, b in zip(x, y))
+            for k, x, y in zip("pmv", kernel_pmv, plain_pmv)}
+    ok = all(within(a, b, ADAM_TOL) for x, y in zip(kernel_pmv, plain_pmv)
+             for a, b in zip(x, y))
+    unchanged = bool(torch.equal(kernel_pmv[0][inactive], ps[inactive]))
+    elements = sum(p.numel() for p in ps)
+    emit("fused_adam_kernel", params=len(names), elements=elements,
+         null_gradient=names[null], inactive=names[inactive],
+         max_abs_err=errs, tolerance=ADAM_TOL, within=ok,
+         inactive_parameter_unchanged=unchanged)
+    check(ok and unchanged, f"kernel 7 vs its plain version: max abs err "
+                            f"{errs}, inactive unchanged {unchanged}")
+    del plain_pmv
+
+    # the kernel alone: launches from one table on the card; the wrapper
+    # (checks, the table on the host, its copy) takes longer than the
+    # kernel, so CUDA events around wrapper calls time the host
+    kp, km, kv = kernel_pmv
+    table = fa._table(grads, km, kv, kp, idx)
+    rows = torch.from_numpy(table).to("cuda")
+    steps_t = [torch.zeros((), device="cuda") for _ in names]
+    kernel = dict(
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: fa._launch(rows, fa._chunks(table), clip, lr_eff,
+                                      **hyper)),
+        wrapper_ms=cuda_ms(lambda: fa.fused_adam(grads, km, kv, kp, idx,
+                                                 clip, lr_eff, **hyper)),
+        plain_ms=cuda_ms(lambda: fa.fused_adam_reference(
+            grads, km, kv, kp, idx, clip, lr_eff, **hyper), iters=3,
+            warmup=1),
+        fused_adamw_ms=cuda_ms(lambda: torch._fused_adamw_(
+            kp, grads, km, kv, [], steps_t, lr=1e-3, beta1=opt.b1,
+            beta2=opt.b2, weight_decay=opt.weight_decay, eps=opt.eps,
+            amsgrad=False, maximize=False)))
+    kernel["bound_ms"], kernel["bound_by"] = bound(
+        ADAM_BYTES * elements, ADAM_FLOPS * elements, FP32_FLOPS)
+    kernel["bound_share"] = kernel["bound_ms"] / kernel["ms"]
+    emit("fused_adam_time", **kernel, elements=elements,
+         timed_over="one update of every parameter, every gradient present; "
+                    "ms: the kernel's launches alone from one table on the "
+                    "card; wrapper_ms: fused_adam calls, host work included",
+         fused_adamw="torch._fused_adamw_ over the same tensors: AdamW with "
+                     "bias correction, another function; timing only")
+    return kernel
+
+
+def check_fused_vs_tree(torch, t) -> None:
+    """From one copied state and one batch's GGM-phase gradients, one
+    update through the fused path against one through the tree path."""
+    from xggm_tpu_torch.training.steps import (
+        clip_by_global_norm, make_ggm_loss, phase_seeds)
+
+    state, names = t.state, t.names
+    ggm_dropout, ggm_noise, _ = phase_seeds(200)
+    loss = make_ggm_loss(t.model, t.tc, "relation")(
+        t.batch, ggm_dropout, ggm_noise)[0]
+    grads = dict(zip(names, torch.autograd.grad(
+        loss, [state.params[n] for n in names], allow_unused=True)))
+    fused_p, fused_s = copy_train_state(state)
+    tree_p, tree_s = copy_train_state(state)
+    t.opt.fused_step(fused_p, grads, fused_s, t.tc.grad_clip)
+    clip_by_global_norm(grads, t.tc.grad_clip)
+    t.make_opt(False).step(tree_p, grads, tree_s)
+    torch.cuda.synchronize()
+    pairs = {"p": (fused_p, tree_p), "m": (fused_s.m, tree_s.m),
+             "v": (fused_s.v, tree_s.v)}
+    errs = {k: max(max_err(a[n], b[n]) for n in names)
+            for k, (a, b) in pairs.items()}
+    ok = all(within(a[n], b[n], ADAM_TOL) for a, b in pairs.values()
+             for n in names)
+    same = (fused_s.leaf_counts() == tree_s.leaf_counts()
+            and fused_s.active_flags() == tree_s.active_flags()
+            and fused_s.count == tree_s.count
+            and fused_s.touched == tree_s.touched)
+    check(ok and same, f"fused vs tree update: max abs err {errs}, "
+                       f"counters and flags equal {same}")
+
+    # host time of one update (the launches' enqueue, the device idle at
+    # its start): the median of 5, on the copies
+    def host_ms(update):
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            update()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(samples)
+
+    tree_opt = t.make_opt(False)
+
+    def tree_update():
+        clip_by_global_norm(grads, t.tc.grad_clip)
+        tree_opt.step(tree_p, grads, tree_s)
+
+    emit("fused_vs_tree", branch="relation",
+         null_gradients=sum(g is None for g in grads.values()),
+         max_abs_err=errs, tolerance=ADAM_TOL, within=ok,
+         counters_flags_touched_equal=same,
+         host_ms_per_update_fused=host_ms(lambda: t.opt.fused_step(
+             fused_p, grads, fused_s, t.tc.grad_clip)),
+         host_ms_per_update_tree=host_ms(tree_update))
+
+
+def phase_fused_train(torch, attn, fa, tree_profile: dict):
+    """The train step with BertAdam(fused=True): kernel 7 on the main path,
+    against its plain version, against the tree update, and timed."""
+    t = train_setup(torch, fused=True)
+    launches = drive_plan(torch, t, "fused_train", {
+        "attention_fwd": attn.fused_attention,
+        "attention_dropout_fwd": attn.attention_dropout_fwd,
+        "attention_dropout_bwd": attn.attention_dropout_bwd,
+        "bert_adam": fa.fused_adam})
+    want = UPDATES_PER_BATCH * len(PLAN)
+    check(launches["bert_adam"] == want,
+          f"{launches['bert_adam']} kernel-7 launches for {len(PLAN)} "
+          f"batches, expected {UPDATES_PER_BATCH} per batch: {want}")
+    kernel = check_kernel7(torch, fa, t)
+    check_fused_vs_tree(torch, t)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tree and the fused update in turns on this model and state
+    # (tree, fused, fused, tree): `fused` picks the path at every update
+    turns = []
+    for fused in (False, True, True, False):
+        t.opt.fused = fused
+        turns.append(dict(fused=fused, **time_batches(torch, t)))
+    t.opt.fused = True
+    emit("fused_train_timing", turns=turns)
+    fused_ms = [x["ms_per_batch"] for x in turns if x["fused"]]
+    profile = profile_batch(torch, t.steps["relation"], t.state, t.batch,
+                            sum(fused_ms) / len(fused_ms))
+    emit("fused_train_profile", **profile)
+    cats = profile["device_ms_by_category"]
+    emit("fused_train_optimizer", bert_adam_kernel_ms_per_batch=cats.get(
+        KERNEL7_CATEGORY, 0.0),
+         foreach_ms_per_batch=cats.get(FOREACH_CATEGORY, 0.0),
+         tree_path_foreach_ms_per_batch=tree_profile[
+             "device_ms_by_category"].get(FOREACH_CATEGORY, 0.0),
+         device_events=profile["device_events"],
+         tree_path_device_events=tree_profile["device_events"])
+    return launches, kernel
+
+
+KERNEL7_CATEGORY = "BertAdam, kernel 7 (ours)"
+FOREACH_CATEGORY = "optimizer and clip (foreach)"
 
 
 def kernel_category(name: str) -> str:
+    if "bert_adam" in name:
+        return KERNEL7_CATEGORY
     if "attention_dropout" in name or "attention_fwd" in name:
         return "attention kernels (ours)"
     if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas",
                                "sm90_")):
         return "GEMM (cuBLAS)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
-        return "optimizer and clip (foreach)"
+        return FOREACH_CATEGORY
     if "copy" in name.lower() or "memset" in name.lower():
         return "casts and copies"
     return "elementwise and reductions"
@@ -622,6 +1070,7 @@ def main() -> int:
     from xggm_tpu_torch.models.task_model import XGGMModel
     from xggm_tpu_torch.ops import attention as attn
     from xggm_tpu_torch.ops import build, philox
+    from xggm_tpu_torch.ops import fused_adam as fa
     from xggm_tpu_torch.ops.basic import init_weights
     from xggm_tpu_torch.serving.artifact import ServingModel
     from xggm_tpu_torch.serving.server import InferenceEngine, make_server
@@ -658,7 +1107,10 @@ def main() -> int:
     train_b = cfg.train.batch_size
     drop_rows = phase_dropout(torch, attn, philox, train_b)
 
-    # 5. serving at full width
+    # 5. the BLHD kernels at the training batch, and their entry points
+    blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b)
+
+    # 6. serving at full width
     lx = cfg.lxmert.replace(dtype="bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = init_weights(XGGMModel(lx, cfg.num_answers, device="cuda"), gen)
@@ -725,7 +1177,7 @@ def main() -> int:
         check(diff <= LOGITS_ATOL, f"logits vs plain attention: {diff}")
         check(agree >= MIN_ARGMAX_AGREEMENT, f"argmax agreement {agree}")
 
-        # 6. timing
+        # 7. timing
         torch.cuda.reset_peak_memory_stats()
         lat, t0 = [], time.perf_counter()
         n_req = 20
@@ -759,14 +1211,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 7. training at full width
-    train_launches = phase_train(torch, attn, philox)
+    # 8. training at full width
+    train_launches, tree_profile = phase_train(torch, attn, philox)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 8. summary: one entry per kernel. Kernel 1 over one forward's launches
-    # at B=512; kernels 2 and 3 over one training forward's or backward's
-    # launches at B=96, in bf16 (the path's type).
+    # 9. training with the fused BertAdam (kernel 7)
+    fused_launches, adam = phase_fused_train(torch, attn, fa, tree_profile)
+
+    # 10. summary: one entry per kernel. Kernel 1 over one forward's
+    # launches at B=512; kernels 2 to 6 over one training forward's or
+    # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
+    # update of every parameter.
     path = [r for r in rows if r["on_path"]]
     drop_path = [r for r in drop_rows if "fwd_ms" in r]
+    blhd_path = [r for r in blhd_rows if "k4_ms" in r]
 
     def per_forward(key, table=path):
         return sum(r[key] * r["launches_per_forward"] for r in table)
@@ -775,6 +1234,8 @@ def main() -> int:
         return ("bytes" if all(r[key] == "bytes" for r in table)
                 else "operations")
 
+    blhd_over = (f"one training forward's or backward's "
+                 f"{LAUNCHES_PER_FORWARD} launches at B={train_b}")
     print(json.dumps({"kernels": [{
         "name": "attention_fwd", "route": "cuda",
         "source": "xggm_tpu_torch/csrc/attention_fwd.cu",
@@ -790,8 +1251,13 @@ def main() -> int:
         "backward_ms": per_forward("k1_bwd_ms", drop_path),
         "backward_max_abs_err": max(r["k1_bwd_max_abs_err"]
                                     for r in drop_rows),
+        "backward_bound_ms": per_forward("bwd_bound_ms", drop_path),
+        "backward_library_ms": per_forward("k1_library_bwd_ms", drop_path),
         "backward_timed_over": f"one backward's {LAUNCHES_PER_FORWARD} "
-                               f"launches of kernel 3 at rate 0, B={train_b}"},
+                               f"launches of kernel 3 at rate 0, B={train_b}; "
+                               "backward_library_ms is _scaled_dot_product_"
+                               "efficient_attention_backward at dropout_p 0 "
+                               "from a saved forward"},
         {"name": "attention_dropout_fwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:237",
@@ -819,7 +1285,65 @@ def main() -> int:
                        f"launches at B={train_b}; library_ms is "
                        "_scaled_dot_product_efficient_attention_backward "
                        "from a saved forward, library_fwd_bwd_ms SDPA "
-                       "forward + backward"}]}), flush=True)
+                       "forward + backward"},
+        {"name": "attention_blhd_fwd", "route": "cuda",
+         "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
+         "replaces": "xggm_tpu/ops/pallas_attention.py:477",
+         "launches": blhd_launches["attention_blhd_fwd"],
+         "max_abs_err": max(r["k4_max_abs_err"] for r in blhd_rows),
+         "max_abs_err_vs_kernel_1": max(
+             r["vs_kernels_1_to_3_max_abs_err"] for r in blhd_rows),
+         "ms": per_forward("k4_ms", blhd_path),
+         "plain_ms": per_forward("plain_k4_ms", blhd_path),
+         "bound_ms": per_forward("fwd_bound_ms", blhd_path),
+         "bound_by": bound_by("fwd_bound_by", blhd_path),
+         "library_ms": per_forward("sdpa_fwd_ms", blhd_path),
+         "backward_ms": per_forward("k4_bwd_ms", blhd_path),
+         "timed_over": f"{blhd_over}; library_ms is SDPA on strided views "
+                       "of the BLHD tensors; backward_ms is kernel 6 at "
+                       "rate 0"},
+        {"name": "attention_dropout_blhd_fwd", "route": "cuda",
+         "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
+         "replaces": "xggm_tpu/ops/pallas_attention.py:553",
+         "launches": blhd_launches["attention_dropout_blhd_fwd"],
+         "max_abs_err": max(r["k5_max_abs_err"] for r in blhd_rows),
+         "ms": per_forward("k5_ms", blhd_path),
+         "plain_ms": per_forward("plain_k5_ms", blhd_path),
+         "bound_ms": per_forward("fwd_bound_ms", blhd_path),
+         "bound_by": bound_by("fwd_bound_by", blhd_path),
+         "library_ms": per_forward("sdpa_dropout_fwd_ms", blhd_path),
+         "timed_over": f"{blhd_over}; library_ms is SDPA with dropout_p "
+                       "0.1 on strided views of the BLHD tensors"},
+        {"name": "attention_dropout_blhd_bwd", "route": "cuda",
+         "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
+         "replaces": "xggm_tpu/ops/pallas_attention.py:574",
+         "launches": blhd_launches["attention_dropout_blhd_bwd"],
+         "max_abs_err": max(max(r["k6_max_abs_err"],
+                                r["k6_rate0_max_abs_err"])
+                            for r in blhd_rows),
+         "ms": per_forward("k6_ms", blhd_path),
+         "plain_ms": per_forward("plain_k6_ms", blhd_path),
+         "bound_ms": per_forward("bwd_bound_ms", blhd_path),
+         "bound_by": bound_by("bwd_bound_by", blhd_path),
+         "library_ms": per_forward("library_bwd_ms", blhd_path),
+         "timed_over": f"{blhd_over}; library_ms is "
+                       "_scaled_dot_product_efficient_attention_backward "
+                       "from a saved forward, on strided views"},
+        {"name": "bert_adam", "route": "cuda",
+         "source": "xggm_tpu_torch/csrc/bert_adam.cu",
+         "replaces": "xggm_tpu/ops/pallas_optim.py:38",
+         "launches": fused_launches["bert_adam"],
+         "max_abs_err": adam["max_abs_err"], "ms": adam["ms"],
+         "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
+         "bound_by": adam["bound_by"], "library_ms": None,
+         "fused_adamw_ms": adam["fused_adamw_ms"],
+         "wrapper_ms": adam["wrapper_ms"],
+         "timed_over": "one update of all parameters, every gradient "
+                       "present; ms launches the kernel from one table on "
+                       "the card, wrapper_ms calls fused_adam (host work "
+                       "included); no PyTorch call computes BertAdam: "
+                       "fused_adamw_ms is torch._fused_adamw_ over the same "
+                       "tensors, with bias correction"}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -97,9 +97,12 @@ def _batches():
     return out
 
 
-def _jax_trajectory(batches):
+def _jax_trajectory(batches, fused=False):
     """Initial flat params, then per step the metrics, the flat params and
-    BertAdam's per-leaf counters and flags after it."""
+    BertAdam's per-leaf counters and flags after it. `fused` takes
+    `bert_adam(fused=True)`, the Pallas BertAdam interpreted, its
+    `fused_step` under a `jax.jit` of its own: a step's two updates then
+    share one lowering of the 123 interpreted kernels (about 0.13 s each)."""
     cfg = _shrink(jax_tiny())
     model = JaxXGGM(cfg.lxmert, cfg.ggm, cfg.num_answers)
     b0, key = batches[0], jax.random.PRNGKey(0)
@@ -114,7 +117,9 @@ def _jax_trajectory(batches):
     scales = jax_lr_scale_tree(
         shapes, lambda p: not p.startswith("params/lxrt"), 1.0, 0.25)
     tx = jax_bert_adam(lr=LR, warmup=WARMUP, t_total=T_TOTAL,
-                       lr_scale=scales)
+                       lr_scale=scales, fused=fused)
+    if fused:
+        tx = tx._replace(fused_step=jax.jit(tx.fused_step, static_argnums=3))
     state_shapes = jax_steps.TrainState(shapes, jax.eval_shape(tx.init, shapes))
     compiled, threads = {}, []
 
@@ -147,12 +152,12 @@ def _jax_trajectory(batches):
     return flat0, record
 
 
-def _port_model(flat0, cfg):
+def _port_model(flat0, cfg, fused=False):
     model = XGGMModel(cfg.lxmert, cfg.num_answers, cfg.ggm, device="cpu")
     model.load_state_dict(from_jax_params(flat0, model))
     opt = BertAdam(LR, WARMUP, T_TOTAL, lr_scale=lr_scale_tree(
         (n for n, _ in model.named_parameters()),
-        lambda n: not n.startswith("lxrt."), 1.0, 0.25))
+        lambda n: not n.startswith("lxrt."), 1.0, 0.25), fused=fused)
     return model, opt, TrainState.create(model, opt)
 
 
@@ -163,12 +168,10 @@ def _torch_batch(batch):
     return out
 
 
-@pytest.fixture(scope="module")
-def trajectories():
-    batches = _batches()
-    flat0, jax_record = _jax_trajectory(batches)
+def _port_trajectory(flat0, batches, fused=False):
+    """The port's record of the same steps as `_jax_trajectory`."""
     cfg = _shrink(tiny_test_config())
-    model, opt, state = _port_model(flat0, cfg)
+    model, opt, state = _port_model(flat0, cfg, fused)
     port_record = []
     for i, (branch, batch) in enumerate(zip(PLAN, batches)):
         step = make_ggm_train_step(model, opt, cfg.train, branch)
@@ -180,15 +183,21 @@ def trajectories():
             "leaf_count": state.opt_state.leaf_counts(),
             "active": state.opt_state.active_flags(),
             "count": state.opt_state.count})
-    return flat0, batches, jax_record, port_record
+    return port_record
 
 
-def test_trajectory_matches_jax(trajectories):
+@pytest.fixture(scope="module")
+def trajectories():
+    batches = _batches()
+    flat0, jax_record = _jax_trajectory(batches)
+    return flat0, batches, jax_record, _port_trajectory(flat0, batches)
+
+
+def _check_trajectory(jax_record, port_record):
     """Per step, the losses within rtol 1e-4 and BertAdam's per-leaf
     counters and active flags exactly (node_fc joins only at the first
     representation batch, with its own counter from then on); after the
     four updates every parameter within atol 1e-5."""
-    _, _, jax_record, port_record = trajectories
     for step, (got, want) in enumerate(zip(port_record, jax_record)):
         for k in METRICS:
             np.testing.assert_allclose(got["metrics"][k],
@@ -212,6 +221,12 @@ def test_trajectory_matches_jax(trajectories):
     for name, w in want.items():
         np.testing.assert_allclose(params[name], w, rtol=0, atol=1e-5,
                                    err_msg=name)
+
+
+def test_trajectory_matches_jax(trajectories):
+    """`_check_trajectory` on the tree BertAdam of both packages."""
+    _, _, jax_record, port_record = trajectories
+    _check_trajectory(jax_record, port_record)
 
 
 def test_clean_first_step_is_its_phases_in_order(trajectories):

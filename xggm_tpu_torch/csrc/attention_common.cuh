@@ -1,10 +1,12 @@
-// Code shared by the port's attention kernels (attention_fwd.cu and
-// attention_dropout.cu): fp32 <-> input-type conversions that round as the
-// TPU kernels' astype does, 16-byte staging of [rows, 64] tiles into shared
-// memory as fp32, warp reductions, the Philox4x32-10 generator of the
-// dropout masks (the same generator as xggm_tpu_torch/ops/philox.py), the
-// row softmax, and the forward of kernels 1 and 2, which differ only in the
-// dropout multiplier.
+// Code shared by the port's attention kernels (attention_fwd.cu,
+// attention_dropout.cu and attention_blhd.cu): fp32 <-> input-type
+// conversions that round as the TPU kernels' astype does, 16-byte staging of
+// [rows, 64] tiles into shared memory as fp32, warp reductions, the
+// Philox4x32-10 generator of the dropout masks (the same generator as
+// xggm_tpu_torch/ops/philox.py), the row softmax, the two layouts, and the
+// bodies of the forward (kernels 1, 2, 4 and 5, which differ only in the
+// dropout multiplier and the layout) and of the backward (kernels 3 and 6,
+// which differ only in the layout).
 #pragma once
 
 #include <math.h>
@@ -19,6 +21,12 @@ constexpr int kHeadDim = 64;
 constexpr int kMaxKeys = 64;           // two keys per lane
 constexpr int kWarps = 4;
 constexpr int kKeyPitch = kHeadDim + 1;
+// The backward kernels' __launch_bounds__ minimum of blocks per SM: 8 caps
+// them at 64 registers, and ptxas then takes 64 without spills. Left to
+// itself it took 32 to 48 and spilled in bf16: kernel 3 in bf16 took 0.195
+// ms at B = 96, 36 x 36 (0.170 ms before it shared this body with kernel
+// 6), and takes 0.151 ms with this bound (NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kBackwardBlocksPerSm = 8;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -62,23 +70,40 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// Copy `rows` contiguous rows of 64 elements into shared memory as fp32,
-// `pitch` floats apart, with one 16-byte load per thread and step.
+// Copy `rows` rows of 64 elements, `stride` elements apart in device memory,
+// into shared memory as fp32, `pitch` floats apart, with one 16-byte load per
+// thread and step. A row is 128 (bf16) or 256 (fp32) contiguous bytes, so
+// the loads of one row coalesce whatever the stride.
 template <typename T>
 __device__ __forceinline__ void stage(const T* __restrict__ src, float* dst,
-                                      int rows, int pitch) {
+                                      int rows, int pitch, int stride) {
   constexpr int kVec = Vec16<T>::kLen;
-  const uint4* s = reinterpret_cast<const uint4*>(src);
   const int n = rows * kHeadDim / kVec;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float f[kVec];
-    Vec16<T>::unpack(s[i], f);
     const int r = (i * kVec) / kHeadDim;
     const int c = (i * kVec) % kHeadDim;
+    float f[kVec];
+    Vec16<T>::unpack(
+        *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c), f);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) dst[r * pitch + c + j] = f[j];
   }
 }
+
+// Where the (batch * head) row `row` of a tensor of sequence length `len`
+// lies, in a layout of `lh` heads between positions. BLHD [B, L, H, 64]
+// (lh = H): position l of head h of batch b sits at ((b * L + l) * H + h) *
+// 64, so the row starts at (b * L * H + h) * 64 and its positions lie
+// H * 64 elements apart. Flattened [BH, L, 64] is the case lh = 1: the L
+// positions of row r are contiguous from r * L * 64.
+struct Layout {
+  size_t q, kv;  // first element of this row in q/o and in k/v
+  int stride;    // elements between its positions
+  __device__ __forceinline__ Layout(size_t row, int lq, int lk, int lh)
+      : q(((row / lh) * (size_t)lq * lh + row % lh) * kHeadDim),
+        kv(((row / lh) * (size_t)lk * lh + row % lh) * kHeadDim),
+        stride(lh * kHeadDim) {}
+};
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -183,8 +208,16 @@ inline size_t forward_smem_bytes(int lq, int lk) {
          (size_t)(lq * kHeadDim + lk * kKeyPitch + lk * kHeadDim);
 }
 
-// The forward of kernels 1 and 2 for the (batch * head) row of this block
-// of kWarps warps: o = round(p * m) v, with p the fp32 softmax of
+// Shared memory of the backward: q and g [lq][64], k and v [lk][65], p * m
+// and ds [lq][lk], in fp32.
+inline size_t backward_smem_bytes(int lq, int lk) {
+  return sizeof(float) * (size_t)(2 * lq * kHeadDim + 2 * lk * kKeyPitch +
+                                  2 * lq * lk);
+}
+
+// The forward of kernels 1, 2, 4 and 5 for the (batch * head) row
+// blockIdx.x of this block of kWarps warps, in the layout of `lh` heads
+// (1: flattened, heads: BLHD): o = round(p * m) v, with p the fp32 softmax of
 // q k^T * scale + bias, m the dropout multiplier (1 without kDropout),
 // round = to the input type (the TPU kernels' astype before p @ v), the
 // product accumulated in fp32 and written in the input type. q, k and v
@@ -196,7 +229,7 @@ template <typename T, bool kDropout>
 __device__ __forceinline__ void attention_forward_block(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ bias,
-    T* __restrict__ o, int lq, int lk, int heads, float scale,
+    T* __restrict__ o, int lq, int lk, int heads, int lh, float scale,
     Dropout drop) {
   extern __shared__ float smem[];
   float* qs = smem;                     // [lq][64]
@@ -204,9 +237,10 @@ __device__ __forceinline__ void attention_forward_block(
   float* vs = ks + lk * kKeyPitch;      // [lk][64]
 
   const size_t row = blockIdx.x;
-  stage(q + row * lq * kHeadDim, qs, lq, kHeadDim);
-  stage(k + row * lk * kHeadDim, ks, lk, kKeyPitch);
-  stage(v + row * lk * kHeadDim, vs, lk, kHeadDim);
+  const Layout at(row, lq, lk, lh);
+  stage(q + at.q, qs, lq, kHeadDim, at.stride);
+  stage(k + at.kv, ks, lk, kKeyPitch, at.stride);
+  stage(v + at.kv, vs, lk, kHeadDim, at.stride);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -241,9 +275,121 @@ __device__ __forceinline__ void attention_forward_block(
       o0 = fmaf(pj, vs[j * kHeadDim + lane], o0);
       o1 = fmaf(pj, vs[j * kHeadDim + lane + 32], o1);
     }
-    T* orow = o + (row * lq + i) * kHeadDim;
+    T* orow = o + at.q + (size_t)i * at.stride;
     orow[lane] = from_float<T>(o0);
     orow[lane + 32] = from_float<T>(o1);
+  }
+}
+
+// The backward of kernels 3 and 6 for the (batch * head) row blockIdx.x of
+// this block of kWarps warps, in the layout of `lh` heads: dq, dk and dv of
+// round(p * m) v at output gradient g, all in fp32 from the same m, rounded
+// once to the input type (attention_dropout.cu sets out the math). q, g, k
+// and v are staged as fp32, k and v padded to 65 floats; p * m and ds are
+// kept in shared memory ([lq][lk] fp32 each): a first pass over query rows
+// computes them and dq, a second pass over key rows sums dv and dk.
+template <typename T>
+__device__ __forceinline__ void attention_backward_block(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ bias,
+    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
+    T* __restrict__ dv, int lq, int lk, int heads, int lh, float scale,
+    Dropout drop) {
+  extern __shared__ float smem[];
+  float* qs = smem;                     // [lq][64]
+  float* gs = qs + lq * kHeadDim;       // [lq][64]
+  float* ks = gs + lq * kHeadDim;       // [lk][65]
+  float* vs = ks + lk * kKeyPitch;      // [lk][65]
+  float* pms = vs + lk * kKeyPitch;     // [lq][lk]  p * m
+  float* dss = pms + lq * lk;           // [lq][lk]  ds
+
+  const size_t row = blockIdx.x;
+  const Layout at(row, lq, lk, lh);
+  stage(q + at.q, qs, lq, kHeadDim, at.stride);
+  stage(g + at.q, gs, lq, kHeadDim, at.stride);
+  stage(k + at.kv, ks, lk, kKeyPitch, at.stride);
+  stage(v + at.kv, vs, lk, kKeyPitch, at.stride);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool has0 = lane < lk;
+  const bool has1 = lane + 32 < lk;
+  const float* brow = bias ? bias + (row / heads) * lk : nullptr;
+  const float b0 = (brow && has0) ? brow[lane] : 0.f;
+  const float b1 = (brow && has1) ? brow[lane + 32] : 0.f;
+  const int j0 = has0 ? lane : 0;  // lanes past lk read row 0, discard it
+  const int j1 = has1 ? lane + 32 : 0;
+  const float* k0 = ks + j0 * kKeyPitch;
+  const float* k1 = ks + j1 * kKeyPitch;
+  const float* v0 = vs + j0 * kKeyPitch;
+  const float* v1 = vs + j1 * kKeyPitch;
+
+  // pass 1, over query rows: p, m, dp, ds; p * m and ds to shared memory;
+  // dq[i] = scale * sum_j ds[i][j] k[j]
+  for (int i = warp; i < lq; i += kWarps) {
+    const float* qi = qs + i * kHeadDim;
+    const float* gi = gs + i * kHeadDim;
+    const float2 p = softmax_row(qi, k0, k1, has0, has1, b0, b1, scale);
+    const float m0 = has0 ? dropout_multiplier(drop.seed, (uint32_t)row, i,
+                                               lane, drop.threshold,
+                                               drop.keep_scale)
+                          : 0.f;
+    const float m1 = has1 ? dropout_multiplier(drop.seed, (uint32_t)row, i,
+                                               lane + 32, drop.threshold,
+                                               drop.keep_scale)
+                          : 0.f;
+    float gv0 = 0.f, gv1 = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < kHeadDim; ++d) {
+      const float gd = gi[d];
+      gv0 = fmaf(gd, v0[d], gv0);
+      gv1 = fmaf(gd, v1[d], gv1);
+    }
+    const float dp0 = m0 * gv0;  // m is 0 past lk
+    const float dp1 = m1 * gv1;
+    const float rowsum = warp_sum(dp0 * p.x + dp1 * p.y);
+    const float ds0 = p.x * (dp0 - rowsum);
+    const float ds1 = p.y * (dp1 - rowsum);
+    if (has0) {
+      pms[i * lk + lane] = p.x * m0;
+      dss[i * lk + lane] = ds0;
+    }
+    if (has1) {
+      pms[i * lk + lane + 32] = p.y * m1;
+      dss[i * lk + lane + 32] = ds1;
+    }
+
+    float a0 = 0.f, a1 = 0.f;  // dq dims lane and lane + 32
+    for (int j = 0; j < lk; ++j) {
+      const float dsj = __shfl_sync(0xffffffffu, j < 32 ? ds0 : ds1, j & 31);
+      a0 = fmaf(dsj, ks[j * kKeyPitch + lane], a0);
+      a1 = fmaf(dsj, ks[j * kKeyPitch + lane + 32], a1);
+    }
+    T* out = dq + at.q + (size_t)i * at.stride;
+    out[lane] = from_float<T>(a0 * scale);
+    out[lane + 32] = from_float<T>(a1 * scale);
+  }
+  __syncthreads();
+
+  // pass 2, over key rows: dv[j] = sum_i pm[i][j] g[i],
+  // dk[j] = scale * sum_i ds[i][j] q[i]
+  for (int j = warp; j < lk; j += kWarps) {
+    float v0acc = 0.f, v1acc = 0.f, k0acc = 0.f, k1acc = 0.f;
+    for (int i = 0; i < lq; ++i) {
+      const float pm = pms[i * lk + j];  // one address: a broadcast
+      const float ds = dss[i * lk + j];
+      v0acc = fmaf(pm, gs[i * kHeadDim + lane], v0acc);
+      v1acc = fmaf(pm, gs[i * kHeadDim + lane + 32], v1acc);
+      k0acc = fmaf(ds, qs[i * kHeadDim + lane], k0acc);
+      k1acc = fmaf(ds, qs[i * kHeadDim + lane + 32], k1acc);
+    }
+    T* dvrow = dv + at.kv + (size_t)j * at.stride;
+    T* dkrow = dk + at.kv + (size_t)j * at.stride;
+    dvrow[lane] = from_float<T>(v0acc);
+    dvrow[lane + 32] = from_float<T>(v1acc);
+    dkrow[lane] = from_float<T>(k0acc * scale);
+    dkrow[lane + 32] = from_float<T>(k1acc * scale);
   }
 }
 

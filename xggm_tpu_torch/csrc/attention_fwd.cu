@@ -36,8 +36,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, int lq, int lk, int heads,
                      float scale) {
-  attention_forward_block<T, false>(q, k, v, bias, o, lq, lk, heads, scale,
-                                    Dropout{0u, 0u, 1.f});
+  attention_forward_block<T, false>(q, k, v, bias, o, lq, lk, heads, 1,
+                                    scale, Dropout{0u, 0u, 1.f});
 }
 
 template <typename T>

@@ -1,9 +1,12 @@
-"""Fused softmax attention over flattened (batch * head) rows, with and
-without dropout on the probabilities: the counterpart of
+"""Fused softmax attention, with and without dropout on the probabilities,
+over flattened (batch * head) rows and in the [B, L, H, 64] projection
+layout (BLHD): the counterpart of
 `xggm_tpu/ops/pallas_attention.py::fused_attention`, `mha_pallas`,
-`fused_attention_dropout` and `mha_pallas_dropout`.
+`fused_attention_dropout`, `mha_pallas_dropout`, `fused_attention_blhd`,
+`mha_pallas_blhd`, `fused_attention_dropout_blhd` and
+`mha_pallas_dropout_blhd`.
 
-Three hand-written CUDA kernels, each behind a wrapper that counts its
+Six hand-written CUDA kernels, each behind a wrapper that counts its
 launches (`<wrapper>.launches`):
 - kernel 1, `csrc/attention_fwd.cu`: softmax(q k^T / 8 + bias) v, behind
   `fused_attention` (which counts);
@@ -11,6 +14,12 @@ launches (`<wrapper>.launches`):
   the probabilities, behind `attention_dropout_fwd`;
 - kernel 3, `csrc/attention_dropout.cu`: the backward of kernel 2, behind
   `attention_dropout_bwd`. At rate 0 it is also kernel 1's backward.
+- kernels 4, 5 and 6, `csrc/attention_blhd.cu`: kernels 1, 2 and 3 on q
+  [B, Lq, H, 64], k and v [B, Lk, H, 64], behind `fused_attention_blhd`
+  (which counts kernel 4), `attention_dropout_blhd_fwd` and
+  `attention_dropout_blhd_bwd`. Head h of batch b draws the mask of the
+  flattened row b * H + h, so they give the same bits as kernels 1 to 3 on
+  the permuted inputs with the same seed.
 
 `fused_attention` and `fused_attention_dropout` are `torch.autograd.Function`s
 over them; they save q, k, v, bias and the seed, never the probabilities or
@@ -23,7 +32,11 @@ the same Philox mask), which the tests compare against the JAX package.
 The mask is an fp32 additive key bias of one row per batch element, [B, Lk]
 with values 0 or -10000, or None for no mask. Row r of the flattened
 [B * H, L, 64] layout belongs to batch element r // H. The bias gets no
-gradient.
+gradient. `fused_attention_blhd` and `fused_attention_dropout_blhd` save
+and redraw as the flattened Functions do; their plain versions
+(`attention_blhd_reference`, `attention_dropout_blhd_reference` and
+`attention_dropout_blhd_reference_grads`) permute to the flattened layout
+and back.
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ HEAD_DIM = 64
 MAX_LEN = 64  # the kernels hold two keys per lane of one warp
 _FWD = "attention_fwd"
 _DROPOUT = "attention_dropout"
+_BLHD = "attention_blhd"
 _COUNT_LOCK = threading.Lock()  # server threads may launch concurrently
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -118,15 +132,32 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
-def _check(q, k, v, bias, heads, g=None):
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("q, k, v must be [BH, L, D]")
-    bh, lq, d = q.shape
-    lk = k.shape[1]
-    if d != HEAD_DIM or k.shape != (bh, lk, d) or v.shape != k.shape:
+def _check(q, k, v, bias, heads, g=None, blhd=False):
+    """Raise on what the kernels do not take: q [BH, Lq, 64] and k, v
+    [BH, Lk, 64] with BH a multiple of heads, or with blhd q [B, Lq, H, 64]
+    and k, v [B, Lk, H, 64] with H = heads; bias fp32 [B, Lk] or None; g as
+    q; one device, contiguous and 16-byte aligned, bf16 or fp32."""
+    if blhd:
+        if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+            raise ValueError("q, k, v must be [B, L, H, D]")
+        b, lq, h, d = q.shape
+        lk = k.shape[1]
+        if h != heads or k.shape != (b, lk, h, d):
+            raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
+                             f": need matching B and H = {heads}")
+        bh = b * h
+    else:
+        if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+            raise ValueError("q, k, v must be [BH, L, D]")
+        bh, lq, d = q.shape
+        lk = k.shape[1]
+        if k.shape != (bh, lk, d):
+            raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
+                             ": need matching BH")
+    if d != HEAD_DIM or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: need D = {HEAD_DIM} and "
-                         "matching BH and Lk")
+                         "matching v and k")
     if not (1 <= lq <= MAX_LEN and 1 <= lk <= MAX_LEN):
         raise ValueError(f"Lq {lq}, Lk {lk}: the kernel takes 1..{MAX_LEN}")
     if q.dtype not in (torch.bfloat16, torch.float32) or \
@@ -326,3 +357,202 @@ def mha_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = fused_attention_dropout(_flat(q), _flat(k), _flat(v), bias, h,
                                   seed, rate)
     return out.view(b, h, lq, d)
+
+
+# -- the BLHD layout: kernels 4, 5 and 6 --------------------------------------
+
+
+def _to_rows(x: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] -> the flattened [B * H, L, D] rows (a copy)."""
+    b, length, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, length, d)
+
+
+def _from_rows(x: torch.Tensor, b: int) -> torch.Tensor:
+    """[B * H, L, D] rows -> [B, L, H, D] (a copy)."""
+    bh, length, d = x.shape
+    return x.view(b, bh // b, length, d).transpose(1, 2).contiguous()
+
+
+def attention_dropout_blhd_reference(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor,
+                                     bias: Optional[torch.Tensor],
+                                     keep: Optional[torch.Tensor]
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of kernels 4 and 5: q [B, Lq, H, D], k/v
+    [B, Lk, H, D], bias [B, Lk] or None, keep the float32 multiplier of the
+    flattened rows [B * H, Lq, Lk] (row b * H + h for head h of batch b) or
+    None. `attention_dropout_reference` on the permuted rows, permuted
+    back: [B, Lq, H, D] in q's dtype."""
+    b, _, h, _ = q.shape
+    out = attention_dropout_reference(_to_rows(q), _to_rows(k), _to_rows(v),
+                                      bias, h, keep)
+    return _from_rows(out, b)
+
+
+def attention_blhd_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of kernel 4: no dropout."""
+    return attention_dropout_blhd_reference(q, k, v, bias, None)
+
+
+def attention_dropout_blhd_reference_grads(q: torch.Tensor, k: torch.Tensor,
+                                           v: torch.Tensor,
+                                           bias: Optional[torch.Tensor],
+                                           keep: Optional[torch.Tensor],
+                                           g: torch.Tensor) -> Grads:
+    """Plain PyTorch version of kernel 6: (dq, dk, dv) [B, L, H, D] of the
+    plain BLHD forward at output gradient g [B, Lq, H, D], computed as
+    `attention_dropout_reference_grads` on the permuted rows."""
+    b, _, h, _ = q.shape
+    grads = attention_dropout_reference_grads(
+        _to_rows(q), _to_rows(k), _to_rows(v), bias, h, keep, _to_rows(g))
+    return tuple(_from_rows(x, b) for x in grads)
+
+
+def _keep_blhd(q, k, seed, rate):
+    """The Philox mask of a BLHD call as flattened rows, or None at 0."""
+    if rate == 0.0:
+        return None
+    b, lq, h, _ = q.shape
+    return dropout_keep(seed, b * h, lq, k.shape[1], rate, q.device)
+
+
+def _blhd_args(q, k) -> tuple:
+    """(batch, lq, lk, heads, is_bf16) of a BLHD launch."""
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+            int(q.dtype == torch.bfloat16))
+
+
+def _attention_blhd_fwd(q, k, v, bias):
+    """Kernel 4 on a CUDA tensor, the plain version on a CPU tensor."""
+    if not _on_card(q):
+        return attention_blhd_reference(q, k, v, bias)
+    _check(q, k, v, bias, q.shape[2], blhd=True)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _fn(_BLHD, "xggm_attention_blhd_fwd", _FWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            o.data_ptr(), *_blhd_args(q, k), _stream(q))
+    _raise_on(err, _BLHD, "attention_blhd_fwd")
+    _count(fused_attention_blhd)
+    return o
+
+
+def attention_dropout_blhd_fwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: Optional[torch.Tensor],
+                               seed: int, rate: float) -> torch.Tensor:
+    """Kernel 5: kernel 2 on q [B, Lq, H, 64], k and v [B, Lk, H, 64].
+    `attention_dropout_blhd_fwd.launches` counts its launches."""
+    drop = _dropout_args(seed, rate)
+    if not _on_card(q):
+        return attention_dropout_blhd_reference(q, k, v, bias,
+                                                _keep_blhd(q, k, seed, rate))
+    _check(q, k, v, bias, q.shape[2], blhd=True)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _fn(_BLHD, "xggm_attention_dropout_blhd_fwd", _DROPOUT_FWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            o.data_ptr(), *_blhd_args(q, k), *drop, _stream(q))
+    _raise_on(err, _BLHD, "attention_dropout_blhd_fwd")
+    _count(attention_dropout_blhd_fwd)
+    return o
+
+
+def attention_dropout_blhd_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: Optional[torch.Tensor],
+                               seed: int, rate: float,
+                               g: torch.Tensor) -> Grads:
+    """Kernel 6: (dq, dk, dv) in BLHD of kernel 5 at output gradient g, the
+    mask drawn again from `seed`; at rate 0, the gradient of kernel 4.
+    `attention_dropout_blhd_bwd.launches` counts its launches."""
+    drop = _dropout_args(seed, rate)
+    if not _on_card(q):
+        return attention_dropout_blhd_reference_grads(
+            q, k, v, bias, _keep_blhd(q, k, seed, rate), g)
+    _check(q, k, v, bias, q.shape[2], g, blhd=True)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _fn(_BLHD, "xggm_attention_dropout_blhd_bwd", _DROPOUT_BWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_blhd_args(q, k), *drop, _stream(q))
+    _raise_on(err, _BLHD, "attention_dropout_blhd_bwd")
+    _count(attention_dropout_blhd_bwd)
+    return dq, dk, dv
+
+
+attention_dropout_blhd_fwd.launches = 0
+attention_dropout_blhd_bwd.launches = 0
+
+
+class _AttentionBlhd(torch.autograd.Function):
+    """Kernel 4 forward, kernel 6 at rate 0 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return _attention_blhd_fwd(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = attention_dropout_blhd_bwd(q, k, v, bias, 0, 0.0,
+                                                g.contiguous())
+        return dq, dk, dv, None
+
+
+class _AttentionDropoutBlhd(torch.autograd.Function):
+    """Kernel 5 forward, kernel 6 backward, one seed for both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate):
+        ctx.seed, ctx.rate = seed, rate
+        ctx.save_for_backward(q, k, v, bias)
+        return attention_dropout_blhd_fwd(q, k, v, bias, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = attention_dropout_blhd_bwd(q, k, v, bias, ctx.seed,
+                                                ctx.rate, g.contiguous())
+        return dq, dk, dv, None, None, None
+
+
+def fused_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """softmax(q k^T / 8 + bias) v in the [B, L, H, 64] layout,
+    differentiable in q, k and v. `fused_attention_blhd.launches` counts
+    kernel 4's launches."""
+    return _AttentionBlhd.apply(q, k, v, bias)
+
+
+fused_attention_blhd.launches = 0
+
+
+def fused_attention_dropout_blhd(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor,
+                                 bias: Optional[torch.Tensor], seed: int,
+                                 rate: float) -> torch.Tensor:
+    """BLHD attention with inverted dropout at `rate` on the probabilities,
+    head h of batch b drawing the mask of seed + b * H + h in the kernels;
+    differentiable in q, k and v."""
+    return _AttentionDropoutBlhd.apply(q, k, v, bias, seed, rate)
+
+
+def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, L, H, D] attention with no transpose at the kernel boundary (the
+    layout of `mha_pallas_blhd`); bias [B, Lk] or None."""
+    return fused_attention_blhd(q.contiguous(), k.contiguous(),
+                                v.contiguous(), bias)
+
+
+def mha_dropout_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor], seed: int,
+                     rate: float) -> torch.Tensor:
+    """[B, L, H, D] attention with probability dropout (the layout of
+    `mha_pallas_dropout_blhd`); bias [B, Lk] or None."""
+    return fused_attention_dropout_blhd(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), bias, seed, rate)

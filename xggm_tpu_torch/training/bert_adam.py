@@ -1,5 +1,5 @@
-"""BertAdam (counterpart of the default tree path of
-`xggm_tpu/training/bert_adam.py::bert_adam` and of `lr_scale_tree`).
+"""BertAdam (counterpart of `xggm_tpu/training/bert_adam.py::bert_adam`, its
+default tree path and its `fused=True` path, and of `lr_scale_tree`).
 
 It keeps the quirks that change training dynamics:
 * no bias correction: the update is m / (sqrt(v) + eps);
@@ -14,14 +14,23 @@ It keeps the quirks that change training dynamics:
 Parameters and gradients are dicts keyed by the model's parameter names.
 The per-parameter counters, flags and schedule live on the device as
 vectors, so a step reads nothing back to the host.
+
+`step` is the tree path (`torch._foreach_*` over the parameters; the caller
+clips first). `fused_step`, the counterpart of `make_fused_bert_adam_step`,
+clips, updates and applies in one traversal: the global norm in
+`torch._foreach_norm`, then one launch of kernel 7 (`ops/fused_adam.py`)
+over every parameter. `BertAdam(fused=True)` makes the train steps take it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, Mapping, Optional, Set
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Set, \
+    Tuple
 
 import torch
+
+from xggm_tpu_torch.ops.fused_adam import fused_adam
 
 
 def _w(x: torch.Tensor, warmup: float) -> torch.Tensor:
@@ -74,17 +83,27 @@ class BertAdamState:
         return dict(zip(self.names, self.active.tolist()))
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all the gradients together (0 for none)."""
+    if not grads:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(torch._foreach_norm(grads)).norm()
+
+
 class BertAdam:
     """Adam without bias correction, with a scheduled lr per parameter and
     decoupled weight decay. `lr_scale` maps parameter names to lr
-    multipliers (1.0 where absent). Gradient clipping stays with the caller
-    (the train steps clip to a global norm first)."""
+    multipliers (1.0 where absent). With `fused=False` (the default, as in
+    the JAX package) gradient clipping stays with the caller and `step`
+    updates; with `fused=True` the train steps call `fused_step`, which
+    clips too."""
 
     def __init__(self, lr: float, warmup: float = -1.0, t_total: int = -1,
                  schedule: str = "warmup_linear", b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-6,
                  weight_decay: float = 0.01,
-                 lr_scale: Optional[Mapping[str, float]] = None):
+                 lr_scale: Optional[Mapping[str, float]] = None,
+                 fused: bool = False):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}")
         self.lr, self.warmup, self.t_total = lr, warmup, t_total
@@ -92,6 +111,7 @@ class BertAdam:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.lr_scale = dict(lr_scale or {})
+        self.fused = fused
 
     def init(self, params: Mapping[str, torch.Tensor]) -> BertAdamState:
         names = list(params)
@@ -112,25 +132,46 @@ class BertAdam:
         return torch.full(cnt.shape, self.lr, dtype=torch.float32,
                           device=cnt.device)
 
+    def _activate(self, grads: Mapping[str, Optional[torch.Tensor]],
+                  state: BertAdamState) -> Tuple[List[str], List[str],
+                                                 Dict[str, int]]:
+        """Names with a gradient, names touched before with none (their
+        gradient is zero), and the names' indices; marks the former touched
+        and activates those whose gradient has a nonzero entry (its
+        inf-norm, which cannot underflow as the L2 norm can)."""
+        index = {n: i for i, n in enumerate(state.names)}
+        with_grad = [n for n in state.names if grads.get(n) is not None]
+        state.touched.update(with_grad)
+        no_grad = [n for n in state.names
+                   if grads.get(n) is None and n in state.touched]
+        if with_grad:
+            idx = torch.tensor([index[n] for n in with_grad],
+                               device=state.active.device)
+            nonzero = torch.stack(torch._foreach_norm(
+                [grads[n] for n in with_grad], float("inf"))) > 0
+            state.active[idx] |= nonzero
+        return with_grad, no_grad, index
+
+    def _rates(self, state: BertAdamState) -> torch.Tensor:
+        """Each parameter's lr: the schedule at its own counter, before the
+        counter moves, times its lr scale."""
+        return self._leaf_lr(state.leaf_count) * state.lr_scale
+
+    def _advance(self, state: BertAdamState) -> None:
+        state.leaf_count += state.active.int()
+        state.count += 1
+
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, Optional[torch.Tensor]],
              state: BertAdamState) -> None:
         """One update of `params` in place from `grads` (None: zero)."""
         b1, b2 = self.b1, self.b2
-        index = {n: i for i, n in enumerate(state.names)}
-        with_grad = [n for n in state.names if grads.get(n) is not None]
-        state.touched.update(with_grad)
-        no_grad = [n for n in state.names
-                   if grads.get(n) is None and n in state.touched]
+        with_grad, no_grad, index = self._activate(grads, state)
         live = with_grad + no_grad
 
         if with_grad:
             gs = [grads[n] for n in with_grad]
-            idx = torch.tensor([index[n] for n in with_grad],
-                               device=state.active.device)
-            nonzero = torch.stack(torch._foreach_norm(gs, float("inf"))) > 0
-            state.active[idx] |= nonzero
             ms = [state.m[n] for n in with_grad]
             vs = [state.v[n] for n in with_grad]
             torch._foreach_mul_(ms, b1)
@@ -150,14 +191,39 @@ class BertAdam:
             if self.weight_decay > 0.0:
                 torch._foreach_add_(upd, torch._foreach_mul(
                     ps, self.weight_decay))
-            lr = self._leaf_lr(state.leaf_count) * state.lr_scale
-            factor = torch.where(state.active, -lr, 0.0)
+            factor = torch.where(state.active, -self._rates(state), 0.0)
             idx = torch.tensor([index[n] for n in live],
                                device=factor.device)
             torch._foreach_mul_(upd, factor[idx].unbind())
             torch._foreach_add_(ps, upd)
-        state.leaf_count += state.active.int()
-        state.count += 1
+        self._advance(state)
+
+    @torch.no_grad()
+    def fused_step(self, params: Mapping[str, torch.Tensor],
+                   grads: Mapping[str, Optional[torch.Tensor]],
+                   state: BertAdamState, clip: float) -> torch.Tensor:
+        """Clip to a global norm of `clip`, update and apply in one
+        traversal (the counterpart of `make_fused_bert_adam_step`): the
+        gradients are not scaled in place; kernel 7 applies
+        c = min(1, clip / (norm + 1e-6)) as it reads them. Parameters
+        touched before with a gradient of None join with a zero gradient;
+        those never touched stay out. Returns the norm before clipping."""
+        with_grad, no_grad, index = self._activate(grads, state)
+        live = with_grad + no_grad
+        norm = global_norm([grads[n] for n in with_grad])
+        if live:
+            norm = norm.to(state.active.device)
+            scale = torch.clamp(clip / (norm + 1e-6), max=1.0)
+            lr_eff = torch.where(state.active, self._rates(state), 0.0)
+            fused_adam([grads.get(n) for n in live],
+                       [state.m[n] for n in live],
+                       [state.v[n] for n in live],
+                       [params[n] for n in live],
+                       [index[n] for n in live], scale, lr_eff,
+                       b1=self.b1, b2=self.b2, eps=self.eps,
+                       wd=self.weight_decay)
+        self._advance(state)
+        return norm
 
 
 def lr_scale_tree(names: Iterable[str], predicate: Callable[[str], bool],

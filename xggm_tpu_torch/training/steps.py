@@ -5,7 +5,8 @@ each (hence t_total = 2 x the batch count):
   [GGM phase]   one branch (relation or representation, chosen by the
                 caller) -> backward -> clip to global norm 5.0 -> BertAdam
   [clean phase] plain BCE -> backward -> clip -> BertAdam
-GQA runs GGM then clean; VQA-CP (`clean_phase_first`) clean then GGM.
+GQA runs GGM then clean; VQA-CP (`clean_phase_first`) clean then GGM. With
+`BertAdam(fused=True)` the clip and the update are one `fused_step`.
 
 The model's float32 parameters are the masters; the forward casts them to
 the compute dtype at use (bf16 on the card), which takes the place of the
@@ -26,7 +27,8 @@ from xggm_tpu_torch.models.task_model import XGGMModel
 from xggm_tpu_torch.ops.basic import DropoutRng
 from xggm_tpu_torch.ops.losses import (
     bce_with_logits, score_matching_loss, symmetric_kl)
-from xggm_tpu_torch.training.bert_adam import BertAdam, BertAdamState
+from xggm_tpu_torch.training.bert_adam import (
+    BertAdam, BertAdamState, global_norm)
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -64,16 +66,22 @@ def clip_by_global_norm(grads: Grads, clip: float) -> torch.Tensor:
     """Scale the gradients in place to a global norm of at most `clip`
     (scale min(1, clip / (norm + 1e-6))); returns the norm before."""
     gs = [g for g in grads.values() if g is not None]
-    norm = torch.stack(torch._foreach_norm(gs)).norm()
+    norm = global_norm(gs)
     torch._foreach_mul_(gs, torch.clamp(clip / (norm + 1e-6), max=1.0))
     return norm
 
 
 def _update(opt: BertAdam, state: TrainState, loss: torch.Tensor,
             clip: float) -> None:
+    """Clip, update and apply: through `fused_step` (kernel 7) for a fused
+    BertAdam, as the JAX package's `_clip_update_apply` takes a transform's
+    `fused_step`; else clip the gradients in place, then `step`."""
     grads = _grads(loss, state)
-    clip_by_global_norm(grads, clip)
-    opt.step(state.params, grads, state.opt_state)
+    if opt.fused:
+        opt.fused_step(state.params, grads, state.opt_state, clip)
+    else:
+        clip_by_global_norm(grads, clip)
+        opt.step(state.params, grads, state.opt_state)
 
 
 def phase_seeds(seed: int) -> Tuple[int, int, int]:
