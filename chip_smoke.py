@@ -10,7 +10,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             all started together: attention_fwd.cu (kernel 1),
             attention_dropout.cu (kernels 2 and 3), attention_blhd.cu
             (kernels 4, 5 and 6) and bert_adam.cu (kernel 7), with
-            -Xptxas -v (registers, shared memory, spills).
+            -Xptxas -v (registers, shared memory, spills); the bf16
+            backward kernels' registers and spills (none allowed) and
+            their dynamic shared memory at the path's shapes.
 3. kernel   kernel 1 against its plain PyTorch version at the four shapes
             of the serving path, batch 512, bf16 with and without a key
             mask, plus one fp32 check: max abs error against the stated
@@ -27,7 +29,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             and library times (SDPA with dropout_p=0.1 forward and
             forward+backward; the memory-efficient attention's backward alone
             from a saved forward, at dropout_p 0.1 and, for kernel 1's
-            backward, 0) and the bandwidth bounds.
+            backward, 0) and the bandwidth bounds; in bf16 the device's
+            own time per launch of kernel 3 at rates 0.1 and 0 and of the
+            library backward (torch.profiler's kernel durations; the run
+            fails if it records none).
 5. blhd     kernels 4, 5 and 6 (the [B, L, H, 64] layout) at the training
             batch, the four shapes x {bf16, fp32}, rate 0.1: each against its
             plain version and against kernels 1, 2 and 3 on the permuted
@@ -35,8 +40,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             bf16 ulp allowed), kernel 5's own mask against the Philox mask of
             row b * H + h; kernel, plain and library times (SDPA, and the
             memory-efficient attention's backward from a saved forward, on
-            strided views of the same BLHD storage) and the bandwidth bounds;
-            then the entry points mha_blhd and mha_dropout_blhd forward and
+            strided views of the same BLHD storage), the device's own time
+            of kernel 6 and of the library backward, and the bandwidth
+            bounds; a summary line of the backward kernels per pass of 34
+            launches, event and device times against the bound; then the
+            entry points mha_blhd and mha_dropout_blhd forward and
             backward, as many times as a training forward attends (34 per
             kernel, 68 for kernel 6).
 6. serving  gqa_ood_config() at full width (9/5/5 layers, hidden 768, 12
@@ -179,6 +187,104 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """The host's time per call of `fn` over back-to-back calls, without
+    waiting for the device: what the wrapper costs before its launch is
+    queued. CUDA events around the same calls read the larger of this and
+    the device's time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """The device's own time per call of `fn`: the durations of the device
+    events that torch.profiler records over `iters` calls, summed and
+    divided by `iters`, with each kernel's name and launches per call (the
+    host's work between launches is not counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, kernels = 0.0, {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            us += evt.time_range.elapsed_us()
+            name = evt.name[:100]
+            kernels[name] = kernels.get(name, 0) + 1.0 / iters
+    check(us > 0, "torch.profiler recorded no device time")
+    return dict(ms=us / 1e3 / iters, method="torch.profiler",
+                kernels_per_call=kernels)
+
+
+def ptxas_entries(log: str) -> dict:
+    """Registers, spill bytes and stack of each entry function in nvcc's
+    -Xptxas -v output, by mangled name."""
+    import re
+
+    entries, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = entries.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return entries
+
+
+def bf16_backward_kernels(builds) -> list:
+    """ptxas' registers and spills of the bf16 backward kernels (kernels 3
+    and 6 by key tiles of 16), as attention_dropout_bwd_bf16_kernel<n>."""
+    import re
+
+    rows = []
+    for res in builds:
+        for name, info in ptxas_entries(res.log).items():
+            m = re.search(r"(attention_[a-z_]+_bwd_bf16_kernel)ILi(\d)E",
+                          name)
+            if m:
+                rows.append(dict(kernel=f"{m.group(1)}<{m.group(2)}>",
+                                 **info))
+    return sorted(rows, key=lambda r: r["kernel"])
+
+
+def bf16_backward_smem_bytes(lq: int, lk: int) -> int:
+    """Dynamic shared memory of one bf16 backward block, as the launch asks
+    for it (attention_common.cuh, backward_bf16_smem_bytes)."""
+    import ctypes
+
+    from xggm_tpu_torch.ops import build
+
+    fn = build.load("attention_dropout").xggm_attention_bwd_bf16_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_size_t
+    return int(fn(lq, lk))
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -416,6 +522,28 @@ def phase_dropout(torch, attn, philox, train_b: int):
                     bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
                 row["fwd_bound_share"] = row["fwd_bound_ms"] / row["fwd_ms"]
                 row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
+                # the kernels' own device time, without the wrappers' host
+                # work between back-to-back calls
+                dev = {key: device_ms(fn) for key, fn in (
+                    ("bwd", lambda: attn.attention_dropout_bwd(
+                        q, k, v, bias, H, seed, RATE, gout)),
+                    ("k1_bwd", lambda: attn.attention_dropout_bwd(
+                        q, k, v, bias, H, 0, 0.0, gout)),
+                    ("library_bwd", library_bwd),
+                    ("k1_library_bwd", library_bwd0))}
+                row.update({f"{key}_device_ms": d["ms"]
+                            for key, d in dev.items()})
+                row.update(
+                    bwd_host_ms=host_ms(lambda: attn.attention_dropout_bwd(
+                        q, k, v, bias, H, seed, RATE, gout)),
+                    device_time_method=dev["bwd"]["method"],
+                    bwd_device_kernels=dev["bwd"]["kernels_per_call"],
+                    library_bwd_device_kernels=dev["library_bwd"][
+                        "kernels_per_call"],
+                    bwd_device_bound_share=(row["bwd_bound_ms"]
+                                            / row["bwd_device_ms"]),
+                    bwd_threads=32 * ((lq + 15) // 16),
+                    bwd_dynamic_smem_bytes=bf16_backward_smem_bytes(lq, lk))
             emit("dropout", **row)
             rows.append(row)
 
@@ -560,6 +688,20 @@ def phase_blhd(torch, attn, philox, train_b: int):
                     library_bwd_ms=cuda_ms(library_bwd),
                     fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                     bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+                dev = {key: device_ms(fn) for key, fn in (
+                    ("k6", lambda: attn.attention_dropout_blhd_bwd(
+                        q, k, v, bias, seed, RATE, gout)),
+                    ("k4_bwd", lambda: attn.attention_dropout_blhd_bwd(
+                        q, k, v, bias, 0, 0.0, gout)),
+                    ("library_bwd", library_bwd))}
+                row.update({f"{key}_device_ms": d["ms"]
+                            for key, d in dev.items()})
+                row.update(k6_host_ms=host_ms(
+                               lambda: attn.attention_dropout_blhd_bwd(
+                                   q, k, v, bias, seed, RATE, gout)),
+                           device_time_method=dev["k6"]["method"],
+                           k6_device_bound_share=(row["bwd_bound_ms"]
+                                                  / row["k6_device_ms"]))
             emit("blhd", **row)
             rows.append(row)
 
@@ -610,6 +752,45 @@ def phase_blhd(torch, attn, philox, train_b: int):
             "attention_dropout_blhd_bwd": 2 * LAUNCHES_PER_FORWARD}
     check(launches == want, f"BLHD launches {launches}, expected {want}")
     return rows, launches
+
+
+def emit_backward_device(drop_rows, blhd_rows, train_b: int) -> None:
+    """Kernels 3 and 6 and the library backward per pass of the path's 34
+    launches at the training batch in bf16: CUDA events around back-to-back
+    calls (the wrapper's host work included) and the device's own time,
+    against the bound."""
+    drop = [r for r in drop_rows if "bwd_device_ms" in r]
+    blhd = [r for r in blhd_rows if "k6_device_ms" in r]
+
+    def per_pass(key, table):
+        return sum(r[key] * r["launches_per_forward"] for r in table)
+
+    bound_ms = per_pass("bwd_bound_ms", drop)
+    keys = {"k3_ms": ("bwd_ms", drop),
+            "k3_device_ms": ("bwd_device_ms", drop),
+            "k3_host_ms": ("bwd_host_ms", drop),
+            "k3_rate0_ms": ("k1_bwd_ms", drop),
+            "k3_rate0_device_ms": ("k1_bwd_device_ms", drop),
+            "library_bwd_ms": ("library_bwd_ms", drop),
+            "library_bwd_device_ms": ("library_bwd_device_ms", drop),
+            "library_bwd_rate0_ms": ("k1_library_bwd_ms", drop),
+            "library_bwd_rate0_device_ms": ("k1_library_bwd_device_ms", drop),
+            "k6_ms": ("k6_ms", blhd),
+            "k6_device_ms": ("k6_device_ms", blhd),
+            "k6_host_ms": ("k6_host_ms", blhd),
+            "k6_rate0_device_ms": ("k4_bwd_device_ms", blhd),
+            "library_bwd_blhd_ms": ("library_bwd_ms", blhd),
+            "library_bwd_blhd_device_ms": ("library_bwd_device_ms", blhd)}
+    passes = {name: per_pass(key, table)
+              for name, (key, table) in keys.items()}
+    emit("backward_device", per_pass=passes, bound_ms=bound_ms,
+         share_of_bound={name: bound_ms / ms for name, ms in passes.items()
+                         if "host" not in name},
+         method=drop[0]["device_time_method"],
+         over=f"one training backward's {LAUNCHES_PER_FORWARD} launches at "
+              f"B={train_b}, bf16; *_ms: CUDA events around back-to-back "
+              "calls, *_device_ms: the device's own time, *_host_ms: the "
+              "host's time per wrapper call")
 
 
 def grad_agreement(torch, names, kernels, plain) -> dict:
@@ -1098,6 +1279,16 @@ def main() -> int:
              ptxas=[ln.strip() for ln in res.log.splitlines()
                     if "ptxas info" in ln or "spill" in ln])
     emit("build", wall_seconds=time.perf_counter() - t0)
+    bwd_bf16 = bf16_backward_kernels(builds)
+    emit("build_bwd_bf16", kernels=bwd_bf16,
+         dynamic_smem_bytes_at_path_shapes={
+             f"{lq}x{lk}": bf16_backward_smem_bytes(lq, lk)
+             for lq, lk, _, _ in PATH_SHAPES})
+    check(len(bwd_bf16) == 8, f"expected 8 bf16 backward kernels in the "
+                              f"build log, found {len(bwd_bf16)}")
+    spills = [r["kernel"] for r in bwd_bf16
+              if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    check(not spills, f"bf16 backward kernels spill: {spills}")
 
     # 3. kernel check and times
     rows = phase_kernel(torch, attn)
@@ -1109,6 +1300,7 @@ def main() -> int:
 
     # 5. the BLHD kernels at the training batch, and their entry points
     blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b)
+    emit_backward_device(drop_rows, blhd_rows, train_b)
 
     # 6. serving at full width
     lx = cfg.lxmert.replace(dtype="bfloat16")

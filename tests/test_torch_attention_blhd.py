@@ -17,7 +17,8 @@ kernels 1 to 3.
 - The BLHD plain versions equal the flattened ones on permuted inputs with
   the same seed, exactly: head h of batch b draws row b * H + h's mask.
 - `gpu`: kernels 4 to 6 against their plain versions and against kernels 1
-  to 3 on the permuted inputs. This file imports JAX only inside the tests
+  to 3 on the permuted inputs, kernel 6 in bf16 also at shapes off its
+  16 x 16 tiles. This file imports JAX only inside the tests
   that compare with it, so that the card test runs where JAX is absent:
   `python -m pytest --noconftest -m gpu tests/test_torch_attention_blhd.py`.
 
@@ -305,13 +306,22 @@ TOLS = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=2.0 ** -8),
         torch.float32: dict(rtol=1e-5, atol=1e-5)}
 
 
+# (Lq, Lk) off the 16 x 16 tiles of kernel 6's bf16 body, and its largest;
+# an odd batch (one block per (batch * head) row: any row count works)
+EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
+EDGE_BATCH = 7
+
+
 @pytest.mark.gpu
 def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
     """At the 4 path shapes in bf16 and fp32: kernel 4 and kernel 5 against
     their plain versions (the latter fed the Philox mask), kernel 6 at rates
     0 and 0.1 against the plain gradients; each against kernels 1 to 3 on
     the permuted inputs with the same seed, bit for bit; kernel 5's own mask
-    against the Philox mask of row b * H + h; one launch each."""
+    against the Philox mask of row b * H + h; one launch each. Then kernel 6
+    in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not, at rates 0.1 and
+    0: against the plain gradients, and against kernel 3 on the permuted
+    inputs, bit for bit."""
     seed, b = 2025, 32
     for dtype in (torch.bfloat16, torch.float32):
         for lq, lk, masked in PATH_SHAPES:
@@ -368,3 +378,26 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
             RATE)[..., :lk] > 0
         keep = dropout_keep(seed, b * H, lq, lk, RATE, cuda) > 0
         assert torch.equal(_rows(drawn), keep), dtype
+
+    for lq, lk in EDGE_SHAPES:
+        for masked in (True, False):
+            q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked,
+                                       torch.bfloat16, cuda, seed=lq + lk)
+            flat = [_rows(t) for t in (q, k, v, g)]
+            for rate in (RATE, 0.0):
+                where = f"{(lq, lk)} mask {masked} rate {rate}"
+                keep = (dropout_keep(seed, EDGE_BATCH * H, lq, lk, rate, cuda)
+                        if rate else None)
+                g6 = attn.attention_dropout_blhd_bwd(q, k, v, bias, seed,
+                                                     rate, g)
+                wants = attn.attention_dropout_blhd_reference_grads(
+                    q, k, v, bias, keep, g)
+                g3 = attn.attention_dropout_bwd(*flat[:3], bias, H, seed,
+                                                rate, flat[3])
+                for a, w, f in zip(g6, wants, g3):
+                    assert a.dtype == w.dtype and a.shape == w.shape, where
+                    torch.testing.assert_close(
+                        a.float(), w.float(),
+                        msg=lambda m, where=where: f"{where}: {m}",
+                        **TOLS[torch.bfloat16])
+                    assert torch.equal(a, _blhd(f, EDGE_BATCH)), where

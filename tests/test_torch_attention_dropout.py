@@ -11,7 +11,8 @@ kernels 2 and 3) and its Philox mask (ops/philox.py).
 - The autograd.Function's backward against autograd through the plain
   version with the same mask, and the Philox mask's keep rate.
 - `gpu`-marked card tests: kernels 2 and 3, and kernel 1's backward, against
-  their plain versions. They skip without a card. This file imports JAX only
+  their plain versions; kernel 3's bf16 body also at shapes off its 16 x 16
+  tiles. They skip without a card. This file imports JAX only
   inside the tests that compare with it, so that the card tests run where
   JAX is absent:
   `python -m pytest --noconftest -m gpu tests/test_torch_attention_dropout.py`.
@@ -221,12 +222,21 @@ TOLS = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=2.0 ** -8),
         torch.float32: dict(rtol=1e-5, atol=1e-5)}
 
 
+# (Lq, Lk) off the 16 x 16 tiles of kernel 3's bf16 body, and its largest
+EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
+# an odd batch: the bf16 backward runs one block per (batch * head) row, so
+# any row count works; this one is odd and no multiple of 16
+EDGE_BATCH = 7
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions(cuda):
     """At the 4 path shapes in bf16 and fp32: kernel 2 against the plain
     forward and kernel 3 against the plain gradients, both fed the mask
     ops/philox.py draws on the card; kernel 1's backward (kernel 3 at rate
-    0) against the plain gradients of attention_reference; one launch each."""
+    0) against the plain gradients of attention_reference; one launch each.
+    Then kernel 3 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not, at
+    rates 0.1 and 0, against the plain gradients."""
     seed = 2024
     for dtype in (torch.bfloat16, torch.float32):
         for lq, lk, masked in PATH_SHAPES:
@@ -259,3 +269,22 @@ def test_kernels_match_plain_versions(cuda):
                     assert a.dtype == dtype and a.shape == w.shape, where
                     torch.testing.assert_close(a.float(), w.float(), msg=msg,
                                                **TOLS[dtype])
+
+    for lq, lk in EDGE_SHAPES:
+        for masked in (True, False):
+            q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked,
+                                       torch.bfloat16, cuda, seed=lq + lk)
+            for rate in (RATE, 0.0):
+                where = f"{(lq, lk)} mask {masked} rate {rate}"
+                keep = (dropout_keep(seed, q.shape[0], lq, lk, rate, cuda)
+                        if rate else None)
+                grads = attn.attention_dropout_bwd(q, k, v, bias, H, seed,
+                                                   rate, g)
+                wants = attn.attention_dropout_reference_grads(
+                    q, k, v, bias, H, keep, g)
+                for a, w in zip(grads, wants):
+                    assert a.dtype == w.dtype and a.shape == w.shape, where
+                    torch.testing.assert_close(
+                        a.float(), w.float(),
+                        msg=lambda m, where=where: f"{where}: {m}",
+                        **TOLS[torch.bfloat16])

@@ -28,13 +28,19 @@
 // What bounds them: memory bandwidth, as kernels 1 to 3 (the same bytes and
 // FLOPs; the layout changes only the addresses).
 //
-// Design: kernels 1 to 3's bodies (attention_forward_block and
-// attention_backward_block of attention_common.cuh), given H heads between
-// positions where kernels 1 to 3 give 1: one block of four warps per
-// (b, h), as there. The row of one position of
-// one head is 64 contiguous elements (128 bytes in bf16), so each staged
-// row is still read with coalesced 16-byte loads; rows lie H * 64 elements
-// apart instead of 64. No transpose is ever materialised.
+// Design: kernels 1 to 3's bodies (attention_common.cuh:
+// attention_forward_block, and attention_backward_block_bf16 for bf16 or
+// attention_backward_block for fp32), given H heads between positions
+// where kernels 1 to 3 give 1. The forward runs one block of four warps per
+// (b, h); the bf16 backward one warp per 16 queries of a (b, h), on the
+// tensor cores, its inputs copied by cp.async (attention_dropout.cu sets
+// out why). The row of one position of one head is 64 contiguous elements
+// (128 bytes in bf16), so each staged row is still read with coalesced
+// 16-byte loads; rows lie H * 64 elements apart instead of 64. No
+// transpose is ever materialised, and kernels 4 to 6 give the bits of
+// kernels 1 to 3 on the permuted inputs.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -78,20 +84,45 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kBackwardBf16MaxThreads,
+                                  kBackwardBf16MinBlocks<kKeyTiles>)
+attention_blhd_bwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int lq,
+    int lk, int heads, float scale, Dropout drop) {
+  attention_backward_block_bf16<kKeyTiles>(q, k, v, bias, g, dq, dk, dv, lq,
+                                           lk, heads, heads, scale, drop);
+}
+
+const Bf16BackwardKernel kBlhdBwdBf16[4] = {
+    attention_blhd_bwd_bf16_kernel<1>,
+    attention_blhd_bwd_bf16_kernel<2>,
+    attention_blhd_bwd_bf16_kernel<3>,
+    attention_blhd_bwd_bf16_kernel<4>};
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* bias, const void* g, void* dq, void* dk,
                        void* dv, int bh, int lq, int lk, int heads,
                        Dropout drop, cudaStream_t stream) {
-  const size_t smem = backward_smem_bytes(lq, lk);
-  const cudaError_t err = allow_smem(attention_blhd_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  attention_blhd_bwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), lq, lk, heads, head_scale(), drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_backward_bf16(kBlhdBwdBf16, q, k, v, bias, g, dq, dk, dv,
+                                bh, lq, lk, heads, drop, stream);
+  } else {
+    const size_t smem = backward_smem_bytes(lq, lk);
+    const cudaError_t err = allow_smem(attention_blhd_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    attention_blhd_bwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), lq, lk, heads, head_scale(), drop);
+    return cudaGetLastError();
+  }
 }
 
 bool bad_blhd_shape(int batch, int lq, int lk, int heads) {

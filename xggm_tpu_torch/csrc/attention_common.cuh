@@ -7,6 +7,14 @@
 // bodies of the forward (kernels 1, 2, 4 and 5, which differ only in the
 // dropout multiplier and the layout) and of the backward (kernels 3 and 6,
 // which differ only in the layout).
+//
+// The backward has two bodies, chosen by the input type the C API already
+// takes. bf16, the type of the training and serving paths, runs on the
+// tensor cores: attention_backward_block_bf16 (cp.async into bf16 shared
+// memory, mma.sync m16n8k16 with fp32 accumulation, ldmatrix, one Philox
+// call per four keys; its note sets out the design). fp32 inputs cannot be
+// bf16 tensor-core operands, and fp32 is on no path, so fp32 keeps the
+// scalar-FMA body of the first port (attention_backward_block).
 #pragma once
 
 #include <math.h>
@@ -21,11 +29,9 @@ constexpr int kHeadDim = 64;
 constexpr int kMaxKeys = 64;           // two keys per lane
 constexpr int kWarps = 4;
 constexpr int kKeyPitch = kHeadDim + 1;
-// The backward kernels' __launch_bounds__ minimum of blocks per SM: 8 caps
-// them at 64 registers, and ptxas then takes 64 without spills. Left to
-// itself it took 32 to 48 and spilled in bf16: kernel 3 in bf16 took 0.195
-// ms at B = 96, 36 x 36 (0.170 ms before it shared this body with kernel
-// 6), and takes 0.151 ms with this bound (NVIDIA H100 80GB HBM3, 700 W).
+// The fp32 backward kernels' __launch_bounds__ minimum of blocks per SM: 8
+// caps them at 64 registers, and ptxas then takes 64 without spills; left
+// to itself it took 32 to 48 and spilled.
 constexpr int kBackwardBlocksPerSm = 8;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -281,10 +287,11 @@ __device__ __forceinline__ void attention_forward_block(
   }
 }
 
-// The backward of kernels 3 and 6 for the (batch * head) row blockIdx.x of
-// this block of kWarps warps, in the layout of `lh` heads: dq, dk and dv of
-// round(p * m) v at output gradient g, all in fp32 from the same m, rounded
-// once to the input type (attention_dropout.cu sets out the math). q, g, k
+// The fp32 backward of kernels 3 and 6 for the (batch * head) row
+// blockIdx.x of this block of kWarps warps, in the layout of `lh` heads:
+// dq, dk and dv of round(p * m) v at output gradient g, all in fp32 from the
+// same m, rounded once to the input type (attention_dropout.cu sets out the
+// math). q, g, k
 // and v are staged as fp32, k and v padded to 65 floats; p * m and ds are
 // kept in shared memory ([lq][lk] fp32 each): a first pass over query rows
 // computes them and dq, a second pass over key rows sums dv and dk.
@@ -391,6 +398,471 @@ __device__ __forceinline__ void attention_backward_block(
     dkrow[lane] = from_float<T>(k0acc * scale);
     dkrow[lane + 32] = from_float<T>(k1acc * scale);
   }
+}
+
+// ---- the bf16 backward of kernels 3 and 6, on the tensor cores -----------
+//
+// Replaces, for bf16, _attention_dropout_bwd_kernel and
+// _attention_dropout_blhd_bwd_kernel of xggm_tpu/ops/pallas_attention.py.
+// Bound by bytes: 10 B H Lq Lk 64 FLOPs are about 1.5 us per training
+// launch at mma.sync rates, the bytes 6 to 11 us. wgmma takes tiles of 64
+// rows, and a row here has at most 36 queries on the path, so the products
+// are mma.sync; what the body keeps small is the instructions around them.
+//
+// One block per (batch * head) row, one warp per tile of 16 queries (Lq 36:
+// 3 warps). The five products are mma.sync m16n8k16 (bf16 operands, fp32
+// accumulation), with Lq and Lk padded to multiples of 16 inside the tiles:
+//   phase 1, warp w on queries 16w..16w+15, all keys:
+//     s = q k^T and g v^T, exact bf16 operands (A and B by ldmatrix);
+//     p = softmax(s * scale + bias) in fp32 over the quad's shuffles;
+//     m by one Philox call per thread and 8 keys (dropout_quad);
+//     dp = m * (g v^T), ds = p * (dp - rowsum(dp * p));
+//     p * m and ds to shared memory as bf16 hi and lo (x = hi + lo);
+//     dq = ds k * scale, ds from registers: the m16n8 accumulators of two
+//     neighbouring key tiles are the A fragment of one k16 step.
+//   phase 2, after one barrier, work items (16 keys, dv or dk) in turn:
+//     dv = (p * m)^T g and dk = ds^T q * scale, the transposes read by
+//     ldmatrix.trans from the hi and lo tiles.
+// An fp32 operand (p * m, ds) is split into bf16 hi + lo and multiplied
+// twice: rounding it once to bf16 puts the gradients more than one bf16 ulp
+// from the fp32 math (tests/test_torch_attention_bwd_numerics.py).
+// q, k, v and g arrive by cp.async, 16 bytes a thread, straight into bf16
+// shared memory, rows 144 bytes apart (9 x 16: the 8 rows of an ldmatrix
+// hit 8 different bank groups); q and k in a first group, so that s starts
+// while g and v are in flight. Rows past Lq or Lk are not stored: ldmatrix
+// reads them from one line of zeros, so a padded query has q = g = 0
+// (p * m and ds of that row are never stored, and read as 0) and a padded
+// key has k = v = 0 and the score -inf (p = 0, ds = 0).
+
+constexpr int kPitch = kHeadDim + 8;  // bf16 per staged row: 144 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8. Plain: register i holds (row lane / 4, columns 2 (lane % 4)
+// + {0, 1}) of matrix i; .trans: the same place of its transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a b: a the m16k16 A fragment, (b0, b1) the k16n8 B fragment, d the
+// m16n8 accumulator (d[0], d[1] at row lane / 4, columns 2 (lane % 4) +
+// {0, 1}; d[2], d[3] eight rows below).
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x0, x1) as bf16 pairs hi and lo with x = hi + lo to about 2^-16
+// relative; x0 in the low half, as the fragments hold the lower column.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - f.x, x1 - f.y));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Copy `rows` rows of 64 bf16, `stride` elements apart in device memory,
+// into shared memory kPitch apart, 16 bytes a thread and copy.
+__device__ __forceinline__ void stage_async(const __nv_bfloat16* src,
+                                            __nv_bfloat16* dst, int rows,
+                                            int stride) {
+  for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) {
+    const int r = i >> 3;
+    const int c = (i & 7) * 8;
+    cp_async16(smem_u32(dst + r * kPitch + c), src + (size_t)r * stride + c);
+  }
+}
+
+// The shared address of the 16 bytes at column `col` of row `r` of a tile
+// of `rows` rows `pitch` bf16 apart; a row past the tile reads the zeros.
+__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int rows,
+                                              int pitch, int col,
+                                              uint32_t zeros) {
+  return r < rows ? base + 2u * (uint32_t)(r * pitch + col) : zeros;
+}
+
+// The dropout multipliers of this thread's scores in the m16n8 tile n of
+// the warp's queries i and i + 8 (i = first query + lane / 4): keys 8n +
+// 2 (lane % 4) + {0, 1}, as m[0], m[1] (query i) and m[2], m[3] (i + 8).
+// Philox word j % 4 at counter (row, query, j / 4, 0) decides key j, so
+// lanes 2c and 2c + 1 of a quad need the same two counters (queries i and
+// i + 8, block 2n + c): the even lane draws query i, the odd lane i + 8,
+// and each hands its partner the two words it needs, with the bits of
+// dropout_multiplier and ops/philox.py. Called by the whole warp.
+__device__ __forceinline__ void dropout_quad(const Dropout& drop,
+                                             uint32_t row, int i, int n,
+                                             int lk, float (&m)[4]) {
+  if (drop.threshold == 0u || 8 * n >= lk) {  // uniform over the warp
+    const float all = drop.threshold == 0u ? drop.keep_scale : 0.f;
+    m[0] = m[1] = m[2] = m[3] = all;
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const bool odd = lane & 1;
+  const uint4 w = philox4x32_10(
+      make_uint4(row, (uint32_t)(odd ? i + 8 : i),
+                 (uint32_t)(2 * n + ((lane & 3) >> 1)), 0u),
+      make_uint2(drop.seed + row, 0u));
+  // even: keep words 0, 1 of query i, send 2, 3; odd: keep words 2, 3 of
+  // query i + 8, send 0, 1
+  const uint32_t in0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const uint32_t in1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  const uint32_t bits[4] = {odd ? in0 : w.x, odd ? in1 : w.y,
+                            odd ? w.z : in0, odd ? w.w : in1};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    m[e] = bits[e] >= drop.threshold ? drop.keep_scale : 0.f;
+}
+
+// Threads of a bf16 backward block: one warp per 16 queries.
+inline int backward_bf16_threads(int lq) { return 32 * ((lq + 15) / 16); }
+
+// Shared memory of a bf16 backward block: q and g [lq][kPitch], k and v
+// [lk][kPitch], p * m and ds as hi and lo [lq][pad16(lk) + 8], and one
+// 16-byte line of zeros.
+inline size_t backward_bf16_smem_bytes(int lq, int lk) {
+  const int pp = 16 * ((lk + 15) / 16) + 8;
+  return sizeof(__nv_bfloat16) *
+             ((size_t)(2 * lq + 2 * lk) * kPitch + (size_t)4 * lq * pp) +
+         16;
+}
+
+// __launch_bounds__ of the bf16 backward kernels: at most 4 warps (Lq 64),
+// and the blocks per SM that the shared memory allows by key tiles (Lk up
+// to 16 * kKeyTiles). Lk 20 on the path: 12 blocks of 2 warps at (20, 20),
+// 8 of 3 at (36, 20); Lk 36: 6 of 3 warps at (36, 36), 8 of 2 at (20, 36);
+// Lk 64: 3 of 4 warps at (64, 64). 6, 4 and 3 blocks of 4 warps cap a
+// thread at 80, 128 and 168 registers. At 5 (96 registers) the Lk 36 body
+// spilled 8 bytes; what it takes under 128 allows 5 to 6 blocks of 3 warps.
+constexpr int kBackwardBf16MaxThreads = 32 * (kMaxKeys / 16);
+template <int kKeyTiles>
+constexpr int kBackwardBf16MinBlocks =
+    kKeyTiles <= 2 ? 6 : kKeyTiles == 3 ? 4 : 3;
+
+// The bf16 backward of kernels 3 and 6 for the (batch * head) row
+// blockIdx.x, keys padded to 16 * kKeyTiles (the note above sets out the
+// design; attention_dropout.cu the math). blockDim.x is
+// backward_bf16_threads(lq), the dynamic shared memory
+// backward_bf16_smem_bytes(lq, lk).
+template <int kKeyTiles>
+__device__ __forceinline__ void attention_backward_block_bf16(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int lq,
+    int lk, int heads, int lh, float scale, Dropout drop) {
+  constexpr int kN = 2 * kKeyTiles;  // m16n8 tiles across the keys
+  const int pp = 16 * kKeyTiles + 8;  // pitch of the p * m and ds tiles
+  extern __shared__ uint4 bwd_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* gs = qs + lq * kPitch;
+  __nv_bfloat16* ks = gs + lq * kPitch;
+  __nv_bfloat16* vs = ks + lk * kPitch;
+  __nv_bfloat16* pm_hi = vs + lk * kPitch;
+  __nv_bfloat16* pm_lo = pm_hi + lq * pp;
+  __nv_bfloat16* ds_hi = pm_lo + lq * pp;
+  __nv_bfloat16* ds_lo = ds_hi + lq * pp;
+  uint4* zeros = reinterpret_cast<uint4*>(ds_lo + lq * pp);
+
+  const size_t row = blockIdx.x;
+  const Layout at(row, lq, lk, lh);
+  stage_async(q + at.q, qs, lq, at.stride);
+  stage_async(k + at.kv, ks, lk, at.stride);
+  cp_async_commit();
+  stage_async(g + at.q, gs, lq, at.stride);
+  stage_async(v + at.kv, vs, lk, at.stride);
+  cp_async_commit();
+  if (threadIdx.x == 0) *zeros = make_uint4(0u, 0u, 0u, 0u);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int gr = lane >> 2;       // accumulator row (and row + 8)
+  const int gc = 2 * (lane & 3);  // accumulator column pair
+  const int mat = lane >> 3;      // ldmatrix: this lane's matrix ...
+  const int mrow = lane & 7;      // ... and row in it
+  const uint32_t z = smem_u32(zeros);
+  const uint32_t qa = smem_u32(qs), ga = smem_u32(gs), ka = smem_u32(ks),
+                 va = smem_u32(vs);
+  const int i0 = 16 * warp;  // this warp's first query
+  // ldmatrix rows and columns of an A fragment (16 x 16 at row r0, column
+  // c0: matrices top-left, bottom-left, top-right, bottom-right) and of two
+  // B fragments of K^T (key rows: top-left, top-right, bottom-left,
+  // bottom-right), and of the .trans B fragments of a [k][n] row-major tile
+  const int a_row = mrow + 8 * (mat & 1), a_col = 8 * (mat >> 1);
+  const int bt_row = mrow + 8 * (mat >> 1), bt_col = 8 * (mat & 1);
+
+  // phase 1: s = q k^T (q, k arrived), then g v^T
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[kN][4];
+  float t[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = t[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+    uint32_t a[4];
+    ldsm_x4(a, tile_addr(qa, i0 + a_row, lq, kPitch, 16 * kd + a_col, z));
+#pragma unroll
+    for (int p = 0; p < kKeyTiles; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, tile_addr(ka, 16 * p + bt_row, lk, kPitch,
+                           16 * kd + bt_col, z));
+      mma_bf16(s[2 * p], a, b[0], b[1]);
+      mma_bf16(s[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+
+  // the fp32 softmax of rows i0 + gr (e = 0, 1) and i0 + gr + 8 (e = 2, 3)
+  const float* brow = bias ? bias + (row / heads) * lk : nullptr;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * n + gc + (e & 1);
+      const float b = (brow && j < lk) ? brow[j] : 0.f;
+      s[n][e] = j < lk ? s[n][e] * scale + b : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = expf(s[n][e] - mx[e >> 1]);  // 0 past lk
+      sum[e >> 1] += s[n][e];
+    }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] /= sum[e >> 1];  // p
+
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+    uint32_t a[4];
+    ldsm_x4(a, tile_addr(ga, i0 + a_row, lq, kPitch, 16 * kd + a_col, z));
+#pragma unroll
+    for (int p = 0; p < kKeyTiles; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, tile_addr(va, 16 * p + bt_row, lk, kPitch,
+                           16 * kd + bt_col, z));
+      mma_bf16(t[2 * p], a, b[0], b[1]);
+      mma_bf16(t[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+
+  // m, dp = m * (g v^T) into t, p * m to shared memory, rowsum(dp * p)
+  const bool row0 = i0 + gr < lq, row1 = i0 + gr + 8 < lq;
+  const int off0 = (i0 + gr) * pp + gc, off1 = off0 + 8 * pp;
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    float m[4];
+    dropout_quad(drop, (uint32_t)row, i0 + gr, n, lk, m);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t[n][e] *= m[e];
+      rs[e >> 1] += t[n][e] * s[n][e];
+    }
+    uint32_t hi, lo;
+    if (row0) {
+      split_bf16(s[n][0] * m[0], s[n][1] * m[1], hi, lo);
+      *reinterpret_cast<uint32_t*>(pm_hi + off0 + 8 * n) = hi;
+      *reinterpret_cast<uint32_t*>(pm_lo + off0 + 8 * n) = lo;
+    }
+    if (row1) {
+      split_bf16(s[n][2] * m[2], s[n][3] * m[3], hi, lo);
+      *reinterpret_cast<uint32_t*>(pm_hi + off1 + 8 * n) = hi;
+      *reinterpret_cast<uint32_t*>(pm_lo + off1 + 8 * n) = lo;
+    }
+  }
+  rs[0] = quad_sum(rs[0]);
+  rs[1] = quad_sum(rs[1]);
+
+  // ds = p * (dp - rowsum): to shared memory, and as the hi and lo A
+  // fragments of dq's k16 steps (m16n8 tiles 2 kk and 2 kk + 1)
+  uint32_t dsa[kKeyTiles][2][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    uint32_t h0, l0, h1, l1;
+    split_bf16(s[n][0] * (t[n][0] - rs[0]), s[n][1] * (t[n][1] - rs[0]), h0,
+               l0);
+    split_bf16(s[n][2] * (t[n][2] - rs[1]), s[n][3] * (t[n][3] - rs[1]), h1,
+               l1);
+    if (row0) {
+      *reinterpret_cast<uint32_t*>(ds_hi + off0 + 8 * n) = h0;
+      *reinterpret_cast<uint32_t*>(ds_lo + off0 + 8 * n) = l0;
+    }
+    if (row1) {
+      *reinterpret_cast<uint32_t*>(ds_hi + off1 + 8 * n) = h1;
+      *reinterpret_cast<uint32_t*>(ds_lo + off1 + 8 * n) = l1;
+    }
+    const int half = 2 * (n & 1);
+    dsa[n >> 1][0][half] = h0;
+    dsa[n >> 1][0][half + 1] = h1;
+    dsa[n >> 1][1][half] = l0;
+    dsa[n >> 1][1][half + 1] = l1;
+  }
+
+  // dq = ds k * scale
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kKeyTiles; ++kk)
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, tile_addr(ka, 16 * kk + a_row, lk, kPitch,
+                                 16 * d + a_col, z));
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        mma_bf16(acc[2 * d], dsa[kk][part], b[0], b[1]);
+        mma_bf16(acc[2 * d + 1], dsa[kk][part], b[2], b[3]);
+      }
+    }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    __nv_bfloat16* out = dq + at.q + 8 * n + gc;
+    if (row0)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(i0 + gr) * at.stride) =
+          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
+    if (row1)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + (size_t)(i0 + gr + 8) * at.stride) =
+          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+  }
+  __syncthreads();  // the p * m and ds tiles are complete
+
+  // phase 2: items (keys 16 it / 2 .., dv for even it, dk for odd)
+  for (int it = warp; it < kN; it += warps) {
+    const int j0 = 16 * (it >> 1);
+    const bool is_dk = it & 1;
+    const uint32_t ah = smem_u32(is_dk ? ds_hi : pm_hi);
+    const uint32_t al = smem_u32(is_dk ? ds_lo : pm_lo);
+    const uint32_t ba = is_dk ? qa : ga;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 1
+    for (int ic = 0; ic < lq; ic += 16) {
+      // A = (p * m)^T or ds^T [16 keys][16 queries]: the transposes of
+      // the stored [query][key] tile's 8 x 8 blocks
+      uint32_t a_hi[4], a_lo[4];
+      ldsm_x4_trans(a_hi, tile_addr(ah, ic + bt_row, lq, pp, j0 + bt_col, z));
+      ldsm_x4_trans(a_lo, tile_addr(al, ic + bt_row, lq, pp, j0 + bt_col, z));
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, tile_addr(ba, ic + a_row, lq, kPitch, 16 * d + a_col,
+                                   z));
+        mma_bf16(acc[2 * d], a_hi, b[0], b[1]);
+        mma_bf16(acc[2 * d], a_lo, b[0], b[1]);
+        mma_bf16(acc[2 * d + 1], a_hi, b[2], b[3]);
+        mma_bf16(acc[2 * d + 1], a_lo, b[2], b[3]);
+      }
+    }
+    const float f = is_dk ? scale : 1.f;
+    __nv_bfloat16* out = (is_dk ? dk : dv) + at.kv + gc;
+    const int j = j0 + gr;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (j < lk)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)j * at.stride +
+                                           8 * n) =
+            __floats2bfloat162_rn(acc[n][0] * f, acc[n][1] * f);
+      if (j + 8 < lk)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(j + 8) * at.stride +
+                                           8 * n) =
+            __floats2bfloat162_rn(acc[n][2] * f, acc[n][3] * f);
+    }
+  }
+}
+
+// The kernels of one bf16 backward, by key tiles (1 to 4), each with the C
+// signature of its source's launch; launched with cudaLaunchKernel.
+using Bf16BackwardKernel = void (*)(
+    const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+    const float*, const __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*,
+    __nv_bfloat16*, int, int, int, float, Dropout);
+
+inline cudaError_t launch_backward_bf16(
+    const Bf16BackwardKernel (&kernels)[4], const void* q, const void* k,
+    const void* v, const void* bias, const void* g, void* dq, void* dk,
+    void* dv, int bh, int lq, int lk, int heads, Dropout drop,
+    cudaStream_t stream) {
+  const Bf16BackwardKernel kernel = kernels[(lk + 15) / 16 - 1];
+  const size_t smem = backward_bf16_smem_bytes(lq, lk);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  float scale = head_scale();
+  void* args[] = {&q,  &k,  &v,  &bias,  &g,     &dq,  &dk,
+                  &dv, &lq, &lk, &heads, &scale, &drop};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
+                          dim3(backward_bf16_threads(lq)), args, smem, stream);
 }
 
 }  // namespace

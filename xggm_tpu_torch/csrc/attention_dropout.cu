@@ -30,16 +30,27 @@
 // the tensor cores become the limit. So the design keeps p, m, dp and ds
 // out of device memory and reads each input once, with 16-byte loads.
 //
-// Design, simple first (as attention_fwd.cu): one block of four warps per
-// row; the inputs staged in shared memory as fp32, k and v rows padded to
-// 65 floats so that 32 lanes reading 32 keys hit 32 banks; lane j holds
-// keys j and j + 32, and row reductions are warp shuffles. The forward is
-// kernel 1's body with the dropout multiplier (attention_common.cuh,
-// attention_forward_block). The backward (attention_backward_block, shared
-// with kernel 6 of attention_blhd.cu) keeps p * m and ds in shared memory
-// ([Lq][Lk] fp32 each): a first pass over query rows computes them and dq,
-// a second pass over key rows sums dv and dk. wgmma, TMA and several rows
-// per block are left for later work.
+// The forward (kernel 2) is kernel 1's body with the dropout multiplier
+// (attention_common.cuh, attention_forward_block): one block of four warps
+// per row, the inputs staged in shared memory as fp32, lane j holding keys
+// j and j + 32, row reductions by warp shuffles.
+//
+// The backward (kernel 3) in bf16 is attention_backward_block_bf16, shared
+// with kernel 6 of attention_blhd.cu. The first port of it, a scalar-FMA
+// body like the forward's, was bound by shared-memory instructions (a load
+// for every FMA, 3.24 ms per training backward against a 0.284 ms bound on
+// an H100, 700 W), by fp32 staging that left 4 blocks of 47.5 KB per SM,
+// and by one Philox call per key. The bf16 body runs the five products on
+// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulation; p * m
+// and ds as bf16 hi + lo), copies q, k, v and g once with cp.async into
+// bf16 shared memory, reads the transposes with ldmatrix.trans, draws one
+// Philox call per four keys, and runs one warp per 16 queries: 2 or 3 warps
+// and 18 to 37 KB per row on the path, 6 to 12 rows per SM. fp32 inputs
+// keep the first port's body (attention_backward_block): they cannot be
+// bf16 tensor-core operands, and fp32 is on no path. The mask is drawn
+// with the same bits by both bodies and by kernel 2.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -82,20 +93,45 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kBackwardBf16MaxThreads,
+                                  kBackwardBf16MinBlocks<kKeyTiles>)
+attention_dropout_bwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int lq,
+    int lk, int heads, float scale, Dropout drop) {
+  attention_backward_block_bf16<kKeyTiles>(q, k, v, bias, g, dq, dk, dv, lq,
+                                           lk, heads, 1, scale, drop);
+}
+
+const Bf16BackwardKernel kDropoutBwdBf16[4] = {
+    attention_dropout_bwd_bf16_kernel<1>,
+    attention_dropout_bwd_bf16_kernel<2>,
+    attention_dropout_bwd_bf16_kernel<3>,
+    attention_dropout_bwd_bf16_kernel<4>};
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* bias, const void* g, void* dq, void* dk,
                        void* dv, int bh, int lq, int lk, int heads,
                        Dropout drop, cudaStream_t stream) {
-  const size_t smem = backward_smem_bytes(lq, lk);
-  const cudaError_t err = allow_smem(attention_dropout_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  attention_dropout_bwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), lq, lk, heads, head_scale(), drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_backward_bf16(kDropoutBwdBf16, q, k, v, bias, g, dq, dk, dv,
+                                bh, lq, lk, heads, drop, stream);
+  } else {
+    const size_t smem = backward_smem_bytes(lq, lk);
+    const cudaError_t err = allow_smem(attention_dropout_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    attention_dropout_bwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), lq, lk, heads, head_scale(), drop);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -137,6 +173,12 @@ int xggm_attention_dropout_bwd(const void* q, const void* k, const void* v,
                                                    drop, s)
                        : launch_bwd<float>(q, k, v, bias, g, dq, dk, dv, bh,
                                            lq, lk, heads, drop, s));
+}
+
+// Dynamic shared memory of one block of kernel 3's bf16 body at (lq, lk),
+// for reports; kernel 6 takes the same.
+size_t xggm_attention_bwd_bf16_smem_bytes(int lq, int lk) {
+  return backward_bf16_smem_bytes(lq, lk);
 }
 
 const char* xggm_cuda_error_string(int err) {

@@ -13,7 +13,9 @@ launches (`<wrapper>.launches`):
 - kernel 2, `csrc/attention_dropout.cu`: the same with in-kernel dropout on
   the probabilities, behind `attention_dropout_fwd`;
 - kernel 3, `csrc/attention_dropout.cu`: the backward of kernel 2, behind
-  `attention_dropout_bwd`. At rate 0 it is also kernel 1's backward.
+  `attention_dropout_bwd`. At rate 0 it is also kernel 1's backward. In
+  bf16 it runs on the tensor cores (`attention_common.cuh`,
+  `attention_backward_block_bf16`); fp32 keeps a scalar body.
 - kernels 4, 5 and 6, `csrc/attention_blhd.cu`: kernels 1, 2 and 3 on q
   [B, Lq, H, 64], k and v [B, Lk, H, 64], behind `fused_attention_blhd`
   (which counts kernel 4), `attention_dropout_blhd_fwd` and
@@ -51,7 +53,9 @@ from xggm_tpu_torch.ops.philox import (
     MASK32, dropout_keep, keep_scale, keep_threshold)
 
 HEAD_DIM = 64
-MAX_LEN = 64  # the kernels hold two keys per lane of one warp
+# the forward kernels hold two keys per lane of one warp; the bf16
+# backward pads Lq and Lk to at most four tiles of 16
+MAX_LEN = 64
 _FWD = "attention_fwd"
 _DROPOUT = "attention_dropout"
 _BLHD = "attention_blhd"
