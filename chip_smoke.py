@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (`xggm_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --forward-device ROOT   # forward kernels' device
+                                 # time, for the checkout at ROOT
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -11,13 +13,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             attention_dropout.cu (kernels 2 and 3), attention_blhd.cu
             (kernels 4, 5 and 6) and bert_adam.cu (kernel 7), with
             -Xptxas -v (registers, shared memory, spills); the bf16
-            backward kernels' registers and spills (none allowed) and
-            their dynamic shared memory at the path's shapes.
+            tensor-core kernels' registers and spills (none allowed), the
+            backward's (kernels 3 and 6) and the forward's (kernels 1 and
+            4), and their dynamic shared memory at the path's shapes.
 3. kernel   kernel 1 against its plain PyTorch version at the four shapes
             of the serving path, batch 512, bf16 with and without a key
             mask, plus one fp32 check: max abs error against the stated
             tolerance, kernel / plain / SDPA times (CUDA events) and the
-            bandwidth bound.
+            bandwidth bound; at the path's masks, the device's own time of
+            kernel 1 and of SDPA (torch.profiler), and the wrapper's host
+            time.
 4. dropout  kernels 2 and 3, and kernel 1's backward (kernel 3 at rate 0),
             at the training batch (B = 96, H = 12), the four shapes of the
             path x {bf16, fp32}, rate 0.1: kernel 2 against the plain
@@ -30,9 +35,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             forward+backward; the memory-efficient attention's backward alone
             from a saved forward, at dropout_p 0.1 and, for kernel 1's
             backward, 0) and the bandwidth bounds; in bf16 the device's
-            own time per launch of kernel 3 at rates 0.1 and 0 and of the
-            library backward (torch.profiler's kernel durations; the run
-            fails if it records none).
+            own time per launch of kernel 2, of SDPA's dropout forward, of
+            kernel 3 at rates 0.1 and 0 and of the library backward
+            (torch.profiler's kernel durations; the run fails if it records
+            none).
 5. blhd     kernels 4, 5 and 6 (the [B, L, H, 64] layout) at the training
             batch, the four shapes x {bf16, fp32}, rate 0.1: each against its
             plain version and against kernels 1, 2 and 3 on the permuted
@@ -41,9 +47,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             row b * H + h; kernel, plain and library times (SDPA, and the
             memory-efficient attention's backward from a saved forward, on
             strided views of the same BLHD storage), the device's own time
-            of kernel 6 and of the library backward, and the bandwidth
-            bounds; a summary line of the backward kernels per pass of 34
-            launches, event and device times against the bound; then the
+            of kernels 4, 5 and 6, of SDPA's forwards and of the library
+            backward, and the bandwidth bounds; summary lines of the backward kernels
+            (backward_device) and of the forward kernels 1, 2, 4 and 5
+            (forward_device) per pass of 34 launches, event and device
+            times against the bound; then the
             entry points mha_blhd and mha_dropout_blhd forward and
             backward, as many times as a training forward attends (34 per
             kernel, 68 for kernel 6).
@@ -175,16 +183,24 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """CUDA-event ms per call of `fn` over back-to-back calls. The garbage
+    collector is off in the timed window, as timeit keeps it: a collection
+    there, milliseconds long, would outweigh 20 calls of a host-bound
+    wrapper."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    finally:
+        gc.enable()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -192,46 +208,81 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """The host's time per call of `fn` over back-to-back calls, without
     waiting for the device: what the wrapper costs before its launch is
-    queued. CUDA events around the same calls read the larger of this and
-    the device's time."""
+    queued, the garbage collector off as in cuda_ms. CUDA events around the
+    same calls read the larger of this and the device's time."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    ms = (time.perf_counter() - t0) * 1e3 / iters
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+    finally:
+        gc.enable()
     torch.cuda.synchronize()
     return ms
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
+def device_ms(fn, bound_ms: float, iters: int = 20, warmup: int = 3,
+              sessions: int = 8) -> dict:
     """The device's own time per call of `fn`: the durations of the device
     events that torch.profiler records over `iters` calls, summed and
     divided by `iters`, with each kernel's name and launches per call (the
-    host's work between launches is not counted)."""
+    host's work between launches is not counted). Each session first runs
+    `iters` calls with the tracer on and their events discarded (the
+    profiler's warm-up step), then records `iters` calls: on an H100,
+    sessions without that step recorded one kernel 19 times in 20 calls in
+    eight sessions in a row, and none with it did. Some sessions still come
+    back without device events, or with only some of them (5 to 19 of 20
+    launches), at times three in a row, and one has read a kernel at a
+    fifth of its bound; so a session in which any kernel ran a number of
+    times that is not a positive multiple of `iters`, or whose time per
+    call is under `bound_ms` (the least time of the call's work) by more
+    than 5%, is repeated, up to `sessions` in all, and the run fails if
+    none is whole and at or above the bound."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us, kernels = 0.0, {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            us += evt.time_range.elapsed_us()
-            name = evt.name[:100]
-            kernels[name] = kernels.get(name, 0) + 1.0 / iters
-    check(us > 0, "torch.profiler recorded no device time")
+    refused = []
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the recorded one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us, counts = 0.0, {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                us += evt.time_range.elapsed_us()
+                name = evt.name[:100]
+                counts[name] = counts.get(name, 0) + 1
+        whole = bool(counts) and all(n % iters == 0 for n in counts.values())
+        plausible = us / 1e3 / iters * 1.05 >= bound_ms
+        if whole and plausible:
+            break
+        refused.append(dict(ms=us / 1e3 / iters, launches=counts))
+    if attempt > 1:
+        emit("profiler_repeat", sessions=attempt, recorded=whole,
+             at_or_above_bound=plausible, bound_ms=bound_ms, refused=refused)
+    check(whole, f"torch.profiler recorded no whole session of {iters} "
+                 f"calls in {sessions} sessions: {counts}")
+    check(plausible, f"torch.profiler read {us / 1e3 / iters} ms a call, "
+                     f"under the bound {bound_ms} ms by more than 5%: "
+                     f"{counts}")
     return dict(ms=us / 1e3 / iters, method="torch.profiler",
-                kernels_per_call=kernels)
+                kernels_per_call={n: c / iters for n, c in counts.items()},
+                sessions=attempt)
 
 
 def ptxas_entries(log: str) -> dict:
@@ -258,16 +309,17 @@ def ptxas_entries(log: str) -> dict:
     return entries
 
 
-def bf16_backward_kernels(builds) -> list:
-    """ptxas' registers and spills of the bf16 backward kernels (kernels 3
-    and 6 by key tiles of 16), as attention_dropout_bwd_bf16_kernel<n>."""
+def bf16_kernels(builds, direction: str) -> list:
+    """ptxas' registers and spills of the bf16 tensor-core kernels by key
+    tiles of 16, direction "bwd" (kernels 3 and 6) or "fwd" (kernels 1 and
+    4), as attention_dropout_bwd_bf16_kernel<n>."""
     import re
 
     rows = []
     for res in builds:
         for name, info in ptxas_entries(res.log).items():
-            m = re.search(r"(attention_[a-z_]+_bwd_bf16_kernel)ILi(\d)E",
-                          name)
+            m = re.search(rf"(attention_[a-z_]*{direction}_bf16_kernel)"
+                          r"ILi(\d)E", name)
             if m:
                 rows.append(dict(kernel=f"{m.group(1)}<{m.group(2)}>",
                                  **info))
@@ -282,6 +334,19 @@ def bf16_backward_smem_bytes(lq: int, lk: int) -> int:
     from xggm_tpu_torch.ops import build
 
     fn = build.load("attention_dropout").xggm_attention_bwd_bf16_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_size_t
+    return int(fn(lq, lk))
+
+
+def bf16_forward_smem_bytes(lq: int, lk: int) -> int:
+    """Dynamic shared memory of one bf16 forward block, as the launch asks
+    for it (attention_common.cuh, forward_bf16_smem_bytes)."""
+    import ctypes
+
+    from xggm_tpu_torch.ops import build
+
+    fn = build.load("attention_fwd").xggm_attention_fwd_bf16_smem_bytes
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_size_t
     return int(fn(lq, lk))
@@ -357,9 +422,24 @@ def phase_kernel(torch, attn):
                     q4, k4, v4, attn_mask=mask4)))
             row["bound_ms"], row["bound_by"] = attention_bound(lq, lk, masked, 2)
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-            row["dynamic_smem_bytes"] = 4 * (lq * D + lk * (D + 1) + lk * D)
+            row["dynamic_smem_bytes"] = bf16_forward_smem_bytes(lq, lk)
             row["on_path"] = masked == path_masked
             row["launches_per_forward"] = per_fwd if row["on_path"] else 0
+            if row["on_path"]:
+                # the device's own time, without the wrapper's host work
+                # between back-to-back calls
+                dev = device_ms(lambda: attn.fused_attention(q, k, v, bias, H),
+                                row["bound_ms"])
+                lib = device_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4), row["bound_ms"])
+                row.update(
+                    kernel_device_ms=dev["ms"], library_device_ms=lib["ms"],
+                    device_time_method=dev["method"],
+                    kernel_host_ms=host_ms(
+                        lambda: attn.fused_attention(q, k, v, bias, H)),
+                    kernel_device_kernels=dev["kernels_per_call"],
+                    library_device_kernels=lib["kernels_per_call"],
+                    device_bound_share=row["bound_ms"] / dev["ms"])
             emit("kernel", **row)
             rows.append(row)
 
@@ -524,16 +604,25 @@ def phase_dropout(torch, attn, philox, train_b: int):
                 row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
                 # the kernels' own device time, without the wrappers' host
                 # work between back-to-back calls
-                dev = {key: device_ms(fn) for key, fn in (
+                dev = {key: device_ms(fn, least[0]) for key, fn, least in (
+                    ("fwd", lambda: attn.attention_dropout_fwd(
+                        q, k, v, bias, H, seed, RATE), fwd_bound),
+                    ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE),
+                     fwd_bound),
                     ("bwd", lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, seed, RATE, gout)),
+                        q, k, v, bias, H, seed, RATE, gout), bwd_bound),
                     ("k1_bwd", lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, 0, 0.0, gout)),
-                    ("library_bwd", library_bwd),
-                    ("k1_library_bwd", library_bwd0))}
+                        q, k, v, bias, H, 0, 0.0, gout), bwd_bound),
+                    ("library_bwd", library_bwd, bwd_bound),
+                    ("k1_library_bwd", library_bwd0, bwd_bound))}
                 row.update({f"{key}_device_ms": d["ms"]
                             for key, d in dev.items()})
                 row.update(
+                    fwd_host_ms=host_ms(lambda: attn.attention_dropout_fwd(
+                        q, k, v, bias, H, seed, RATE)),
+                    fwd_device_bound_share=(row["fwd_bound_ms"]
+                                            / row["fwd_device_ms"]),
                     bwd_host_ms=host_ms(lambda: attn.attention_dropout_bwd(
                         q, k, v, bias, H, seed, RATE, gout)),
                     device_time_method=dev["bwd"]["method"],
@@ -688,15 +777,29 @@ def phase_blhd(torch, attn, philox, train_b: int):
                     library_bwd_ms=cuda_ms(library_bwd),
                     fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                     bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
-                dev = {key: device_ms(fn) for key, fn in (
+                dev = {key: device_ms(fn, least[0]) for key, fn, least in (
+                    ("k4", lambda: attn._attention_blhd_fwd(q, k, v, bias),
+                     fwd_bound),
+                    ("k5", lambda: attn.attention_dropout_blhd_fwd(
+                        q, k, v, bias, seed, RATE), fwd_bound),
+                    ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4), fwd_bound),
+                    ("sdpa_dropout_fwd", lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE),
+                     fwd_bound),
                     ("k6", lambda: attn.attention_dropout_blhd_bwd(
-                        q, k, v, bias, seed, RATE, gout)),
+                        q, k, v, bias, seed, RATE, gout), bwd_bound),
                     ("k4_bwd", lambda: attn.attention_dropout_blhd_bwd(
-                        q, k, v, bias, 0, 0.0, gout)),
-                    ("library_bwd", library_bwd))}
+                        q, k, v, bias, 0, 0.0, gout), bwd_bound),
+                    ("library_bwd", library_bwd, bwd_bound))}
                 row.update({f"{key}_device_ms": d["ms"]
                             for key, d in dev.items()})
-                row.update(k6_host_ms=host_ms(
+                row.update(k4_host_ms=host_ms(
+                               lambda: attn._attention_blhd_fwd(
+                                   q, k, v, bias)),
+                           k4_device_bound_share=(row["fwd_bound_ms"]
+                                                  / row["k4_device_ms"]),
+                           k6_host_ms=host_ms(
                                lambda: attn.attention_dropout_blhd_bwd(
                                    q, k, v, bias, seed, RATE, gout)),
                            device_time_method=dev["k6"]["method"],
@@ -791,6 +894,144 @@ def emit_backward_device(drop_rows, blhd_rows, train_b: int) -> None:
               f"B={train_b}, bf16; *_ms: CUDA events around back-to-back "
               "calls, *_device_ms: the device's own time, *_host_ms: the "
               "host's time per wrapper call")
+
+
+def emit_forward_device(rows, drop_rows, blhd_rows, train_b: int) -> None:
+    """The forward kernels (1, 2, 4 and 5) and the library's forward per
+    pass of the path's 34 launches in bf16: kernel 1 and SDPA per served
+    forward at B = 512, kernels 2, 4 and 5 and SDPA per training forward at
+    the training batch; CUDA events around back-to-back calls (the
+    wrapper's host work included) and the device's own time, against the
+    bound."""
+    path = [r for r in rows if "kernel_device_ms" in r]
+    drop = [r for r in drop_rows if "fwd_device_ms" in r]
+    blhd = [r for r in blhd_rows if "k4_device_ms" in r]
+
+    def per_pass(key, table):
+        return sum(r[key] * r["launches_per_forward"] for r in table)
+
+    def report(bound_ms, keys, over):
+        passes = {name: per_pass(key, table)
+                  for name, (key, table) in keys.items()}
+        return dict(per_pass=passes, bound_ms=bound_ms,
+                    share_of_bound={name: bound_ms / ms
+                                    for name, ms in passes.items()
+                                    if "host" not in name},
+                    over=over)
+
+    served = report(per_pass("bound_ms", path), {
+        "k1_ms": ("kernel_ms", path),
+        "k1_device_ms": ("kernel_device_ms", path),
+        "k1_host_ms": ("kernel_host_ms", path),
+        "library_ms": ("library_ms", path),
+        "library_device_ms": ("library_device_ms", path)},
+        f"one served forward's {LAUNCHES_PER_FORWARD} launches at B={B}")
+    training = report(per_pass("fwd_bound_ms", drop), {
+        "k2_ms": ("fwd_ms", drop),
+        "k2_device_ms": ("fwd_device_ms", drop),
+        "k2_host_ms": ("fwd_host_ms", drop),
+        "library_dropout_ms": ("sdpa_fwd_ms", drop),
+        "library_dropout_device_ms": ("sdpa_fwd_device_ms", drop),
+        "k4_ms": ("k4_ms", blhd),
+        "k4_device_ms": ("k4_device_ms", blhd),
+        "k4_host_ms": ("k4_host_ms", blhd),
+        "k5_ms": ("k5_ms", blhd),
+        "k5_device_ms": ("k5_device_ms", blhd),
+        "library_blhd_ms": ("sdpa_fwd_ms", blhd),
+        "library_blhd_device_ms": ("sdpa_fwd_device_ms", blhd),
+        "library_dropout_blhd_ms": ("sdpa_dropout_fwd_ms", blhd),
+        "library_dropout_blhd_device_ms": ("sdpa_dropout_fwd_device_ms",
+                                           blhd)},
+        f"one training forward's {LAUNCHES_PER_FORWARD} launches at "
+        f"B={train_b}; library_*: SDPA, *_blhd on strided views of the "
+        "BLHD tensors, *_dropout at dropout_p 0.1")
+    emit("forward_device", served=served, training=training,
+         method=path[0]["device_time_method"],
+         times="*_ms: CUDA events around back-to-back calls, *_device_ms: "
+               "the device's own time, *_host_ms: the host's time per "
+               "wrapper call")
+
+
+def forward_device_of(root: str) -> int:
+    """`python3 chip_smoke.py --forward-device ROOT`: the device ms per pass
+    of 34 launches of the forward kernels 1, 2, 4 and 5 in bf16 and of
+    SDPA's forward in each layout, under the names of the forward_device
+    line, for the package of the checkout at ROOT, printed as one JSON line
+    with the card. It calls only the wrappers that every checkout from the
+    BLHD kernels on has, and checks nothing but the bounds, so a checkout
+    older than this script can be timed too: run on two checkouts in turns
+    in one call, it compares their forwards on one card."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from xggm_tpu_torch.config import gqa_ood_config
+    from xggm_tpu_torch.ops import attention as attn
+
+    check(attn.__file__.startswith(root + os.sep),
+          f"imported {attn.__file__}, not the package under {root}")
+    train_b = gqa_ood_config().train.batch_size
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    per_pass, bounds = {}, {"served": 0.0, "training": 0.0}
+    for lq, lk, masked, per_fwd in PATH_SHAPES:
+        seed = 1000 * lq + lk
+        for b, blhd in ((B, False), (train_b, False), (train_b, True)):
+            q, k, v = (torch.randn(*((b, n, H, D) if blhd else (b * H, n, D)),
+                                   device="cuda", generator=g)
+                       .to(torch.bfloat16) for n in (lq, lk, lk))
+            bias = None
+            if masked:
+                bias = (torch.rand(b, lk, device="cuda", generator=g)
+                        < 0.2).float() * -10000.0
+            q4, k4, v4 = (t.transpose(1, 2) if blhd else t.view(b, H, -1, D)
+                          for t in (q, k, v))
+            mask4 = None if bias is None else \
+                bias.to(torch.bfloat16)[:, None, None, :]
+            least = pass_bounds(lq, lk, masked, b, 2)[0][0]
+
+            def sdpa(rate=0.0):
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, dropout_p=rate)
+
+            if b == B:
+                bounds["served"] += least * per_fwd
+                timed = (("k1", lambda: attn.fused_attention(q, k, v, bias,
+                                                             H)),
+                         ("library", sdpa))
+            elif not blhd:
+                bounds["training"] += least * per_fwd
+                timed = (("k2", lambda: attn.attention_dropout_fwd(
+                              q, k, v, bias, H, seed, RATE)),
+                         ("library_dropout", lambda: sdpa(RATE)))
+            else:
+                timed = (("k4", lambda: attn._attention_blhd_fwd(q, k, v,
+                                                                 bias)),
+                         ("k5", lambda: attn.attention_dropout_blhd_fwd(
+                             q, k, v, bias, seed, RATE)),
+                         ("library_blhd", sdpa),
+                         ("library_dropout_blhd", lambda: sdpa(RATE)))
+            for name, fn in timed:
+                key = f"{name}_device_ms"
+                per_pass[key] = (per_pass.get(key, 0.0)
+                                 + device_ms(fn, least)["ms"] * per_fwd)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    emit("forward_device_of", root=root, package=os.path.dirname(
+             os.path.dirname(attn.__file__)),
+         card=smi.stdout.strip().splitlines()[0], per_pass=per_pass,
+         bound_ms=bounds,
+         over=f"k1 and library: one served forward's {LAUNCHES_PER_FORWARD} "
+              f"launches at B={B}; the others one training forward's at "
+              f"B={train_b}; bf16, torch.profiler's device time")
+    return 0
 
 
 def grad_agreement(torch, names, kernels, plain) -> dict:
@@ -1279,16 +1520,22 @@ def main() -> int:
              ptxas=[ln.strip() for ln in res.log.splitlines()
                     if "ptxas info" in ln or "spill" in ln])
     emit("build", wall_seconds=time.perf_counter() - t0)
-    bwd_bf16 = bf16_backward_kernels(builds)
+    bwd_bf16 = bf16_kernels(builds, "bwd")
     emit("build_bwd_bf16", kernels=bwd_bf16,
          dynamic_smem_bytes_at_path_shapes={
              f"{lq}x{lk}": bf16_backward_smem_bytes(lq, lk)
              for lq, lk, _, _ in PATH_SHAPES})
-    check(len(bwd_bf16) == 8, f"expected 8 bf16 backward kernels in the "
-                              f"build log, found {len(bwd_bf16)}")
-    spills = [r["kernel"] for r in bwd_bf16
-              if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
-    check(not spills, f"bf16 backward kernels spill: {spills}")
+    fwd_bf16 = bf16_kernels(builds, "fwd")
+    emit("build_fwd_bf16", kernels=fwd_bf16,
+         dynamic_smem_bytes_at_path_shapes={
+             f"{lq}x{lk}": bf16_forward_smem_bytes(lq, lk)
+             for lq, lk, _, _ in PATH_SHAPES})
+    for kind, found in (("backward", bwd_bf16), ("forward", fwd_bf16)):
+        check(len(found) == 8, f"expected 8 bf16 {kind} kernels in the "
+                               f"build log, found {len(found)}")
+        spills = [r["kernel"] for r in found
+                  if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+        check(not spills, f"bf16 {kind} kernels spill: {spills}")
 
     # 3. kernel check and times
     rows = phase_kernel(torch, attn)
@@ -1301,6 +1548,7 @@ def main() -> int:
     # 5. the BLHD kernels at the training batch, and their entry points
     blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b)
     emit_backward_device(drop_rows, blhd_rows, train_b)
+    emit_forward_device(rows, drop_rows, blhd_rows, train_b)
 
     # 6. serving at full width
     lx = cfg.lxmert.replace(dtype="bfloat16")
@@ -1438,8 +1686,10 @@ def main() -> int:
         "bound_ms": per_forward("bound_ms"),
         "bound_by": bound_by("bound_by", path),
         "library_ms": per_forward("library_ms"),
+        "device_ms": per_forward("kernel_device_ms"),
+        "library_device_ms": per_forward("library_device_ms"),
         "timed_over": f"one forward's {LAUNCHES_PER_FORWARD} launches at "
-                      f"B={B}",
+                      f"B={B}; device_ms: the device's own time",
         "backward_ms": per_forward("k1_bwd_ms", drop_path),
         "backward_max_abs_err": max(r["k1_bwd_max_abs_err"]
                                     for r in drop_rows),
@@ -1460,8 +1710,11 @@ def main() -> int:
          "bound_ms": per_forward("fwd_bound_ms", drop_path),
          "bound_by": bound_by("fwd_bound_by", drop_path),
          "library_ms": per_forward("sdpa_fwd_ms", drop_path),
+         "device_ms": per_forward("fwd_device_ms", drop_path),
+         "library_device_ms": per_forward("sdpa_fwd_device_ms", drop_path),
          "timed_over": f"one training forward's {LAUNCHES_PER_FORWARD} "
-                       f"launches at B={train_b}"},
+                       f"launches at B={train_b}; device_ms: the device's "
+                       "own time"},
         {"name": "attention_dropout_bwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:250",
@@ -1490,10 +1743,12 @@ def main() -> int:
          "bound_ms": per_forward("fwd_bound_ms", blhd_path),
          "bound_by": bound_by("fwd_bound_by", blhd_path),
          "library_ms": per_forward("sdpa_fwd_ms", blhd_path),
+         "device_ms": per_forward("k4_device_ms", blhd_path),
+         "library_device_ms": per_forward("sdpa_fwd_device_ms", blhd_path),
          "backward_ms": per_forward("k4_bwd_ms", blhd_path),
          "timed_over": f"{blhd_over}; library_ms is SDPA on strided views "
                        "of the BLHD tensors; backward_ms is kernel 6 at "
-                       "rate 0"},
+                       "rate 0; device_ms: the device's own time"},
         {"name": "attention_dropout_blhd_fwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:553",
@@ -1504,8 +1759,12 @@ def main() -> int:
          "bound_ms": per_forward("fwd_bound_ms", blhd_path),
          "bound_by": bound_by("fwd_bound_by", blhd_path),
          "library_ms": per_forward("sdpa_dropout_fwd_ms", blhd_path),
+         "device_ms": per_forward("k5_device_ms", blhd_path),
+         "library_device_ms": per_forward("sdpa_dropout_fwd_device_ms",
+                                          blhd_path),
          "timed_over": f"{blhd_over}; library_ms is SDPA with dropout_p "
-                       "0.1 on strided views of the BLHD tensors"},
+                       "0.1 on strided views of the BLHD tensors; device_ms: "
+                       "the device's own time"},
         {"name": "attention_dropout_blhd_bwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:574",
@@ -1543,4 +1802,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--forward-device":
+        sys.exit(forward_device_of(sys.argv[2]))
     sys.exit(main())

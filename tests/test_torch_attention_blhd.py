@@ -17,9 +17,10 @@ kernels 1 to 3.
 - The BLHD plain versions equal the flattened ones on permuted inputs with
   the same seed, exactly: head h of batch b draws row b * H + h's mask.
 - `gpu`: kernels 4 to 6 against their plain versions and against kernels 1
-  to 3 on the permuted inputs, kernel 6 in bf16 also at shapes off its
-  16 x 16 tiles. This file imports JAX only inside the tests
-  that compare with it, so that the card test runs where JAX is absent:
+  to 3 on the permuted inputs, kernels 4 and 6 in bf16 also at shapes off
+  their 16 x 16 tiles (kernel 4 with every key of one element masked).
+  This file imports JAX only inside the tests that compare with it, so
+  that the card test runs where JAX is absent:
   `python -m pytest --noconftest -m gpu tests/test_torch_attention_blhd.py`.
 
 Tests loop over their cases (see tests/test_torch_attention_dropout.py for
@@ -318,10 +319,12 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
     their plain versions (the latter fed the Philox mask), kernel 6 at rates
     0 and 0.1 against the plain gradients; each against kernels 1 to 3 on
     the permuted inputs with the same seed, bit for bit; kernel 5's own mask
-    against the Philox mask of row b * H + h; one launch each. Then kernel 6
-    in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not, at rates 0.1 and
-    0: against the plain gradients, and against kernel 3 on the permuted
-    inputs, bit for bit."""
+    against the Philox mask of row b * H + h; one launch each. Then kernels
+    4 and 6 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not: kernel 4
+    (masked: every key of the first element masked) against its plain
+    version and against kernel 1 on the permuted inputs, bit for bit;
+    kernel 6 at rates 0.1 and 0 against the plain gradients, and against
+    kernel 3 on the permuted inputs, bit for bit."""
     seed, b = 2025, 32
     for dtype in (torch.bfloat16, torch.float32):
         for lq, lk, masked in PATH_SHAPES:
@@ -384,6 +387,19 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
             q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked,
                                        torch.bfloat16, cuda, seed=lq + lk)
             flat = [_rows(t) for t in (q, k, v, g)]
+            where = f"{(lq, lk)} mask {masked} kernel 4"
+            bias4 = None
+            if masked:
+                bias4 = bias.clone()
+                bias4[0] = -10000.0  # every key of the first element
+            o4 = attn._attention_blhd_fwd(q, k, v, bias4)
+            torch.testing.assert_close(
+                o4.float(),
+                attn.attention_blhd_reference(q, k, v, bias4).float(),
+                msg=lambda m, where=where: f"{where}: {m}",
+                **TOLS[torch.bfloat16])
+            o1 = attn._attention_fwd(*flat[:3], bias4, H)
+            assert torch.equal(o4, _blhd(o1, EDGE_BATCH)), where
             for rate in (RATE, 0.0):
                 where = f"{(lq, lk)} mask {masked} rate {rate}"
                 keep = (dropout_keep(seed, EDGE_BATCH * H, lq, lk, rate, cuda)

@@ -4,7 +4,9 @@ This file imports torch only, so that the card tests also run where JAX is
 absent (`python -m pytest --noconftest -m gpu tests/test_torch_attention_kernel.py`).
 On the CPU the wrapper runs its plain version; the `gpu` tests build the
 kernel with nvcc and hold it against that plain version, and skip without a
-card.
+card. Besides the four shapes of the serving path they take shapes off the
+bf16 body's 16 x 16 tiles and its largest, at an odd batch whose first
+element has every key masked (-10000).
 """
 import numpy as np
 import pytest
@@ -14,6 +16,9 @@ from xggm_tpu_torch.ops import attention as attn
 
 H = 4
 SHAPES = [(20, 20), (36, 36), (20, 36), (36, 20)]
+# (Lq, Lk) off the 16 x 16 tiles of the bf16 body, and its largest
+EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
+EDGE_BATCH = 7
 
 
 def _inputs(b, lq, lk, masked, dtype=torch.float32, device="cpu", seed=0):
@@ -92,9 +97,17 @@ TOLS = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=2.0 ** -8),
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("lq,lk", SHAPES)
+@pytest.mark.parametrize("lq,lk", SHAPES + EDGE_SHAPES)
 def test_kernel_matches_plain_version(cuda, lq, lk, masked, dtype):
-    q, k, v, bias = _inputs(64, lq, lk, masked, dtype, cuda)
+    """Kernel 1 against its plain version: batch 64 at the path shapes;
+    EDGE_BATCH at EDGE_SHAPES, where a mask masks every key of the first
+    element (p must spread over its real keys as the plain version's does,
+    never onto a key of the padded tile)."""
+    edge = (lq, lk) in EDGE_SHAPES
+    b = EDGE_BATCH if edge else 64
+    q, k, v, bias = _inputs(b, lq, lk, masked, dtype, cuda)
+    if masked and edge:
+        bias[0] = -10000.0
     before = attn.fused_attention.launches
     got = attn.fused_attention(q, k, v, bias, H)
     want = attn.attention_reference(q, k, v, bias, H)

@@ -28,16 +28,18 @@
 // What bounds them: memory bandwidth, as kernels 1 to 3 (the same bytes and
 // FLOPs; the layout changes only the addresses).
 //
-// Design: kernels 1 to 3's bodies (attention_common.cuh:
-// attention_forward_block, and attention_backward_block_bf16 for bf16 or
-// attention_backward_block for fp32), given H heads between positions
-// where kernels 1 to 3 give 1. The forward runs one block of four warps per
-// (b, h); the bf16 backward one warp per 16 queries of a (b, h), on the
-// tensor cores, its inputs copied by cp.async (attention_dropout.cu sets
-// out why). The row of one position of one head is 64 contiguous elements
-// (128 bytes in bf16), so each staged row is still read with coalesced
-// 16-byte loads; rows lie H * 64 elements apart instead of 64. No
-// transpose is ever materialised, and kernels 4 to 6 give the bits of
+// Design: kernels 1 to 3's bodies (attention_common.cuh), given H heads
+// between positions where kernels 1 to 3 give 1. In bf16, kernel 4 runs
+// attention_forward_block_bf16 (the tensor-core forward of kernel 1: one
+// warp per 16 queries, one block per (b, h); attention_fwd.cu sets out
+// why) and kernel 6 attention_backward_block_bf16 (attention_dropout.cu
+// sets out why); both copy their inputs by cp.async. Kernel 5, and fp32 inputs, keep the first
+// port's scalar forward (attention_forward_block: one block of four warps
+// per (b, h)) or backward (attention_backward_block). The row of one
+// position of one head is 64 contiguous elements (128 bytes in bf16), so
+// each staged row is still read with coalesced 16-byte loads, and kernel 4
+// writes o 16 bytes a lane; rows lie H * 64 elements apart instead of 64.
+// No transpose is ever materialised, and kernels 4 to 6 give the bits of
 // kernels 1 to 3 on the permuted inputs.
 
 #include <type_traits>
@@ -69,24 +71,50 @@ attention_blhd_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               heads, scale, drop);
 }
 
+// Kernel 4 in bf16 on the tensor cores, keys padded to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kBf16MaxThreads,
+                                  kForwardBf16MinBlocks<kKeyTiles>)
+attention_blhd_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const float* __restrict__ bias,
+                               __nv_bfloat16* __restrict__ o, int lq,
+                               int lk, int heads, float scale) {
+  attention_forward_block_bf16<kKeyTiles>(q, k, v, bias, o, lq, lk, heads,
+                                          heads, scale);
+}
+
+const Bf16ForwardKernel kBlhdFwdBf16[4] = {
+    attention_blhd_fwd_bf16_kernel<1>, attention_blhd_fwd_bf16_kernel<2>,
+    attention_blhd_fwd_bf16_kernel<3>, attention_blhd_fwd_bf16_kernel<4>};
+
 template <typename T, bool kDropout>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, int bh, int lq, int lk,
                        int heads, Dropout drop, cudaStream_t stream) {
-  const size_t smem = forward_smem_bytes(lq, lk);
-  const cudaError_t err =
-      allow_smem(attention_blhd_fwd_kernel<T, kDropout>, smem);
-  if (err != cudaSuccess) return err;
-  attention_blhd_fwd_kernel<T, kDropout><<<bh, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), lq, lk, heads, head_scale(), drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && !kDropout) {
+    static const cudaError_t prepared = prefer_shared_memory(kBlhdFwdBf16);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_forward_bf16(kBlhdFwdBf16, q, k, v, bias, o, bh, lq, lk,
+                               heads, stream);
+  } else {
+    const size_t smem = forward_smem_bytes(lq, lk);
+    const cudaError_t err =
+        allow_smem(attention_blhd_fwd_kernel<T, kDropout>, smem);
+    if (err != cudaSuccess) return err;
+    attention_blhd_fwd_kernel<T, kDropout>
+        <<<bh, kWarps * 32, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const float*>(bias),
+            static_cast<T*>(o), lq, lk, heads, head_scale(), drop);
+    return cudaGetLastError();
+  }
 }
 
 // The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBackwardBf16MaxThreads,
+__global__ void __launch_bounds__(kBf16MaxThreads,
                                   kBackwardBf16MinBlocks<kKeyTiles>)
 attention_blhd_bwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

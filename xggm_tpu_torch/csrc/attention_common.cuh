@@ -8,13 +8,17 @@
 // dropout multiplier and the layout) and of the backward (kernels 3 and 6,
 // which differ only in the layout).
 //
-// The backward has two bodies, chosen by the input type the C API already
-// takes. bf16, the type of the training and serving paths, runs on the
-// tensor cores: attention_backward_block_bf16 (cp.async into bf16 shared
-// memory, mma.sync m16n8k16 with fp32 accumulation, ldmatrix, one Philox
-// call per four keys; its note sets out the design). fp32 inputs cannot be
-// bf16 tensor-core operands, and fp32 is on no path, so fp32 keeps the
-// scalar-FMA body of the first port (attention_backward_block).
+// bf16, the type of the training and serving paths, runs on the tensor
+// cores (cp.async into bf16 shared memory, mma.sync m16n8k16 with fp32
+// accumulation, ldmatrix; one warp per 16 queries) in two bodies that share
+// the scores and the softmax (softmax_bf16): the forward without dropout,
+// kernels 1 and 4 (attention_forward_block_bf16), and the backward, kernels 3
+// and 6 (attention_backward_block_bf16, one Philox call per four keys).
+// Their notes set out the designs. The dropout forward, kernels 2 and 5,
+// keeps the scalar-FMA body of the first port (attention_forward_block) for
+// now. fp32 inputs cannot be bf16 tensor-core operands, and fp32 is on no
+// path, so fp32 keeps the scalar bodies (attention_forward_block,
+// attention_backward_block).
 #pragma once
 
 #include <math.h>
@@ -221,9 +225,10 @@ inline size_t backward_smem_bytes(int lq, int lk) {
                                   2 * lq * lk);
 }
 
-// The forward of kernels 1, 2, 4 and 5 for the (batch * head) row
-// blockIdx.x of this block of kWarps warps, in the layout of `lh` heads
-// (1: flattened, heads: BLHD): o = round(p * m) v, with p the fp32 softmax of
+// The scalar forward of kernels 2 and 5, and of kernels 1 and 4 in fp32,
+// for the (batch * head) row blockIdx.x of this block of kWarps warps, in
+// the layout of `lh` heads (1: flattened, heads: BLHD): o = round(p * m) v,
+// with p the fp32 softmax of
 // q k^T * scale + bias, m the dropout multiplier (1 without kDropout),
 // round = to the input type (the TPU kernels' astype before p @ v), the
 // product accumulated in fp32 and written in the input type. q, k and v
@@ -532,6 +537,75 @@ __device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int rows,
   return r < rows ? base + 2u * (uint32_t)(r * pitch + col) : zeros;
 }
 
+// The scores and the softmax of both bf16 bodies (forward and backward),
+// for this warp's queries i0 + lane / 4 (e = 0, 1) and i0 + lane / 4 + 8
+// (e = 2, 3) against every key: s = q k^T by mma.sync, the A fragments of
+// the staged q at qa and the B fragments of the staged k at ka by ldmatrix
+// (rows past lq or lk read the zeros at z), then p = softmax(s * scale +
+// bias) in fp32 over the quad's shuffles, the score -inf and so p = 0 past
+// lk. p is left in s: m16n8 tile n holds keys 8n + 2 (lane % 4) + {0, 1}.
+// brow is the row's fp32 bias [lk] or null.
+template <int kKeyTiles>
+__device__ __forceinline__ void softmax_bf16(float (&s)[2 * kKeyTiles][4],
+                                             uint32_t qa, uint32_t ka,
+                                             uint32_t z, int i0, int lq,
+                                             int lk, const float* brow,
+                                             float scale) {
+  constexpr int kN = 2 * kKeyTiles;
+  const int lane = threadIdx.x & 31;
+  const int gc = 2 * (lane & 3);
+  const int mat = lane >> 3, mrow = lane & 7;
+  // ldmatrix rows and columns of the A fragment (16 x 16: matrices
+  // top-left, bottom-left, top-right, bottom-right) and of two B fragments
+  // of K^T (key rows: top-left, top-right, bottom-left, bottom-right)
+  const int a_row = mrow + 8 * (mat & 1), a_col = 8 * (mat >> 1);
+  const int bt_row = mrow + 8 * (mat >> 1), bt_col = 8 * (mat & 1);
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+    uint32_t a[4];
+    ldsm_x4(a, tile_addr(qa, i0 + a_row, lq, kPitch, 16 * kd + a_col, z));
+#pragma unroll
+    for (int p = 0; p < kKeyTiles; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, tile_addr(ka, 16 * p + bt_row, lk, kPitch,
+                           16 * kd + bt_col, z));
+      mma_bf16(s[2 * p], a, b[0], b[1]);
+      mma_bf16(s[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * n + gc + (e & 1);
+      const float b = (brow && j < lk) ? brow[j] : 0.f;
+      s[n][e] = j < lk ? s[n][e] * scale + b : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = expf(s[n][e] - mx[e >> 1]);  // 0 past lk
+      sum[e >> 1] += s[n][e];
+    }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] /= sum[e >> 1];  // p
+}
+
 // The dropout multipliers of this thread's scores in the m16n8 tile n of
 // the warp's queries i and i + 8 (i = first query + lane / 4): keys 8n +
 // 2 (lane % 4) + {0, 1}, as m[0], m[1] (query i) and m[2], m[3] (i + 8).
@@ -565,8 +639,8 @@ __device__ __forceinline__ void dropout_quad(const Dropout& drop,
     m[e] = bits[e] >= drop.threshold ? drop.keep_scale : 0.f;
 }
 
-// Threads of a bf16 backward block: one warp per 16 queries.
-inline int backward_bf16_threads(int lq) { return 32 * ((lq + 15) / 16); }
+// Threads of a bf16 block, forward or backward: one warp per 16 queries.
+inline int bf16_threads(int lq) { return 32 * ((lq + 15) / 16); }
 
 // Shared memory of a bf16 backward block: q and g [lq][kPitch], k and v
 // [lk][kPitch], p * m and ds as hi and lo [lq][pad16(lk) + 8], and one
@@ -578,14 +652,15 @@ inline size_t backward_bf16_smem_bytes(int lq, int lk) {
          16;
 }
 
-// __launch_bounds__ of the bf16 backward kernels: at most 4 warps (Lq 64),
-// and the blocks per SM that the shared memory allows by key tiles (Lk up
-// to 16 * kKeyTiles). Lk 20 on the path: 12 blocks of 2 warps at (20, 20),
-// 8 of 3 at (36, 20); Lk 36: 6 of 3 warps at (36, 36), 8 of 2 at (20, 36);
-// Lk 64: 3 of 4 warps at (64, 64). 6, 4 and 3 blocks of 4 warps cap a
-// thread at 80, 128 and 168 registers. At 5 (96 registers) the Lk 36 body
-// spilled 8 bytes; what it takes under 128 allows 5 to 6 blocks of 3 warps.
-constexpr int kBackwardBf16MaxThreads = 32 * (kMaxKeys / 16);
+// __launch_bounds__ of the bf16 kernels: at most 4 warps (Lq 64), and the
+// blocks per SM that the shared memory allows by key tiles (Lk up to 16 *
+// kKeyTiles). The backward at Lk 20 on the path: 12 blocks of 2 warps at
+// (20, 20), 8 of 3 at (36, 20); Lk 36: 6 of 3 warps at (36, 36), 8 of 2 at
+// (20, 36); Lk 64: 3 of 4 warps at (64, 64). 6, 4 and 3 blocks of 4 warps
+// cap a thread at 80, 128 and 168 registers. At 5 (96 registers) the Lk 36
+// body spilled 8 bytes; what it takes under 128 allows 5 to 6 blocks of 3
+// warps.
+constexpr int kBf16MaxThreads = 32 * (kMaxKeys / 16);
 template <int kKeyTiles>
 constexpr int kBackwardBf16MinBlocks =
     kKeyTiles <= 2 ? 6 : kKeyTiles == 3 ? 4 : 3;
@@ -593,7 +668,7 @@ constexpr int kBackwardBf16MinBlocks =
 // The bf16 backward of kernels 3 and 6 for the (batch * head) row
 // blockIdx.x, keys padded to 16 * kKeyTiles (the note above sets out the
 // design; attention_dropout.cu the math). blockDim.x is
-// backward_bf16_threads(lq), the dynamic shared memory
+// bf16_threads(lq), the dynamic shared memory
 // backward_bf16_smem_bytes(lq, lk).
 template <int kKeyTiles>
 __device__ __forceinline__ void attention_backward_block_bf16(
@@ -643,57 +718,17 @@ __device__ __forceinline__ void attention_backward_block_bf16(
   const int a_row = mrow + 8 * (mat & 1), a_col = 8 * (mat >> 1);
   const int bt_row = mrow + 8 * (mat >> 1), bt_col = 8 * (mat & 1);
 
-  // phase 1: s = q k^T (q, k arrived), then g v^T
+  // phase 1: p from s = q k^T (q, k arrived), then g v^T
   cp_async_wait<1>();
   __syncthreads();
   float s[kN][4];
+  softmax_bf16<kKeyTiles>(s, qa, ka, z, i0, lq, lk,
+                          bias ? bias + (row / heads) * lk : nullptr, scale);
   float t[kN][4];
 #pragma unroll
   for (int n = 0; n < kN; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = t[n][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
-    uint32_t a[4];
-    ldsm_x4(a, tile_addr(qa, i0 + a_row, lq, kPitch, 16 * kd + a_col, z));
-#pragma unroll
-    for (int p = 0; p < kKeyTiles; ++p) {
-      uint32_t b[4];
-      ldsm_x4(b, tile_addr(ka, 16 * p + bt_row, lk, kPitch,
-                           16 * kd + bt_col, z));
-      mma_bf16(s[2 * p], a, b[0], b[1]);
-      mma_bf16(s[2 * p + 1], a, b[2], b[3]);
-    }
-  }
-
-  // the fp32 softmax of rows i0 + gr (e = 0, 1) and i0 + gr + 8 (e = 2, 3)
-  const float* brow = bias ? bias + (row / heads) * lk : nullptr;
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * n + gc + (e & 1);
-      const float b = (brow && j < lk) ? brow[j] : 0.f;
-      s[n][e] = j < lk ? s[n][e] * scale + b : -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-    }
-  mx[0] = quad_max(mx[0]);
-  mx[1] = quad_max(mx[1]);
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[n][e] = expf(s[n][e] - mx[e >> 1]);  // 0 past lk
-      sum[e >> 1] += s[n][e];
-    }
-  sum[0] = quad_sum(sum[0]);
-  sum[1] = quad_sum(sum[1]);
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] /= sum[e >> 1];  // p
+    for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
 
   cp_async_wait<0>();
   __syncthreads();
@@ -862,7 +897,182 @@ inline cudaError_t launch_backward_bf16(
   void* args[] = {&q,  &k,  &v,  &bias,  &g,     &dq,  &dk,
                   &dv, &lq, &lk, &heads, &scale, &drop};
   return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
-                          dim3(backward_bf16_threads(lq)), args, smem, stream);
+                          dim3(bf16_threads(lq)), args, smem, stream);
+}
+
+// ---- the bf16 forward of kernels 1 and 4, on the tensor cores ------------
+//
+// Replaces, for bf16, _attention_kernel and _attention_blhd_kernel of
+// xggm_tpu/ops/pallas_attention.py: o = round(p) v with p = softmax(q k^T *
+// scale + bias) in fp32, round = to bf16 (the TPU kernel's p.astype), the
+// product accumulated in fp32 and o rounded to bf16. Bound by bytes: 4 B H
+// Lq Lk 64 FLOPs take about 0.1 us a launch on the tensor cores, the bytes
+// 2 to 6 us. wgmma takes tiles of 64 rows and a row here has at most 36
+// queries on the path, so the products are mma.sync m16n8k16.
+//
+// One warp per tile of 16 queries (Lq 36: 3 warps). Per (batch * head) row:
+//   q and k by cp.async into bf16 shared memory (first group), v (second);
+//   s = q k^T and p = softmax(s * scale + bias), the code the backward runs
+//   (softmax_bf16), so the forward's p is the p that the backward
+//   recomputes at rate 0; then, once v has arrived,
+//   o = p v: p rounded to bf16 (round to nearest even) from the m16n8
+//   accumulators of two neighbouring key tiles is the A fragment of one k16
+//   step, v [keys][64] the B fragments by ldmatrix.trans; o in eight m16n8
+//   fp32 accumulators, rounded to bf16 into the warp's own q rows (q is
+//   spent by then) and stored from there 16 bytes a lane, rows < lq only.
+// Padded rows are not stored: ldmatrix reads them from one line of zeros,
+// so a padded key has k = v = 0 and the score -inf (p = 0).
+// One block per row: each block's copies overlap other blocks' compute
+// through the block scheduler. Persistent blocks that walk several rows
+// with a two-stage cp.async ring were measured against it on an H100 and
+// were slower at every path shape (PERF.md): their blocks are twice
+// the size, so fewer are resident.
+
+// Shared memory of a bf16 forward block: q [lq][kPitch], k and v
+// [lk][kPitch], and one 16-byte line of zeros. At most 27,664 bytes (Lq =
+// Lk = 64), under the 48 KB above which a launch must opt in.
+inline size_t forward_bf16_smem_bytes(int lq, int lk) {
+  return sizeof(__nv_bfloat16) * (size_t)(lq + 2 * lk) * kPitch + 16;
+}
+
+// The forward kernels' __launch_bounds__ minimum of blocks of 4 warps per
+// SM by key tiles: 8, 7 and 5 cap a thread at 64, 72 and 96 registers. A
+// block takes 8,656 to 15,568 bytes at the path's shapes, so registers, not
+// shared memory, bound the blocks per SM. Left at 6, 5 and 4, ptxas took
+// 78 and 96 registers for 2 and 3 key tiles, 12 and 7 blocks per SM at
+// (20, 20) and (36, 36) where these caps give 16 and 9, and a trial build
+// on an H100 ran slower at every path shape; at 10 and 8 the Lk 48 body
+// spilled.
+template <int kKeyTiles>
+constexpr int kForwardBf16MinBlocks =
+    kKeyTiles <= 2 ? 8 : kKeyTiles == 3 ? 7 : 5;
+
+// The bf16 forward of kernels 1 and 4 for (batch * head) row blockIdx.x, in
+// the layout of `lh` heads, keys padded to 16 * kKeyTiles (the note above
+// sets out the design). blockDim.x is bf16_threads(lq), the dynamic shared
+// memory forward_bf16_smem_bytes(lq, lk).
+template <int kKeyTiles>
+__device__ __forceinline__ void attention_forward_block_bf16(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ o, int lq, int lk, int heads, int lh,
+    float scale) {
+  extern __shared__ uint4 fwd_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fwd_smem);
+  __nv_bfloat16* ks = qs + lq * kPitch;
+  __nv_bfloat16* vs = ks + lk * kPitch;
+  uint4* zeros = reinterpret_cast<uint4*>(vs + lk * kPitch);
+  const size_t row = blockIdx.x;
+  const Layout at(row, lq, lk, lh);
+  if (threadIdx.x == 0) *zeros = make_uint4(0u, 0u, 0u, 0u);
+  stage_async(q + at.q, qs, lq, at.stride);
+  stage_async(k + at.kv, ks, lk, at.stride);
+  cp_async_commit();
+  stage_async(v + at.kv, vs, lk, at.stride);
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int i0 = 16 * (threadIdx.x >> 5);  // this warp's first query
+  const int gr = lane >> 2;                // accumulator row (and row + 8)
+  const int gc = 2 * (lane & 3);           // accumulator column pair
+  const int mat = lane >> 3, mrow = lane & 7;
+  // ldmatrix.trans rows and columns of the B fragments of v [keys][64]
+  const int v_row = mrow + 8 * (mat & 1), v_col = 8 * (mat >> 1);
+  const uint32_t z = smem_u32(zeros);
+  const uint32_t va = smem_u32(vs);
+
+  // p from s = q k^T (q and k arrived)
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[2 * kKeyTiles][4];
+  softmax_bf16<kKeyTiles>(s, smem_u32(qs), smem_u32(ks), z, i0, lq, lk,
+                          bias ? bias + (row / heads) * lk : nullptr, scale);
+
+  // o = round(p) v (v arrived)
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kKeyTiles; ++kk) {
+    // keys 16 kk .. 16 kk + 15: tiles 2 kk (A registers 0, 1) and
+    // 2 kk + 1 (2, 3), rows gr and gr + 8
+    const uint32_t a[4] = {
+        bf16x2_bits(__floats2bfloat162_rn(s[2 * kk][0], s[2 * kk][1])),
+        bf16x2_bits(__floats2bfloat162_rn(s[2 * kk][2], s[2 * kk][3])),
+        bf16x2_bits(
+            __floats2bfloat162_rn(s[2 * kk + 1][0], s[2 * kk + 1][1])),
+        bf16x2_bits(
+            __floats2bfloat162_rn(s[2 * kk + 1][2], s[2 * kk + 1][3]))};
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, tile_addr(va, 16 * kk + v_row, lk, kPitch,
+                                 16 * d + v_col, z));
+      mma_bf16(acc[2 * d], a, b[0], b[1]);
+      mma_bf16(acc[2 * d + 1], a, b[2], b[3]);
+    }
+  }
+
+  // o to bf16 in the warp's own q rows, then 16 bytes a lane to memory
+  const bool row0 = i0 + gr < lq, row1 = i0 + gr + 8 < lq;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    __nv_bfloat16* out = qs + (i0 + gr) * kPitch + 8 * n + gc;
+    if (row0)
+      *reinterpret_cast<__nv_bfloat162*>(out) =
+          __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+    if (row1)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * kPitch) =
+          __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < 16 * 8; c += 32) {
+    const int r = i0 + (c >> 3), col = 8 * (c & 7);
+    if (r < lq)
+      *reinterpret_cast<uint4*>(o + at.q + (size_t)r * at.stride + col) =
+          *reinterpret_cast<const uint4*>(qs + r * kPitch + col);
+  }
+}
+
+// The kernels of one bf16 forward, by key tiles (1 to 4), each with the C
+// signature of its source's launch; launched with cudaLaunchKernel.
+using Bf16ForwardKernel = void (*)(const __nv_bfloat16*,
+                                   const __nv_bfloat16*,
+                                   const __nv_bfloat16*, const float*,
+                                   __nv_bfloat16*, int, int, int, float);
+
+// Ask each kernel of a bf16 forward to prefer the most shared memory per SM
+// (up to 16 blocks of 8.6 to 15.6 KB at the path's shapes). A host call:
+// each source makes it once, before its first launch, and not on each of a
+// forward's 34 launches.
+inline cudaError_t prefer_shared_memory(
+    const Bf16ForwardKernel (&kernels)[4]) {
+  for (const Bf16ForwardKernel kernel : kernels) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Launch a bf16 forward over bh rows, one block per row.
+inline cudaError_t launch_forward_bf16(const Bf16ForwardKernel (&kernels)[4],
+                                       const void* q, const void* k,
+                                       const void* v, const void* bias,
+                                       void* o, int bh, int lq, int lk,
+                                       int heads, cudaStream_t stream) {
+  const Bf16ForwardKernel kernel = kernels[(lk + 15) / 16 - 1];
+  float scale = head_scale();
+  void* args[] = {&q, &k, &v, &bias, &o, &lq, &lk, &heads, &scale};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
+                          dim3(bf16_threads(lq)), args,
+                          forward_bf16_smem_bytes(lq, lk), stream);
 }
 
 }  // namespace

@@ -30,10 +30,11 @@
 // the tensor cores become the limit. So the design keeps p, m, dp and ds
 // out of device memory and reads each input once, with 16-byte loads.
 //
-// The forward (kernel 2) is kernel 1's body with the dropout multiplier
-// (attention_common.cuh, attention_forward_block): one block of four warps
-// per row, the inputs staged in shared memory as fp32, lane j holding keys
-// j and j + 32, row reductions by warp shuffles.
+// The forward (kernel 2) is still the first port's scalar body with the
+// dropout multiplier (attention_common.cuh, attention_forward_block; kernel
+// 1 has left it for the tensor cores in bf16): one block of four warps per
+// row, the inputs staged in shared memory as fp32, lane j holding keys j
+// and j + 32, row reductions by warp shuffles.
 //
 // The backward (kernel 3) in bf16 is attention_backward_block_bf16, shared
 // with kernel 6 of attention_blhd.cu. The first port of it, a scalar-FMA
@@ -95,7 +96,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
 
 // The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBackwardBf16MaxThreads,
+__global__ void __launch_bounds__(kBf16MaxThreads,
                                   kBackwardBf16MinBlocks<kKeyTiles>)
 attention_dropout_bwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -15,16 +15,30 @@
 // bf16 (the serving path) or fp32.
 //
 // What bounds it: memory bandwidth. At Lq = Lk = 36 in bf16 a row reads
-// q, k, v and writes o, about 18.6 KB, for about 0.33 MFLOP: some
+// q, k, v and writes o, about 18.4 KB, for about 0.33 MFLOP: some
 // 18 FLOP/byte, far below the ~295 FLOP/byte at which an H100's tensor
-// cores become the limit. So the design only keeps the [Lq, Lk] scores and
-// probabilities out of device memory and reads each input once, with
-// 16-byte loads.
+// cores become the limit. So the design keeps the [Lq, Lk] scores and
+// probabilities out of device memory, reads each input once and writes o
+// once, 16 bytes a thread, and keeps the instructions around the products
+// few enough that the bytes stay the limit.
 //
-// Design, simple first: one block of four warps per (batch * head) row,
-// fp32 FMAs and warp shuffles; the body, shared with kernel 2 and set out in
-// attention_common.cuh (attention_forward_block), runs without dropout.
-// wgmma, TMA and several rows per block are left for later work.
+// Design, bf16 (the serving path; attention_common.cuh,
+// attention_forward_block_bf16, shared with kernel 4): both products on the
+// tensor cores, mma.sync m16n8k16 with bf16 operands and fp32 accumulation,
+// one warp per 16 queries; q, k and v copied by cp.async into bf16 shared
+// memory, the operands read by ldmatrix; the scores and the fp32 softmax
+// are the code of kernel 3's bf16 body (softmax_bf16), and p enters p v
+// from registers, rounded to bf16. mma.sync and not wgmma: wgmma takes
+// tiles of 64 rows, and a row here has at most 36 queries on the path.
+// One block per row: on an H100 that beat persistent blocks with a
+// two-stage cp.async ring. The first port's scalar body (fp32 in shared
+// memory, one warp per query row, two scalar FMAs per shared-memory load
+// pair) ran at 12% of its bound on an H100 (700 W); by a count of its
+// instructions, shared-memory loads held it. fp32 inputs keep it
+// (attention_forward_block): fp32 cannot be a bf16 tensor-core operand, and
+// fp32 is on no path.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -40,18 +54,43 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                     scale, Dropout{0u, 0u, 1.f});
 }
 
+// The bf16 forward on the tensor cores, keys padded to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kBf16MaxThreads,
+                                  kForwardBf16MinBlocks<kKeyTiles>)
+attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const float* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ o, int lq, int lk,
+                          int heads, float scale) {
+  attention_forward_block_bf16<kKeyTiles>(q, k, v, bias, o, lq, lk, heads, 1,
+                                          scale);
+}
+
+const Bf16ForwardKernel kFwdBf16[4] = {
+    attention_fwd_bf16_kernel<1>, attention_fwd_bf16_kernel<2>,
+    attention_fwd_bf16_kernel<3>, attention_fwd_bf16_kernel<4>};
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* o, int bh, int lq, int lk,
                    int heads, cudaStream_t stream) {
-  const size_t smem = forward_smem_bytes(lq, lk);
-  const cudaError_t err = allow_smem(attention_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  attention_fwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), lq, lk, heads, head_scale());
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static const cudaError_t prepared = prefer_shared_memory(kFwdBf16);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_forward_bf16(kFwdBf16, q, k, v, bias, o, bh, lq, lk, heads,
+                               stream);
+  } else {
+    const size_t smem = forward_smem_bytes(lq, lk);
+    const cudaError_t err = allow_smem(attention_fwd_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    attention_fwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<T*>(o), lq, lk, heads, head_scale());
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -71,6 +110,12 @@ int xggm_attention_fwd(const void* q, const void* k, const void* v,
                    ? launch<__nv_bfloat16>(q, k, v, bias, o, bh, lq, lk,
                                            heads, s)
                    : launch<float>(q, k, v, bias, o, bh, lq, lk, heads, s));
+}
+
+// For reports: the dynamic shared memory of one block of kernel 1's bf16
+// body at (lq, lk).
+size_t xggm_attention_fwd_bf16_smem_bytes(int lq, int lk) {
+  return forward_bf16_smem_bytes(lq, lk);
 }
 
 const char* xggm_cuda_error_string(int err) {

@@ -9,7 +9,9 @@ layout (BLHD): the counterpart of
 Six hand-written CUDA kernels, each behind a wrapper that counts its
 launches (`<wrapper>.launches`):
 - kernel 1, `csrc/attention_fwd.cu`: softmax(q k^T / 8 + bias) v, behind
-  `fused_attention` (which counts);
+  `fused_attention` (which counts). In bf16 it runs on the tensor cores
+  (`attention_common.cuh`, `attention_forward_block_bf16`, which kernel 4
+  shares); fp32 keeps a scalar body.
 - kernel 2, `csrc/attention_dropout.cu`: the same with in-kernel dropout on
   the probabilities, behind `attention_dropout_fwd`;
 - kernel 3, `csrc/attention_dropout.cu`: the backward of kernel 2, behind
@@ -53,8 +55,8 @@ from xggm_tpu_torch.ops.philox import (
     MASK32, dropout_keep, keep_scale, keep_threshold)
 
 HEAD_DIM = 64
-# the forward kernels hold two keys per lane of one warp; the bf16
-# backward pads Lq and Lk to at most four tiles of 16
+# the scalar bodies hold two keys per lane of one warp; the bf16 bodies pad
+# Lq and Lk to at most four tiles of 16
 MAX_LEN = 64
 _FWD = "attention_fwd"
 _DROPOUT = "attention_dropout"
