@@ -14,8 +14,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             (kernels 4, 5 and 6) and bert_adam.cu (kernel 7), with
             -Xptxas -v (registers, shared memory, spills); the bf16
             tensor-core kernels' registers and spills (none allowed), the
-            backward's (kernels 3 and 6) and the forward's (kernels 1 and
-            4), and their dynamic shared memory at the path's shapes.
+            backward's (kernels 3 and 6) and the forward's (kernels 1, 2, 4
+            and 5), and their dynamic shared memory at the path's shapes;
+            the scalar forward instantiated for fp32 only.
 3. kernel   kernel 1 against its plain PyTorch version at the four shapes
             of the serving path, batch 512, bf16 with and without a key
             mask, plus one fp32 check: max abs error against the stated
@@ -28,9 +29,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             path x {bf16, fp32}, rate 0.1: kernel 2 against the plain
             forward fed the mask ops/philox.py draws, kernel 3 and kernel
             1's backward against torch.autograd.grad through the plain
-            versions; the kernel's own mask (read out through an identity v)
-            against the Philox mask, its keep fraction against 0.9 +- 5
-            sigma, and its dependence on the row and the seed; kernel, plain
+            versions; the kernel's own mask (read out through an identity v),
+            in bf16 and fp32, against the Philox mask, its keep fraction
+            against 0.9 +- 5 sigma, and its dependence on the row and the
+            seed; kernel 2's registers and shared memory; kernel, plain
             and library times (SDPA with dropout_p=0.1 forward and
             forward+backward; the memory-efficient attention's backward alone
             from a saved forward, at dropout_p 0.1 and, for kernel 1's
@@ -43,10 +45,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             batch, the four shapes x {bf16, fp32}, rate 0.1: each against its
             plain version and against kernels 1, 2 and 3 on the permuted
             inputs with the same seed (bit for bit expected; at most one
-            bf16 ulp allowed), kernel 5's own mask against the Philox mask of
-            row b * H + h; kernel, plain and library times (SDPA, and the
-            memory-efficient attention's backward from a saved forward, on
-            strided views of the same BLHD storage), the device's own time
+            bf16 ulp allowed), kernel 5's own mask, in bf16 and fp32, checked
+            as kernel 2's against the Philox mask of row b * H + h; kernel
+            5's registers and shared memory; kernel, plain and library
+            times (SDPA, and the memory-efficient attention's backward from
+            a saved forward, on strided views of the same BLHD storage),
+            the device's own time
             of kernels 4, 5 and 6, of SDPA's forwards and of the library
             backward, and the bandwidth bounds; summary lines of the backward kernels
             (backward_device) and of the forward kernels 1, 2, 4 and 5
@@ -153,13 +157,16 @@ PLAN = ("relation", "representation", "relation", "representation")
 TIMED_BATCHES = 10
 T_TOTAL = 10_000
 # One phase's loss and gradients through the kernels vs through the plain
-# attention, same masks, no update. Kernel 2 equals its plain version bit for
-# bit, so the losses agree but for nondeterministic reductions. Kernel 3
-# differs by one bf16 ulp, carried through 19 layers: the relative L2
-# distance of the gradients over all parameters together, and the largest
-# over single parameters whose plain gradient is nonzero. On an H100 80GB
-# HBM3 (700 W) the losses agreed exactly, and the gradients within 1.0e-3
-# to 1.4e-3 together and 1.2e-2 for the worst parameter (visn_fc's weight).
+# attention, same masks, no update. Kernels 2 and 3 differ from their plain
+# versions by one bf16 ulp (their products sum in another order), carried
+# through 19 layers: the relative L2 distance of the gradients over all
+# parameters together, and the largest over single parameters whose plain
+# gradient is nonzero. On an H100 80GB HBM3 (700 W), while kernel 2 still
+# ran a scalar body that equalled its plain version bit for bit, the losses
+# agreed exactly, and the gradients within 1.0e-3 to 1.4e-3 together and
+# 1.2e-2 for the worst parameter (visn_fc's weight); with the tensor-core
+# kernel 2 the losses within 2e-5 and the gradients within 2.5e-3 to
+# 5.0e-3 together and 2.8e-2 for the worst parameter (visn_fc's weight).
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-2
 PARAM_GRAD_RTOL = 5e-2
@@ -311,8 +318,8 @@ def ptxas_entries(log: str) -> dict:
 
 def bf16_kernels(builds, direction: str) -> list:
     """ptxas' registers and spills of the bf16 tensor-core kernels by key
-    tiles of 16, direction "bwd" (kernels 3 and 6) or "fwd" (kernels 1 and
-    4), as attention_dropout_bwd_bf16_kernel<n>."""
+    tiles of 16, direction "bwd" (kernels 3 and 6) or "fwd" (kernels 1, 2,
+    4 and 5), as attention_dropout_bwd_bf16_kernel<n>."""
     import re
 
     rows = []
@@ -324,6 +331,63 @@ def bf16_kernels(builds, direction: str) -> list:
                 rows.append(dict(kernel=f"{m.group(1)}<{m.group(2)}>",
                                  **info))
     return sorted(rows, key=lambda r: r["kernel"])
+
+
+def scalar_forwards(builds) -> list:
+    """The scalar forward kernels in the build logs (attention_fwd_kernel,
+    attention_dropout_fwd_kernel, attention_blhd_fwd_kernel) with their
+    mangled template arguments: "f" for fp32 (BLHD: "fLb0E" and "fLb1E",
+    without and with dropout), "13__nv_bfloat16" for bf16."""
+    import re
+
+    found = []
+    for res in builds:
+        for name in ptxas_entries(res.log):
+            m = re.search(
+                r"(attention_(?:dropout_|blhd_)?fwd_kernel)I(.+?)EEv", name)
+            if m:
+                found.append(f"{m.group(1)}<{m.group(2)}>")
+    return sorted(found)
+
+
+def forward_resources(fwd_bf16: list, kernel: str, lq: int, lk: int) -> dict:
+    """Registers, threads and dynamic shared memory of one launch of the
+    bf16 forward `kernel` (as attention_dropout_fwd_bf16_kernel) at (lq,
+    lk): the instantiation for its key tiles of 16."""
+    name = f"{kernel}<{(lk + 15) // 16}>"
+    info = next(r for r in fwd_bf16 if r["kernel"] == name)
+    return dict(kernel=name, registers=info["registers"],
+                threads=32 * ((lq + 15) // 16),
+                dynamic_smem_bytes=bf16_forward_smem_bytes(lq, lk))
+
+
+def check_own_mask(torch, draw, seed: int, keep, lq: int, lk: int,
+                   dtype) -> dict:
+    """A dropout forward's own mask. `draw(seed, dtype)` runs the kernel on
+    q = k = 0, which makes every p 1 / Lk, and an identity v, which puts
+    p * m of key j at o[..., j] (1.111 / Lk, positive in bf16 too), and
+    returns o[..., :Lk] > 0 in flattened row order (row b * H + h). It must
+    equal the Philox mask `keep` of `seed`, keep 0.9 +- 5 sigma of the
+    scores, differ between rows and between seeds, and repeat for a seed."""
+    drawn = draw(seed, dtype)
+    n = drawn.numel()
+    frac = float(drawn.float().mean())
+    sigma = math.sqrt(0.9 * 0.1 / n)
+    stats = dict(lq=lq, lk=lk, dtype=str(dtype).split(".")[1], draws=n,
+                 keep_fraction=frac, keep_fraction_sigma=sigma,
+                 equals_philox_mask=bool(torch.equal(drawn, keep > 0)),
+                 rows_differ=not bool(torch.equal(drawn[0], drawn[1])),
+                 seeds_differ=not bool(torch.equal(drawn,
+                                                   draw(seed + 1, dtype))),
+                 same_seed_same_mask=bool(torch.equal(drawn,
+                                                      draw(seed, dtype))))
+    where = f"{(lq, lk)} {stats['dtype']}"
+    check(abs(frac - 0.9) <= 5 * sigma,
+          f"keep fraction {frac} at {where}: not within 0.9 +- 5 sigma")
+    for key in ("equals_philox_mask", "rows_differ", "seeds_differ",
+                "same_seed_same_mask"):
+        check(stats[key], f"dropout mask at {where}: {key} is False")
+    return stats
 
 
 def bf16_backward_smem_bytes(lq: int, lk: int) -> int:
@@ -505,8 +569,9 @@ def float64_grads(q, k, v, bias, keep, g):
     return torch.autograd.grad(o, (q, k, v), g.double())
 
 
-def phase_dropout(torch, attn, philox, train_b: int):
-    """Kernels 2 and 3 and kernel 1's backward at the training batch."""
+def phase_dropout(torch, attn, philox, train_b: int, fwd_bf16: list):
+    """Kernels 2 and 3 and kernel 1's backward at the training batch;
+    fwd_bf16: the bf16 forward kernels' ptxas rows."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -632,37 +697,25 @@ def phase_dropout(torch, attn, philox, train_b: int):
                     bwd_device_bound_share=(row["bwd_bound_ms"]
                                             / row["bwd_device_ms"]),
                     bwd_threads=32 * ((lq + 15) // 16),
-                    bwd_dynamic_smem_bytes=bf16_backward_smem_bytes(lq, lk))
+                    bwd_dynamic_smem_bytes=bf16_backward_smem_bytes(lq, lk),
+                    fwd_resources=forward_resources(
+                        fwd_bf16, "attention_dropout_fwd_bf16_kernel", lq,
+                        lk))
             emit("dropout", **row)
             rows.append(row)
 
-        # the kernel's own mask: with q = k = 0 every p is 1 / Lk, and an
-        # identity v makes o[:, i, j] = p * m[i, j] for j < Lk
-        def kernel_mask(s):
-            zq = torch.zeros(bh, lq, D, device="cuda")
-            zk = torch.zeros(bh, lk, D, device="cuda")
-            eye = torch.eye(lk, D, device="cuda").expand(bh, lk, D).contiguous()
+        # the kernel's own mask, in both bodies (bf16 and fp32)
+        def kernel_mask(s, dtype):
+            zq = torch.zeros(bh, lq, D, device="cuda", dtype=dtype)
+            zk = torch.zeros(bh, lk, D, device="cuda", dtype=dtype)
+            eye = torch.eye(lk, D, device="cuda", dtype=dtype).expand(
+                bh, lk, D).contiguous()
             return attn.attention_dropout_fwd(zq, zk, eye, None, H, s,
                                               RATE)[..., :lk] > 0
 
-        drawn = kernel_mask(seed)
-        n = drawn.numel()
-        frac = float(drawn.float().mean())
-        sigma = math.sqrt(0.9 * 0.1 / n)
-        stats = dict(lq=lq, lk=lk, draws=n, keep_fraction=frac,
-                     keep_fraction_sigma=sigma,
-                     equals_philox_mask=bool(torch.equal(drawn, keep > 0)),
-                     rows_differ=not bool(torch.equal(drawn[0], drawn[1])),
-                     seeds_differ=not bool(torch.equal(drawn,
-                                                       kernel_mask(seed + 1))),
-                     same_seed_same_mask=bool(torch.equal(drawn,
-                                                          kernel_mask(seed))))
-        emit("dropout_mask", **stats)
-        check(abs(frac - 0.9) <= 5 * sigma,
-              f"keep fraction {frac} at {(lq, lk)}: not within 0.9 +- 5 sigma")
-        for key in ("equals_philox_mask", "rows_differ", "seeds_differ",
-                    "same_seed_same_mask"):
-            check(stats[key], f"dropout mask at {(lq, lk)}: {key} is False")
+        for dtype in (torch.bfloat16, torch.float32):
+            emit("dropout_mask", **check_own_mask(torch, kernel_mask, seed,
+                                                  keep, lq, lk, dtype))
 
     for key in ("fwd_within", "bwd_within", "k1_bwd_within"):
         bad = [(r["lq"], r["lk"], r["dtype"]) for r in rows if not r[key]]
@@ -670,8 +723,9 @@ def phase_dropout(torch, attn, philox, train_b: int):
     return rows
 
 
-def phase_blhd(torch, attn, philox, train_b: int):
-    """Kernels 4, 5 and 6 at the training batch, in the BLHD layout."""
+def phase_blhd(torch, attn, philox, train_b: int, fwd_bf16: list):
+    """Kernels 4, 5 and 6 at the training batch, in the BLHD layout;
+    fwd_bf16: the bf16 forward kernels' ptxas rows."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -804,23 +858,30 @@ def phase_blhd(torch, attn, philox, train_b: int):
                                    q, k, v, bias, seed, RATE, gout)),
                            device_time_method=dev["k6"]["method"],
                            k6_device_bound_share=(row["bwd_bound_ms"]
-                                                  / row["k6_device_ms"]))
+                                                  / row["k6_device_ms"]),
+                           k5_resources=forward_resources(
+                               fwd_bf16,
+                               "attention_blhd_dropout_fwd_bf16_kernel", lq,
+                               lk))
             emit("blhd", **row)
             rows.append(row)
 
-        # kernel 5's own mask: q = k = 0 makes every p 1 / Lk, and an
-        # identity v puts p * m[i, j] at o[b, i, h, j]
-        zq = torch.zeros(train_b, lq, H, D, device="cuda")
-        zk = torch.zeros(train_b, lk, H, D, device="cuda")
-        eye = torch.eye(lk, D, device="cuda")[None, :, None, :].expand(
-            train_b, lk, H, D).contiguous()
-        drawn = attn.attention_dropout_blhd_fwd(zq, zk, eye, None, seed,
-                                                RATE)[..., :lk] > 0
-        same = bool(torch.equal(rows_of(drawn), keep > 0))
-        emit("blhd_mask", lq=lq, lk=lk, draws=drawn.numel(),
-             equals_philox_mask_of_row_b_times_h_plus_h=same)
-        check(same, f"kernel 5's mask at {(lq, lk)} is not the Philox mask "
-                    "of row b * H + h")
+        # kernel 5's own mask, in both bodies, read out at o[b, i, h, j]
+        # and compared in the flattened order of rows b * H + h
+        def kernel_mask(s, dtype):
+            zq = torch.zeros(train_b, lq, H, D, device="cuda", dtype=dtype)
+            zk = torch.zeros(train_b, lk, H, D, device="cuda", dtype=dtype)
+            eye = torch.eye(lk, D, device="cuda", dtype=dtype)[
+                None, :, None, :].expand(train_b, lk, H, D).contiguous()
+            return rows_of(attn.attention_dropout_blhd_fwd(
+                zq, zk, eye, None, s, RATE)[..., :lk] > 0)
+
+        for dtype in (torch.bfloat16, torch.float32):
+            stats = check_own_mask(torch, kernel_mask, seed, keep, lq, lk,
+                                   dtype)
+            emit("blhd_mask", **stats,
+                 equals_philox_mask_of_row_b_times_h_plus_h=stats[
+                     "equals_philox_mask"])
 
     bad = [(r["lq"], r["lk"], r["dtype"]) for r in rows if not r["within"]]
     check(not bad, f"kernels 4 to 6 vs their plain versions failed at {bad}")
@@ -957,10 +1018,11 @@ def forward_device_of(root: str) -> int:
     of 34 launches of the forward kernels 1, 2, 4 and 5 in bf16 and of
     SDPA's forward in each layout, under the names of the forward_device
     line, for the package of the checkout at ROOT, printed as one JSON line
-    with the card. It calls only the wrappers that every checkout from the
-    BLHD kernels on has, and checks nothing but the bounds, so a checkout
-    older than this script can be timed too: run on two checkouts in turns
-    in one call, it compares their forwards on one card."""
+    with the card and the device us per launch by shape. It calls only the
+    wrappers that every checkout from the BLHD kernels on has, and checks
+    nothing but the bounds, so a checkout older than this script can be
+    timed too: run on two checkouts in turns in one call, it compares their
+    forwards on one card."""
     import os
 
     import torch
@@ -980,6 +1042,7 @@ def forward_device_of(root: str) -> int:
     train_b = gqa_ood_config().train.batch_size
     g = torch.Generator(device="cuda").manual_seed(SEED)
     per_pass, bounds = {}, {"served": 0.0, "training": 0.0}
+    per_launch = {f"{lq}x{lk}": {} for lq, lk, _, _ in PATH_SHAPES}
     for lq, lk, masked, per_fwd in PATH_SHAPES:
         seed = 1000 * lq + lk
         for b, blhd in ((B, False), (train_b, False), (train_b, True)):
@@ -1019,15 +1082,16 @@ def forward_device_of(root: str) -> int:
                          ("library_dropout_blhd", lambda: sdpa(RATE)))
             for name, fn in timed:
                 key = f"{name}_device_ms"
-                per_pass[key] = (per_pass.get(key, 0.0)
-                                 + device_ms(fn, least)["ms"] * per_fwd)
+                ms = device_ms(fn, least)["ms"]
+                per_pass[key] = per_pass.get(key, 0.0) + ms * per_fwd
+                per_launch[f"{lq}x{lk}"][f"{name}_device_us"] = ms * 1e3
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     emit("forward_device_of", root=root, package=os.path.dirname(
              os.path.dirname(attn.__file__)),
          card=smi.stdout.strip().splitlines()[0], per_pass=per_pass,
-         bound_ms=bounds,
+         bound_ms=bounds, per_launch=per_launch,
          over=f"k1 and library: one served forward's {LAUNCHES_PER_FORWARD} "
               f"launches at B={B}; the others one training forward's at "
               f"B={train_b}; bf16, torch.profiler's device time")
@@ -1526,13 +1590,21 @@ def main() -> int:
              f"{lq}x{lk}": bf16_backward_smem_bytes(lq, lk)
              for lq, lk, _, _ in PATH_SHAPES})
     fwd_bf16 = bf16_kernels(builds, "fwd")
+    scalar_fwd = scalar_forwards(builds)
     emit("build_fwd_bf16", kernels=fwd_bf16,
          dynamic_smem_bytes_at_path_shapes={
              f"{lq}x{lk}": bf16_forward_smem_bytes(lq, lk)
-             for lq, lk, _, _ in PATH_SHAPES})
-    for kind, found in (("backward", bwd_bf16), ("forward", fwd_bf16)):
-        check(len(found) == 8, f"expected 8 bf16 {kind} kernels in the "
-                               f"build log, found {len(found)}")
+             for lq, lk, _, _ in PATH_SHAPES},
+         scalar_forwards=scalar_fwd)
+    # kernels 1 and 2, and kernel 4 with and without dropout (5), in fp32
+    check(len(scalar_fwd) == 4
+          and all(k.split("<")[1].startswith("f") for k in scalar_fwd),
+          f"expected the scalar forward for fp32 only: {scalar_fwd}")
+    # backward: kernels 3 and 6; forward: kernels 1, 2, 4 and 5
+    for kind, found, want in (("backward", bwd_bf16, 8),
+                              ("forward", fwd_bf16, 16)):
+        check(len(found) == want, f"expected {want} bf16 {kind} kernels in "
+                                  f"the build log, found {len(found)}")
         spills = [r["kernel"] for r in found
                   if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
         check(not spills, f"bf16 {kind} kernels spill: {spills}")
@@ -1543,10 +1615,11 @@ def main() -> int:
     # 4. dropout kernels at the training batch
     cfg = gqa_ood_config()
     train_b = cfg.train.batch_size
-    drop_rows = phase_dropout(torch, attn, philox, train_b)
+    drop_rows = phase_dropout(torch, attn, philox, train_b, fwd_bf16)
 
     # 5. the BLHD kernels at the training batch, and their entry points
-    blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b)
+    blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b,
+                                          fwd_bf16)
     emit_backward_device(drop_rows, blhd_rows, train_b)
     emit_forward_device(rows, drop_rows, blhd_rows, train_b)
 

@@ -17,8 +17,9 @@ kernels 1 to 3.
 - The BLHD plain versions equal the flattened ones on permuted inputs with
   the same seed, exactly: head h of batch b draws row b * H + h's mask.
 - `gpu`: kernels 4 to 6 against their plain versions and against kernels 1
-  to 3 on the permuted inputs, kernels 4 and 6 in bf16 also at shapes off
-  their 16 x 16 tiles (kernel 4 with every key of one element masked).
+  to 3 on the permuted inputs, kernels 4 to 6 in bf16 also at shapes off
+  their 16 x 16 tiles (kernels 4 and 5 with every key of one element
+  masked).
   This file imports JAX only inside the tests that compare with it, so
   that the card test runs where JAX is absent:
   `python -m pytest --noconftest -m gpu tests/test_torch_attention_blhd.py`.
@@ -307,7 +308,7 @@ TOLS = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=2.0 ** -8),
         torch.float32: dict(rtol=1e-5, atol=1e-5)}
 
 
-# (Lq, Lk) off the 16 x 16 tiles of kernel 6's bf16 body, and its largest;
+# (Lq, Lk) off the 16 x 16 tiles of the bf16 bodies, and their largest;
 # an odd batch (one block per (batch * head) row: any row count works)
 EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
 EDGE_BATCH = 7
@@ -320,11 +321,13 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
     0 and 0.1 against the plain gradients; each against kernels 1 to 3 on
     the permuted inputs with the same seed, bit for bit; kernel 5's own mask
     against the Philox mask of row b * H + h; one launch each. Then kernels
-    4 and 6 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not: kernel 4
+    4 to 6 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not: kernel 4
     (masked: every key of the first element masked) against its plain
     version and against kernel 1 on the permuted inputs, bit for bit;
-    kernel 6 at rates 0.1 and 0 against the plain gradients, and against
-    kernel 3 on the permuted inputs, bit for bit."""
+    kernel 5 (the same mask) at rates 0.1 and 0 against its plain version
+    fed the Philox mask and against kernel 2 on the permuted inputs, bit
+    for bit; kernel 6 at rates 0.1 and 0 against the plain gradients, and
+    against kernel 3 on the permuted inputs, bit for bit."""
     seed, b = 2025, 32
     for dtype in (torch.bfloat16, torch.float32):
         for lq, lk, masked in PATH_SHAPES:
@@ -404,6 +407,19 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
                 where = f"{(lq, lk)} mask {masked} rate {rate}"
                 keep = (dropout_keep(seed, EDGE_BATCH * H, lq, lk, rate, cuda)
                         if rate else None)
+                o5 = attn.attention_dropout_blhd_fwd(q, k, v, bias4, seed,
+                                                     rate)
+                want = attn.attention_dropout_blhd_reference(q, k, v, bias4,
+                                                             keep)
+                assert o5.dtype == want.dtype and o5.shape == want.shape, \
+                    where
+                torch.testing.assert_close(
+                    o5.float(), want.float(),
+                    msg=lambda m, where=where: f"{where}: kernel 5: {m}",
+                    **TOLS[torch.bfloat16])
+                o2 = attn.attention_dropout_fwd(*flat[:3], bias4, H, seed,
+                                                rate)
+                assert torch.equal(o5, _blhd(o2, EDGE_BATCH)), where
                 g6 = attn.attention_dropout_blhd_bwd(q, k, v, bias, seed,
                                                      rate, g)
                 wants = attn.attention_dropout_blhd_reference_grads(

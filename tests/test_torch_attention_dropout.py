@@ -5,16 +5,17 @@ kernels 2 and 3) and its Philox mask (ops/philox.py).
 - The port's plain forward and backward, fed the mask that JAX's interpret
   path draws, against `xggm_tpu.ops.pallas_attention.fused_attention_dropout`
   (interpreted on the CPU), at the four (Lq, Lk) shapes of the training path,
-  fp32, within 2e-5 (the tolerance of tests/test_pallas_attention.py: both
-  sides fp32, only the summation order differs).
+  and the forward also at the card tests' edge shapes, fp32, within 2e-5
+  (the tolerance of tests/test_pallas_attention.py: both sides fp32, only
+  the summation order differs).
 - Rate-0 gradients of `fused_attention` against JAX `fused_attention`.
 - The autograd.Function's backward against autograd through the plain
   version with the same mask, and the Philox mask's keep rate.
 - `gpu`-marked card tests: kernels 2 and 3, and kernel 1's backward, against
-  their plain versions; kernel 3's bf16 body also at shapes off its 16 x 16
-  tiles. They skip without a card. This file imports JAX only
-  inside the tests that compare with it, so that the card tests run where
-  JAX is absent:
+  their plain versions; the bf16 bodies of kernels 2 and 3 also at shapes
+  off their 16 x 16 tiles. They skip without a card. This file imports JAX
+  only inside the tests that compare with it, so that the card tests run
+  where JAX is absent:
   `python -m pytest --noconftest -m gpu tests/test_torch_attention_dropout.py`.
 
 Each test loops over its cases and names the failing one, so that the file
@@ -36,6 +37,11 @@ RATE = 0.1
 PATH_SHAPES = [(20, 20, True), (36, 36, False), (20, 36, False),
                (36, 20, True)]
 TOL = dict(rtol=2e-5, atol=2e-5)
+# (Lq, Lk) off the 16 x 16 tiles of the bf16 bodies, and their largest
+EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
+# an odd batch: the bf16 bodies run one block per (batch * head) row, so
+# any row count works; this one is odd and no multiple of 16
+EDGE_BATCH = 7
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,7 +136,9 @@ def _bias_bh(bias, bh, lk):
 def test_plain_dropout_attention_matches_jax():
     """At the 4 path shapes, the plain forward and its q, k, v gradients fed
     JAX's mask against JAX's `fused_attention_dropout` (2 groups of 40 rows
-    in JAX); at rate 0, `fused_attention`'s backward against JAX's."""
+    in JAX); at EDGE_SHAPES and EDGE_BATCH (one group of 28 rows), the first
+    element's every key masked, the forward; at rate 0,
+    `fused_attention`'s backward against JAX's."""
     import jax
     import jax.numpy as jnp
 
@@ -159,6 +167,20 @@ def test_plain_dropout_attention_matches_jax():
         for name, a, w in zip(("o", "dq", "dk", "dv"), got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(w),
                                        err_msg=f"{name} at {(lq, lk)}", **TOL)
+
+    bh = EDGE_BATCH * H
+    seeds = (seed + np.arange(bh, dtype=np.int32))[:, None]
+    for lq, lk in EDGE_SHAPES:
+        q, k, v, bias, _ = _inputs(EDGE_BATCH, lq, lk, True, seed=lq + lk)
+        bias[0] = -10000.0  # every key of the first element
+        want = jax.jit(lambda q_, k_, v_, b_: fused_attention_dropout(
+            q_, k_, v_, b_, jnp.asarray(seeds), RATE))(
+            *(jnp.asarray(t.numpy()) for t in (q, k, v)),
+            jnp.asarray(_bias_bh(bias, bh, lk)))
+        keep = torch.from_numpy(_jax_interpret_mask(seed, bh, lq, lk, RATE))
+        got = attn.attention_dropout_reference(q, k, v, bias, H, keep)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=f"o at {(lq, lk)}", **TOL)
 
     for lq, lk, masked in ((20, 36, True), (36, 20, False)):
         q, k, v, bias, g = _inputs(2, lq, lk, masked, seed=7)
@@ -222,21 +244,16 @@ TOLS = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=2.0 ** -8),
         torch.float32: dict(rtol=1e-5, atol=1e-5)}
 
 
-# (Lq, Lk) off the 16 x 16 tiles of kernel 3's bf16 body, and its largest
-EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
-# an odd batch: the bf16 backward runs one block per (batch * head) row, so
-# any row count works; this one is odd and no multiple of 16
-EDGE_BATCH = 7
-
-
 @pytest.mark.gpu
 def test_kernels_match_plain_versions(cuda):
     """At the 4 path shapes in bf16 and fp32: kernel 2 against the plain
     forward and kernel 3 against the plain gradients, both fed the mask
     ops/philox.py draws on the card; kernel 1's backward (kernel 3 at rate
     0) against the plain gradients of attention_reference; one launch each.
-    Then kernel 3 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not, at
-    rates 0.1 and 0, against the plain gradients."""
+    Then kernels 2 and 3 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and
+    not, at rates 0.1 and 0: kernel 2 (masked: every key of the first
+    element masked) against the plain forward fed the Philox mask, kernel 3
+    against the plain gradients."""
     seed = 2024
     for dtype in (torch.bfloat16, torch.float32):
         for lq, lk, masked in PATH_SHAPES:
@@ -274,10 +291,22 @@ def test_kernels_match_plain_versions(cuda):
         for masked in (True, False):
             q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked,
                                        torch.bfloat16, cuda, seed=lq + lk)
+            bias2 = None
+            if masked:
+                bias2 = bias.clone()
+                bias2[0] = -10000.0  # every key of the first element
             for rate in (RATE, 0.0):
                 where = f"{(lq, lk)} mask {masked} rate {rate}"
                 keep = (dropout_keep(seed, q.shape[0], lq, lk, rate, cuda)
                         if rate else None)
+                o = attn.attention_dropout_fwd(q, k, v, bias2, H, seed, rate)
+                want = attn.attention_dropout_reference(q, k, v, bias2, H,
+                                                        keep)
+                assert o.dtype == want.dtype and o.shape == want.shape, where
+                torch.testing.assert_close(
+                    o.float(), want.float(),
+                    msg=lambda m, where=where: f"{where}: kernel 2: {m}",
+                    **TOLS[torch.bfloat16])
                 grads = attn.attention_dropout_bwd(q, k, v, bias, H, seed,
                                                    rate, g)
                 wants = attn.attention_dropout_reference_grads(

@@ -29,17 +29,18 @@
 // FLOPs; the layout changes only the addresses).
 //
 // Design: kernels 1 to 3's bodies (attention_common.cuh), given H heads
-// between positions where kernels 1 to 3 give 1. In bf16, kernel 4 runs
-// attention_forward_block_bf16 (the tensor-core forward of kernel 1: one
-// warp per 16 queries, one block per (b, h); attention_fwd.cu sets out
-// why) and kernel 6 attention_backward_block_bf16 (attention_dropout.cu
-// sets out why); both copy their inputs by cp.async. Kernel 5, and fp32 inputs, keep the first
-// port's scalar forward (attention_forward_block: one block of four warps
-// per (b, h)) or backward (attention_backward_block). The row of one
-// position of one head is 64 contiguous elements (128 bytes in bf16), so
-// each staged row is still read with coalesced 16-byte loads, and kernel 4
-// writes o 16 bytes a lane; rows lie H * 64 elements apart instead of 64.
-// No transpose is ever materialised, and kernels 4 to 6 give the bits of
+// between positions where kernels 1 to 3 give 1. In bf16, kernels 4 and 5
+// run attention_forward_block_bf16 (the tensor-core forward of kernels 1
+// and 2, kernel 5 with the dropout multiplier: one warp per 16 queries,
+// one block per (b, h); attention_fwd.cu sets out why) and kernel 6
+// attention_backward_block_bf16 (attention_dropout.cu sets out why); all
+// three copy their inputs by cp.async. fp32 inputs keep the first port's
+// scalar forward (attention_forward_block: one block of four warps per
+// (b, h)) or backward (attention_backward_block). The row of one position
+// of one head is 64 contiguous elements (128 bytes in bf16), so each staged
+// row is still read with coalesced 16-byte loads, and kernels 4 and 5 write
+// o 16 bytes a lane; rows lie H * 64 elements apart instead of 64. No
+// transpose is ever materialised, and kernels 4 to 6 give the bits of
 // kernels 1 to 3 on the permuted inputs.
 
 #include <type_traits>
@@ -48,6 +49,7 @@
 
 namespace {
 
+// The scalar forward, launched for fp32 only.
 template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_blhd_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -80,24 +82,48 @@ attention_blhd_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ v,
                                const float* __restrict__ bias,
                                __nv_bfloat16* __restrict__ o, int lq,
-                               int lk, int heads, float scale) {
-  attention_forward_block_bf16<kKeyTiles>(q, k, v, bias, o, lq, lk, heads,
-                                          heads, scale);
+                               int lk, int heads, float scale,
+                               Dropout drop) {
+  attention_forward_block_bf16<kKeyTiles, false>(q, k, v, bias, o, lq, lk,
+                                                 heads, heads, scale, drop);
 }
 
 const Bf16ForwardKernel kBlhdFwdBf16[4] = {
     attention_blhd_fwd_bf16_kernel<1>, attention_blhd_fwd_bf16_kernel<2>,
     attention_blhd_fwd_bf16_kernel<3>, attention_blhd_fwd_bf16_kernel<4>};
 
+// Kernel 5 in bf16: kernel 4's body with the dropout multiplier.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kBf16MaxThreads,
+                                  kForwardBf16MinBlocks<kKeyTiles>)
+attention_blhd_dropout_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                       const __nv_bfloat16* __restrict__ k,
+                                       const __nv_bfloat16* __restrict__ v,
+                                       const float* __restrict__ bias,
+                                       __nv_bfloat16* __restrict__ o, int lq,
+                                       int lk, int heads, float scale,
+                                       Dropout drop) {
+  attention_forward_block_bf16<kKeyTiles, true>(q, k, v, bias, o, lq, lk,
+                                                heads, heads, scale, drop);
+}
+
+const Bf16ForwardKernel kBlhdDropoutFwdBf16[4] = {
+    attention_blhd_dropout_fwd_bf16_kernel<1>,
+    attention_blhd_dropout_fwd_bf16_kernel<2>,
+    attention_blhd_dropout_fwd_bf16_kernel<3>,
+    attention_blhd_dropout_fwd_bf16_kernel<4>};
+
 template <typename T, bool kDropout>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, int bh, int lq, int lk,
                        int heads, Dropout drop, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && !kDropout) {
-    static const cudaError_t prepared = prefer_shared_memory(kBlhdFwdBf16);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const Bf16ForwardKernel(&kernels)[4] =
+        kDropout ? kBlhdDropoutFwdBf16 : kBlhdFwdBf16;
+    static const cudaError_t prepared = prefer_shared_memory(kernels);
     if (prepared != cudaSuccess) return prepared;
-    return launch_forward_bf16(kBlhdFwdBf16, q, k, v, bias, o, bh, lq, lk,
-                               heads, stream);
+    return launch_forward_bf16(kernels, q, k, v, bias, o, bh, lq, lk, heads,
+                               drop, stream);
   } else {
     const size_t smem = forward_smem_bytes(lq, lk);
     const cudaError_t err =

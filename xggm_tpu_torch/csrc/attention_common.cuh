@@ -11,14 +11,14 @@
 // bf16, the type of the training and serving paths, runs on the tensor
 // cores (cp.async into bf16 shared memory, mma.sync m16n8k16 with fp32
 // accumulation, ldmatrix; one warp per 16 queries) in two bodies that share
-// the scores and the softmax (softmax_bf16): the forward without dropout,
-// kernels 1 and 4 (attention_forward_block_bf16), and the backward, kernels 3
-// and 6 (attention_backward_block_bf16, one Philox call per four keys).
-// Their notes set out the designs. The dropout forward, kernels 2 and 5,
-// keeps the scalar-FMA body of the first port (attention_forward_block) for
-// now. fp32 inputs cannot be bf16 tensor-core operands, and fp32 is on no
-// path, so fp32 keeps the scalar bodies (attention_forward_block,
-// attention_backward_block).
+// the scores, the softmax (softmax_bf16) and the mask draw (dropout_quad,
+// one Philox call per four keys): the forward, kernels 1 and 4 without
+// dropout and kernels 2 and 5 with it (attention_forward_block_bf16), and
+// the backward, kernels 3 and 6 (attention_backward_block_bf16). Their
+// notes set out the designs. fp32 inputs cannot be bf16 tensor-core
+// operands, and fp32 is on no path, so fp32 keeps the first port's scalar
+// bodies (attention_forward_block, attention_backward_block), instantiated
+// for float only.
 #pragma once
 
 #include <math.h>
@@ -150,7 +150,9 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 // Dropout multiplier of score (row, i, j): keep_scale where the draw is at
 // or above `threshold`, else 0. The draw is word j % 4 of Philox at counter
 // (row, i, j / 4, 0) under key (seed + row, 0), the layout of
-// ops/philox.py. threshold 0 keeps everything without drawing.
+// ops/philox.py. threshold 0 keeps everything without drawing. The draw of
+// the scalar bodies (fp32); the bf16 bodies take the same bits four keys
+// a call (dropout_quad).
 __device__ __forceinline__ float dropout_multiplier(uint32_t seed,
                                                     uint32_t row, int i,
                                                     int j, uint32_t threshold,
@@ -225,13 +227,13 @@ inline size_t backward_smem_bytes(int lq, int lk) {
                                   2 * lq * lk);
 }
 
-// The scalar forward of kernels 2 and 5, and of kernels 1 and 4 in fp32,
-// for the (batch * head) row blockIdx.x of this block of kWarps warps, in
-// the layout of `lh` heads (1: flattened, heads: BLHD): o = round(p * m) v,
-// with p the fp32 softmax of
-// q k^T * scale + bias, m the dropout multiplier (1 without kDropout),
-// round = to the input type (the TPU kernels' astype before p @ v), the
-// product accumulated in fp32 and written in the input type. q, k and v
+// The scalar forward of kernels 1, 2, 4 and 5 in fp32 (bf16 runs
+// attention_forward_block_bf16), for the (batch * head) row blockIdx.x of
+// this block of kWarps warps, in the layout of `lh` heads (1: flattened,
+// heads: BLHD): o = round(p * m) v, with p the fp32 softmax of q k^T *
+// scale + bias, m the dropout multiplier (1 without kDropout), round = to
+// the input type (the TPU kernels' astype before p @ v), the product
+// accumulated in fp32 and written in the input type. q, k and v
 // are staged in shared memory as fp32, k's rows padded to 65 floats so that
 // the 32 lanes, one key each, read 32 different banks. Each warp takes query
 // rows in turn: lane j holds keys j and j + 32, and the p @ v product
@@ -900,21 +902,27 @@ inline cudaError_t launch_backward_bf16(
                           dim3(bf16_threads(lq)), args, smem, stream);
 }
 
-// ---- the bf16 forward of kernels 1 and 4, on the tensor cores ------------
+// ---- the bf16 forward of kernels 1, 2, 4 and 5, on the tensor cores ------
 //
-// Replaces, for bf16, _attention_kernel and _attention_blhd_kernel of
-// xggm_tpu/ops/pallas_attention.py: o = round(p) v with p = softmax(q k^T *
-// scale + bias) in fp32, round = to bf16 (the TPU kernel's p.astype), the
-// product accumulated in fp32 and o rounded to bf16. Bound by bytes: 4 B H
-// Lq Lk 64 FLOPs take about 0.1 us a launch on the tensor cores, the bytes
-// 2 to 6 us. wgmma takes tiles of 64 rows and a row here has at most 36
-// queries on the path, so the products are mma.sync m16n8k16.
+// Replaces, for bf16, _attention_kernel, _attention_dropout_fwd_kernel,
+// _attention_blhd_kernel and _attention_dropout_blhd_fwd_kernel of
+// xggm_tpu/ops/pallas_attention.py: o = round(p * m) v with p = softmax(q
+// k^T * scale + bias) in fp32, m the dropout multiplier (kDropout; 1
+// without), p * m in fp32 and round = to bf16 (the TPU kernels'
+// (p * m).astype), the product accumulated in fp32 and o rounded to bf16.
+// Bound by bytes: 4 B H Lq Lk 64 FLOPs take about 0.1 us a launch on the
+// tensor cores, the bytes 2 to 6 us. wgmma takes tiles of 64 rows and a
+// row here has at most 36 queries on the path, so the products are
+// mma.sync m16n8k16.
 //
 // One warp per tile of 16 queries (Lq 36: 3 warps). Per (batch * head) row:
 //   q and k by cp.async into bf16 shared memory (first group), v (second);
 //   s = q k^T and p = softmax(s * scale + bias), the code the backward runs
 //   (softmax_bf16), so the forward's p is the p that the backward
-//   recomputes at rate 0; then, once v has arrived,
+//   recomputes;
+//   with kDropout, m by one Philox call per thread and m16n8 tile
+//   (dropout_quad, the backward's draw of the same bits) and p *= m in
+//   fp32, while v is still in flight; then, once v has arrived,
 //   o = p v: p rounded to bf16 (round to nearest even) from the m16n8
 //   accumulators of two neighbouring key tiles is the A fragment of one k16
 //   step, v [keys][64] the B fragments by ldmatrix.trans; o in eight m16n8
@@ -936,27 +944,32 @@ inline size_t forward_bf16_smem_bytes(int lq, int lk) {
 }
 
 // The forward kernels' __launch_bounds__ minimum of blocks of 4 warps per
-// SM by key tiles: 8, 7 and 5 cap a thread at 64, 72 and 96 registers. A
-// block takes 8,656 to 15,568 bytes at the path's shapes, so registers, not
-// shared memory, bound the blocks per SM. Left at 6, 5 and 4, ptxas took
-// 78 and 96 registers for 2 and 3 key tiles, 12 and 7 blocks per SM at
-// (20, 20) and (36, 36) where these caps give 16 and 9, and a trial build
-// on an H100 ran slower at every path shape; at 10 and 8 the Lk 48 body
-// spilled.
+// SM by key tiles, with and without dropout: 8, 7 and 5 cap a thread at 64,
+// 72 and 96 registers. A block takes 8,656 to 15,568 bytes at the path's
+// shapes, so registers, not shared memory, bound the blocks per SM. Left at
+// 6, 5 and 4, ptxas took 78 and 96 registers for 2 and 3 key tiles without
+// dropout (64 and 88 with it), 12 and 7 blocks per SM at (20, 20) and (36,
+// 36) where these caps give 16 and 9, and trial builds on an H100 ran
+// slower: without dropout at every path shape, with it by 5% per training
+// forward and 15% at (36, 36). Tighter caps spill: at 10 and 8 the Lk 48
+// body without dropout, at 10, 8 and 6 the dropout body of 2 and 4 key
+// tiles. The dropout body fits these caps without a spill: its Philox state
+// is live between the softmax and p v, before the accumulators of o are.
 template <int kKeyTiles>
 constexpr int kForwardBf16MinBlocks =
     kKeyTiles <= 2 ? 8 : kKeyTiles == 3 ? 7 : 5;
 
-// The bf16 forward of kernels 1 and 4 for (batch * head) row blockIdx.x, in
-// the layout of `lh` heads, keys padded to 16 * kKeyTiles (the note above
-// sets out the design). blockDim.x is bf16_threads(lq), the dynamic shared
-// memory forward_bf16_smem_bytes(lq, lk).
-template <int kKeyTiles>
+// The bf16 forward for (batch * head) row blockIdx.x, in the layout of `lh`
+// heads, keys padded to 16 * kKeyTiles (the note above sets out the
+// design): kernels 1 and 4 without kDropout (drop unread), kernels 2 and 5
+// with it. blockDim.x is bf16_threads(lq), the dynamic shared memory
+// forward_bf16_smem_bytes(lq, lk).
+template <int kKeyTiles, bool kDropout>
 __device__ __forceinline__ void attention_forward_block_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     __nv_bfloat16* __restrict__ o, int lq, int lk, int heads, int lh,
-    float scale) {
+    float scale, Dropout drop) {
   extern __shared__ uint4 fwd_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fwd_smem);
   __nv_bfloat16* ks = qs + lq * kPitch;
@@ -987,8 +1000,17 @@ __device__ __forceinline__ void attention_forward_block_bf16(
   float s[2 * kKeyTiles][4];
   softmax_bf16<kKeyTiles>(s, smem_u32(qs), smem_u32(ks), z, i0, lq, lk,
                           bias ? bias + (row / heads) * lk : nullptr, scale);
+  if constexpr (kDropout) {  // p *= m in fp32, while v is in flight
+#pragma unroll
+    for (int n = 0; n < 2 * kKeyTiles; ++n) {
+      float m[4];
+      dropout_quad(drop, (uint32_t)row, i0 + gr, n, lk, m);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= m[e];
+    }
+  }
 
-  // o = round(p) v (v arrived)
+  // o = round(p * m) v (v arrived)
   cp_async_wait<0>();
   __syncthreads();
   float acc[8][4];
@@ -1044,7 +1066,8 @@ __device__ __forceinline__ void attention_forward_block_bf16(
 using Bf16ForwardKernel = void (*)(const __nv_bfloat16*,
                                    const __nv_bfloat16*,
                                    const __nv_bfloat16*, const float*,
-                                   __nv_bfloat16*, int, int, int, float);
+                                   __nv_bfloat16*, int, int, int, float,
+                                   Dropout);
 
 // Ask each kernel of a bf16 forward to prefer the most shared memory per SM
 // (up to 16 blocks of 8.6 to 15.6 KB at the path's shapes). A host call:
@@ -1066,10 +1089,11 @@ inline cudaError_t launch_forward_bf16(const Bf16ForwardKernel (&kernels)[4],
                                        const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, int bh, int lq, int lk,
-                                       int heads, cudaStream_t stream) {
+                                       int heads, Dropout drop,
+                                       cudaStream_t stream) {
   const Bf16ForwardKernel kernel = kernels[(lk + 15) / 16 - 1];
   float scale = head_scale();
-  void* args[] = {&q, &k, &v, &bias, &o, &lq, &lk, &heads, &scale};
+  void* args[] = {&q, &k, &v, &bias, &o, &lq, &lk, &heads, &scale, &drop};
   return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
                           dim3(bf16_threads(lq)), args,
                           forward_bf16_smem_bytes(lq, lk), stream);

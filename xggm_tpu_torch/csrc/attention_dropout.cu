@@ -30,11 +30,17 @@
 // the tensor cores become the limit. So the design keeps p, m, dp and ds
 // out of device memory and reads each input once, with 16-byte loads.
 //
-// The forward (kernel 2) is still the first port's scalar body with the
-// dropout multiplier (attention_common.cuh, attention_forward_block; kernel
-// 1 has left it for the tensor cores in bf16): one block of four warps per
-// row, the inputs staged in shared memory as fp32, lane j holding keys j
-// and j + 32, row reductions by warp shuffles.
+// The forward (kernel 2) in bf16 is kernel 1's tensor-core body with the
+// dropout multiplier (attention_common.cuh, attention_forward_block_bf16
+// with kDropout; attention_fwd.cu sets out the design), shared with kernel
+// 5 of attention_blhd.cu: p * m in fp32 between the softmax and the bf16
+// rounding of p v's operand, m drawn as the bf16 backward draws it (one
+// Philox call per four keys) while v is still in flight. The first port's
+// body, which it replaces in bf16, staged the inputs in shared memory as
+// fp32, ran q k^T and p v as scalar FMAs (p broadcast by shuffle, one key
+// at a time) and made one Philox call per key: 1.65 ms per training
+// forward against a 0.162 ms bound on an H100 (700 W), slower than SDPA at
+// dropout 0.1. fp32 inputs keep it (attention_forward_block).
 //
 // The backward (kernel 3) in bf16 is attention_backward_block_bf16, shared
 // with kernel 6 of attention_blhd.cu. The first port of it, a scalar-FMA
@@ -49,7 +55,7 @@
 // and 18 to 37 KB per row on the path, 6 to 12 rows per SM. fp32 inputs
 // keep the first port's body (attention_backward_block): they cannot be
 // bf16 tensor-core operands, and fp32 is on no path. The mask is drawn
-// with the same bits by both bodies and by kernel 2.
+// with the same bits by every body of kernels 2 and 3.
 
 #include <type_traits>
 
@@ -57,6 +63,7 @@
 
 namespace {
 
+// The scalar forward, launched for fp32 only.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -80,18 +87,46 @@ attention_dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               scale, drop);
 }
 
+// The bf16 forward on the tensor cores, keys padded to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kBf16MaxThreads,
+                                  kForwardBf16MinBlocks<kKeyTiles>)
+attention_dropout_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const float* __restrict__ bias,
+                                  __nv_bfloat16* __restrict__ o, int lq,
+                                  int lk, int heads, float scale,
+                                  Dropout drop) {
+  attention_forward_block_bf16<kKeyTiles, true>(q, k, v, bias, o, lq, lk,
+                                                heads, 1, scale, drop);
+}
+
+const Bf16ForwardKernel kDropoutFwdBf16[4] = {
+    attention_dropout_fwd_bf16_kernel<1>,
+    attention_dropout_fwd_bf16_kernel<2>,
+    attention_dropout_fwd_bf16_kernel<3>,
+    attention_dropout_fwd_bf16_kernel<4>};
+
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, int bh, int lq, int lk,
                        int heads, Dropout drop, cudaStream_t stream) {
-  const size_t smem = forward_smem_bytes(lq, lk);
-  const cudaError_t err = allow_smem(attention_dropout_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  attention_dropout_fwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), lq, lk, heads, head_scale(), drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static const cudaError_t prepared = prefer_shared_memory(kDropoutFwdBf16);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_forward_bf16(kDropoutFwdBf16, q, k, v, bias, o, bh, lq, lk,
+                               heads, drop, stream);
+  } else {
+    const size_t smem = forward_smem_bytes(lq, lk);
+    const cudaError_t err = allow_smem(attention_dropout_fwd_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    attention_dropout_fwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<T*>(o), lq, lk, heads, head_scale(), drop);
+    return cudaGetLastError();
+  }
 }
 
 // The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.

@@ -23,7 +23,8 @@
 // few enough that the bytes stay the limit.
 //
 // Design, bf16 (the serving path; attention_common.cuh,
-// attention_forward_block_bf16, shared with kernel 4): both products on the
+// attention_forward_block_bf16, shared with kernels 2, 4 and 5): both
+// products on the
 // tensor cores, mma.sync m16n8k16 with bf16 operands and fp32 accumulation,
 // one warp per 16 queries; q, k and v copied by cp.async into bf16 shared
 // memory, the operands read by ldmatrix; the scores and the fp32 softmax
@@ -63,9 +64,9 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ v,
                           const float* __restrict__ bias,
                           __nv_bfloat16* __restrict__ o, int lq, int lk,
-                          int heads, float scale) {
-  attention_forward_block_bf16<kKeyTiles>(q, k, v, bias, o, lq, lk, heads, 1,
-                                          scale);
+                          int heads, float scale, Dropout drop) {
+  attention_forward_block_bf16<kKeyTiles, false>(q, k, v, bias, o, lq, lk,
+                                                 heads, 1, scale, drop);
 }
 
 const Bf16ForwardKernel kFwdBf16[4] = {
@@ -80,7 +81,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     static const cudaError_t prepared = prefer_shared_memory(kFwdBf16);
     if (prepared != cudaSuccess) return prepared;
     return launch_forward_bf16(kFwdBf16, q, k, v, bias, o, bh, lq, lk, heads,
-                               stream);
+                               Dropout{0u, 0u, 1.f}, stream);
   } else {
     const size_t smem = forward_smem_bytes(lq, lk);
     const cudaError_t err = allow_smem(attention_fwd_kernel<T>, smem);

@@ -10,10 +10,11 @@ Six hand-written CUDA kernels, each behind a wrapper that counts its
 launches (`<wrapper>.launches`):
 - kernel 1, `csrc/attention_fwd.cu`: softmax(q k^T / 8 + bias) v, behind
   `fused_attention` (which counts). In bf16 it runs on the tensor cores
-  (`attention_common.cuh`, `attention_forward_block_bf16`, which kernel 4
-  shares); fp32 keeps a scalar body.
+  (`attention_common.cuh`, `attention_forward_block_bf16`, which kernels 2,
+  4 and 5 share); fp32 keeps a scalar body.
 - kernel 2, `csrc/attention_dropout.cu`: the same with in-kernel dropout on
-  the probabilities, behind `attention_dropout_fwd`;
+  the probabilities, behind `attention_dropout_fwd`; in bf16 the same body
+  with the dropout multiplier;
 - kernel 3, `csrc/attention_dropout.cu`: the backward of kernel 2, behind
   `attention_dropout_bwd`. At rate 0 it is also kernel 1's backward. In
   bf16 it runs on the tensor cores (`attention_common.cuh`,
