@@ -100,20 +100,50 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             device memory for the tree and the fused update in turns on this
             one model (tree, fused, fused, tree), and one profiled batch
             with BertAdam's device time against phase 8's.
-10. summary the kernels line (all seven kernels), the card's name and power
-            limit, and last {"ok": true, "device": {...}}.
+10. trainer the GQA-OOD trainer through its CLI (`cli/gqa_ood.py`) at full
+            width: a synthetic corpus of 384 training questions over 64
+            images and 192 validation questions over 32, written as feature
+            packs with no H5 file, its answer vocabulary padded to 1842;
+            one epoch of 4 batches of 96 in bf16 (`--xpack`, lr 5e-6, seed
+            9595), kernels 1, 2 and 3 counted over it: 68 kernel-2 and 66
+            kernel-3 launches per batch, 34 kernel-1 launches per
+            validation forward (3 validations inside the epoch and one at
+            its end, 2 forwards each), the branches random.Random(9595)'s
+            draws, finite losses, 8 BertAdam updates, BEST iff a
+            validation improved on 0 and BEST_0, one log.log line; then the
+            test arm from that checkpoint: 192 answers in the vocabulary,
+            the accuracy recorded for it, and, where the checkpoint holds
+            the epoch's final parameters, the answers those parameters
+            give in memory, answer for answer. It prints ms per batch
+            through the trainer beside phase 8's, the feeder's own host ms
+            per batch, which xpack gather ran, seconds and bytes per
+            checkpoint save, the epoch's seconds and peak device memory;
+            and, on the trained model, ms of each of its steps fed by its
+            feeder against the same steps on one resident batch, in turns
+            (fed, resident, resident, fed, fed, resident; 2 feeder passes
+            each), each pass's first step left out.
+11. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+            trainer-phase launches too), the card's name and power limit,
+            and last {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
+import os
+import random
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -175,6 +205,13 @@ PARAM_GRAD_RTOL = 5e-2
 # the kernel rounds every operation as the plain version does).
 ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
 UPDATES_PER_BATCH = 2
+# The trainer phase: a synthetic GQA-OOD corpus written as feature packs,
+# trained one epoch through the CLI at the recipe's batch (4 batches), then
+# its test arm on the validation split.
+TRAINER_TRAIN = dict(n_questions=384, n_images=64, seed=0)
+TRAINER_VAL = dict(n_questions=192, n_images=32, seed=1)
+TRAINER_SEED = 9595
+FED_PASSES = 2  # feeder passes per timing turn of the trainer phase
 # An update reads g, m, v, p and writes m, v, p: 28 bytes per fp32 element
 # (24 where the gradient is null), and some 15 FLOPs.
 ADAM_BYTES, ADAM_FLOPS = 28, 15
@@ -1534,6 +1571,263 @@ def profile_batch(torch, step, state, batch, timed_ms: float) -> dict:
                       else "device events from torch.profiler (CUPTI)"))
 
 
+def phase_trainer(torch, attn, phase8_ms_per_batch: float,
+                  t_start: float) -> dict:
+    """The GQA-OOD trainer through its CLI at full width: a pack corpus
+    written without H5 (1842 answers), one epoch of 4 batches of 96 in bf16,
+    then the test arm from its checkpoint. Kernels 1, 2 and 3 counted over
+    the train arm (counts at 0 just before, read just after). Returns the
+    counts."""
+    from xggm_tpu_torch.cli import gqa_ood
+    from xggm_tpu_torch.config import gqa_ood_config
+    from xggm_tpu_torch.data.datasets import GQADataset, GraphBatchDataset
+    from xggm_tpu_torch.data.feeder import Feeder
+    from xggm_tpu_torch.data.synthetic import (
+        ANSWERS, make_synthetic_gqa, write_vocab)
+    from xggm_tpu_torch.data.xpack import XPackFeatureStore
+    from xggm_tpu_torch.utils.guard import check_step_finite
+    from xggm_tpu_torch.utils.io import save_json
+
+    cfg = gqa_ood_config()
+    bs, feat_dim = cfg.train.batch_size, cfg.lxmert.visual.visual_feat_dim
+    counters = {"attention_fwd": attn.fused_attention,
+                "attention_dropout_fwd": attn.attention_dropout_fwd,
+                "attention_dropout_bwd": attn.attention_dropout_bwd}
+    tmp = tempfile.mkdtemp(prefix="xggm_trainer_")
+    try:
+        root, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        make_synthetic_gqa(root, "train", feat_dim=feat_dim, pack=True,
+                           **TRAINER_TRAIN)
+        make_synthetic_gqa(root, "val", feat_dim=feat_dim, pack=True,
+                           **TRAINER_VAL)
+        write_vocab(os.path.join(root, "vocab.txt"))
+        # the recipe's answer vocabulary size, as the serving phase pads it
+        label2ans = ANSWERS + [f"answer_{i}" for i in
+                               range(len(ANSWERS), cfg.num_answers)]
+        save_json(label2ans, os.path.join(root, "gqa_ood",
+                                          "trainval_label2ans.json"))
+        save_json({a: i for i, a in enumerate(label2ans)},
+                  os.path.join(root, "gqa_ood", "trainval_ans2label.json"))
+        feat_files = sorted(os.listdir(os.path.join(root, "gqa_imgfeat")))
+        corpus_s = time.perf_counter() - t0
+        check(not [f for f in feat_files if f.endswith(".h5")],
+              f"the pack corpus holds H5 files: {feat_files}")
+
+        argv = ["--train", "train", "--valid", "val", "--data_root", root,
+                "--output", out, "--bs", str(bs), "--epochs", "1", "--lr",
+                str(cfg.train.lr), "--seed", str(TRAINER_SEED), "--device",
+                "cuda", "--xpack", "--dtype", "bfloat16"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            trainer = gqa_ood.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        lines = stdout.getvalue().splitlines()
+
+        recs = [json.loads(ln) for ln in
+                open(os.path.join(out, "metrics.jsonl"))]
+        steps = [r for r in recs if "branch" in r]
+        vals = [r for r in recs if "valid/mid_epoch_acc" in r]
+        log = open(os.path.join(out, "log.log")).read().splitlines()
+        epoch_lines = [ln for ln in log if ln.startswith("Epoch 0: ")]
+        end = re.match(r"Epoch 0: Train [\d.]+, Valid ([\d.]+), Best "
+                       r"([\d.]+) \(([\d.]+)s\)$",
+                       epoch_lines[0] if epoch_lines else "")
+        best_line = [ln for ln in lines if ln.startswith("Best valid: ")]
+        draw = random.Random(TRAINER_SEED)
+        want_branches = ["rel" if draw.randint(1, 10) <= cfg.ggm.delta
+                         else "rep" for _ in steps]
+        n_batches = len(trainer.train_set) // bs
+        # validations: after the batches at linspace(0, n, 5)[1:-1] and
+        # at the epoch's end; each predicts the split in batches of
+        # max(bs, 64), 34 kernel-1 launches a forward
+        mid = len({int(x) for x in
+                   [n_batches * k / 4 for k in (1, 2, 3)]})
+        eval_forwards = (mid + 1) * math.ceil(len(trainer.valid_set)
+                                              / max(bs, 64))
+        want = {"attention_fwd": LAUNCHES_PER_FORWARD * eval_forwards,
+                "attention_dropout_fwd": FWD_LAUNCHES_PER_BATCH * len(steps),
+                "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * len(steps)}
+        # ms per training batch: gaps between consecutive step records that
+        # no validation (and its save) separates
+        val_after = {r["step"] for r in vals}
+        gaps = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(steps, steps[1:])
+                if b["step"] not in val_after]
+        trainer_ms = statistics.median(gaps) if gaps else None
+        saves = list(trainer.ckpt.history)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        count = trainer.state.opt_state.count
+        native = trainer.train_set.store.pack.native
+        losses = [{k: v for k, v in r.items()
+                   if k not in ("step", "branch", "ts")} for r in steps]
+        checkpoints = sorted(d for d in os.listdir(out)
+                             if d.startswith("BEST"))
+        accs = [r["valid/mid_epoch_acc"] for r in vals]
+        end_acc = float(end.group(1)) / 100 if end else None
+        improved = any(a > 0 for a in accs + [end_acc or 0.0])
+        emit("trainer", cli_lines=lines, corpus_seconds=corpus_s,
+             feature_files=feat_files, steps=len(steps),
+             branches=[r["branch"] for r in steps],
+             expected_branches=want_branches, losses=losses,
+             validation_steps=sorted(val_after), validation_accuracies=accs,
+             end_of_epoch_accuracy=end_acc, optimizer_count=count,
+             launches=launches, expected_launches=want,
+             eval_forwards=eval_forwards, checkpoints=checkpoints,
+             log_lines=log, xpack_native=native, params=n_params)
+        check("Oracle score: 100.00" in lines, f"oracle: {lines}")
+        check(len(steps) == n_batches == 4, f"{len(steps)} steps")
+        check(all(math.isfinite(v) for d in losses for v in d.values()),
+              f"non-finite trainer losses: {losses}")
+        check([r["branch"] for r in steps] == want_branches,
+              "branches are not random.Random(seed)'s draws")
+        check(count == UPDATES_PER_BATCH * len(steps),
+              f"optimizer count {count} after {len(steps)} batches")
+        check(launches == want, f"launches {launches}, expected {want}")
+        check(len(epoch_lines) == 1 and end is not None and best_line,
+              f"log.log {log}, stdout {lines}")
+        # BEST after an improvement on 0, BEST_0 at the end of the epoch
+        check(("BEST" in checkpoints) == improved and "BEST_0" in checkpoints,
+              f"checkpoints {checkpoints}, accuracies {accs}, {end_acc}")
+        check(saves and all(s["bytes"] >= 3 * 4 * n_params for s in saves),
+              f"checkpoint sizes {saves}")
+
+        # the epoch's final parameters (those BEST_0 holds) predict the
+        # split in memory, before the timing turns below change them
+        final_preds = trainer.predict(trainer.valid_set)
+        save_names = [sv["name"] for sv in saves]
+
+        # the feeder alone over the train set: host ms per batch
+        store = XPackFeatureStore(os.path.join(root, "gqa_imgfeat",
+                                               "train_obj36.xpack"))
+        ds = GraphBatchDataset(GQADataset("train", trainer.cfg.data),
+                               trainer.tokenizer, store=store)
+        feeder = Feeder(ds, bs, shuffle=True, drop_last=True,
+                        seed=TRAINER_SEED, feats_dtype=torch.bfloat16,
+                        device="cuda")
+        feeder_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in feeder)
+            torch.cuda.synchronize()
+            feeder_ms.append((time.perf_counter() - t0) * 1e3 / n)
+        store.close()
+
+        # the trainer's steps fed by its feeder against the same steps on
+        # one batch already on the card, in alternating turns (fed,
+        # resident, resident, fed, fed, resident), each of FED_PASSES
+        # feeder passes. Each step is timed on its own, with the trainer's
+        # host reads. The first step of each pass (the producer's start-up,
+        # which no step overlaps) is left out, at the same positions in
+        # both modes: if the copies overlap the steps, the two agree within
+        # the noise
+        train_feeder = trainer._feeder(trainer.train_set, bs, True)
+        per_pass = len(train_feeder)
+        resident = list(train_feeder)[0]
+
+        def run(items) -> list:
+            """ms of each step after the pass's first."""
+            times = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i, (qids, batch, _) in enumerate(items):
+                step = trainer.rel_step if i % 2 == 0 else trainer.rep_step
+                trainer.state, m = step(trainer.state, batch, 10_000 + i)
+                check_step_finite(i, "timing", trainer._record(qids, m, {}))
+                now = time.perf_counter()
+                if i % per_pass:
+                    times.append((now - t) * 1e3)
+                t = now
+            return times
+
+        def fed():
+            for _ in range(FED_PASSES):
+                yield from train_feeder
+
+        turns = []
+        for mode in ("fed", "resident", "resident", "fed", "fed",
+                     "resident"):
+            turns.append((mode, run(fed() if mode == "fed" else
+                                    [resident] * (FED_PASSES * per_pass))))
+        steady = {mode: statistics.median(
+            [t for m, ts in turns if m == mode for t in ts])
+            for mode in ("fed", "resident")}
+        best_valid = float(best_line[0].split()[-1])
+        del trainer, ds, feeder, train_feeder, resident
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the test arm, from BEST when it was saved, else BEST_0. Either
+        # holds the final parameters when it was the last save but BEST_0's
+        # own (BEST saved at the epoch's end): its answers must then be
+        # final_preds', answer for answer
+        load = "BEST" if improved else "BEST_0"
+        holds_final = (load == "BEST_0"
+                       or save_names[-2:] == ["BEST", "BEST_0"])
+        want_acc = best_valid if improved else float(end.group(1))
+        for c in counters.values():
+            c.launches = 0
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            gqa_ood.main(argv + ["--test", "val", "--load",
+                                 os.path.join(out, load)])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = counters["attention_fwd"].launches
+        test_lines = stdout.getvalue().splitlines()
+        preds = json.load(open(os.path.join(out, "val_predict.json")))
+        acc_line = [ln for ln in test_lines
+                    if ln.startswith("val accuracy: ")]
+        vocab = set(label2ans)
+        loaded_preds = {p["questionId"]: p["prediction"] for p in preds}
+        differ = (sum(loaded_preds.get(q) != a for q, a in final_preds.items())
+                  if holds_final else None)
+        emit("trainer_test_arm", loaded=load, cli_lines=test_lines,
+             predictions=len(preds), seconds=test_s,
+             attention_fwd_launches=test_launches,
+             expected_accuracy=f"{want_acc:.2f}",
+             compared_with_final_parameters=holds_final,
+             answers_differing_from_final_parameters=differ)
+        check(len(preds) == TRAINER_VAL["n_questions"]
+              and all(p["prediction"] in vocab for p in preds),
+              f"{len(preds)} predictions")
+        check(not holds_final or (differ == 0 and len(loaded_preds)
+                                  == len(final_preds)),
+              f"{load}'s test arm: {differ} answers differ from the final "
+              "parameters' in memory")
+        check(acc_line and acc_line[0].split()[-1] == f"{want_acc:.2f}",
+              f"test arm accuracy {acc_line}, expected {want_acc:.2f}")
+        check(test_launches == LAUNCHES_PER_FORWARD * math.ceil(
+            len(preds) / max(bs, 64)), f"{test_launches} test-arm launches")
+
+        emit("trainer_timing", card=torch.cuda.get_device_name(0),
+             trainer_ms_per_batch=trainer_ms, trainer_gaps_ms=gaps,
+             phase8_ms_per_batch=phase8_ms_per_batch,
+             feeder_host_ms_per_batch=feeder_ms,
+             copy_overlaps=(None if trainer_ms is None else
+                            trainer_ms - phase8_ms_per_batch
+                            <= min(feeder_ms)),
+             steps_fed_vs_resident_ms=turns,
+             steady_ms_per_batch=steady,
+             fed_minus_resident_ms=steady["fed"] - steady["resident"],
+             xpack_native=native, checkpoint_saves=saves,
+             epoch_seconds_log=float(end.group(3)), train_arm_seconds=train_s,
+             max_memory_allocated_bytes=peak,
+             seconds_so_far=time.perf_counter() - t_start)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -1731,8 +2025,14 @@ def main() -> int:
 
     # 9. training with the fused BertAdam (kernel 7)
     fused_launches, adam = phase_fused_train(torch, attn, fa, tree_profile)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 10. summary: one entry per kernel. Kernel 1 over one forward's
+    # 10. the trainer and its CLI: an epoch and the test arm
+    trainer_launches = phase_trainer(
+        torch, attn, tree_profile["timed_ms_per_batch"], t_start)
+
+    # 11. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -1754,6 +2054,7 @@ def main() -> int:
         "source": "xggm_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "xggm_tpu/ops/pallas_attention.py:95",
         "launches": launches,
+        "trainer_launches": trainer_launches["attention_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
@@ -1777,6 +2078,7 @@ def main() -> int:
          "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:237",
          "launches": train_launches["attention_dropout_fwd"],
+         "trainer_launches": trainer_launches["attention_dropout_fwd"],
          "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("fwd_ms", drop_path),
          "plain_ms": per_forward("plain_fwd_ms", drop_path),
@@ -1792,6 +2094,7 @@ def main() -> int:
          "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:250",
          "launches": train_launches["attention_dropout_bwd"],
+         "trainer_launches": trainer_launches["attention_dropout_bwd"],
          "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("bwd_ms", drop_path),
          "plain_ms": per_forward("plain_bwd_ms", drop_path),

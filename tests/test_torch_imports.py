@@ -82,19 +82,29 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
                     f"{path}:{node.lineno} imports h5py at module level"
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
+    from xggm_tpu_torch.cli import gqa_ood
     from xggm_tpu_torch.config import tiny_test_config
+    from xggm_tpu_torch.data.feeder import Feeder
     from xggm_tpu_torch.models.lxmert import LxmertModel
     from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.training.trainer import XGGMTrainer
 
     cfg = tiny_test_config()
     for make in (lambda: XGGMModel(cfg.lxmert, cfg.num_answers),
                  lambda: XGGMModel(cfg.lxmert, cfg.num_answers, cfg.ggm),
-                 lambda: LxmertModel(cfg.lxmert)):
+                 lambda: LxmertModel(cfg.lxmert),
+                 lambda: XGGMTrainer(cfg.replace(output=str(tmp_path))),
+                 lambda: Feeder([], 8),
+                 lambda: gqa_ood.main(
+                     ["--synthetic", "--data_root", str(tmp_path / "data"),
+                      "--output", str(tmp_path / "out")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+    # the CLI raised before it wrote anything
+    assert not os.listdir(tmp_path)
 
 
 def test_tokenizer_copy_matches_jax():

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -90,12 +91,17 @@ class GGMConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Train-step and BertAdam hyperparameters."""
+    """Trainer, train-step and BertAdam hyperparameters."""
 
     batch_size: int = 32
+    optim: str = "bert"
     lr: float = 1e-5
+    epochs: int = 4
+    dropout: float = 0.1
+    seed: int = 9595
     warmup: float = 0.1
     downstream_lr_mult: float = 4.0  # all but lxrt train at 4x the base lr
+    t_total_mult: float = 2.0  # t_total = 2 x the batches: two updates each
     weight_decay: float = 0.01
     grad_clip: float = 5.0
     # Loss multipliers: the GQA values; VQA-CP uses rel_d_mult 8.
@@ -109,14 +115,32 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Data splits and where they live."""
+
+    train: str = "train"
+    valid: str = "val"
+    test: Optional[str] = None
+    tiny: bool = False  # keep the first 512 question records
+    fast: bool = False  # accepted; task datasets do not subset on it
+    num_workers: int = 2
+    data_root: str = "data"
+    vocab_path: Optional[str] = None  # default: {data_root}/vocab.txt
+    prefetch_depth: int = 2  # batches the feeder holds ahead
+
+
+@dataclass(frozen=True)
 class XGGMConfig:
-    """Top-level bundle: encoder, GGM and training configs + answer
-    vocabulary size."""
+    """Top-level bundle: encoder, GGM, training and data configs, answer
+    vocabulary size and the output directory."""
 
     lxmert: LxmertConfig = field(default_factory=LxmertConfig)
     ggm: GGMConfig = field(default_factory=GGMConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     num_answers: int = 1842  # GQA-OOD trainval answer vocabulary size
+    output: str = "snap/debug"
+    tmode: str = "OOD"  # 'OOD' | 'ID'
 
     def replace(self, **kw) -> "XGGMConfig":
         return dataclasses.replace(self, **kw)
@@ -129,7 +153,7 @@ def gqa_ood_config(**overrides) -> XGGMConfig:
         lxmert=LxmertConfig(visual=VisualConfig(l_layers=9, x_layers=5,
                                                 r_layers=5)),
         ggm=GGMConfig(gnn="GCN", num_layers=2, sigma=1.0, delta=5),
-        train=TrainConfig(batch_size=96, lr=5e-6,
+        train=TrainConfig(batch_size=96, lr=5e-6, epochs=4,
                           clean_phase_first=False, rel_d_mult=12.0),
     )
     return cfg.replace(**overrides) if overrides else cfg
@@ -142,7 +166,7 @@ def vqacpv2_config(**overrides) -> XGGMConfig:
         lxmert=LxmertConfig(visual=VisualConfig(l_layers=9, x_layers=5,
                                                 r_layers=5)),
         ggm=GGMConfig(gnn="GCN", num_layers=2, sigma=1.0, delta=0),
-        train=TrainConfig(batch_size=92, lr=1e-6,
+        train=TrainConfig(batch_size=92, lr=1e-6, epochs=4,
                           clean_phase_first=True, rel_d_mult=8.0),
         num_answers=16039,
     )
@@ -160,7 +184,7 @@ def tiny_test_config(**overrides) -> XGGMConfig:
                                 visual_feat_dim=32, visual_pos_dim=4),
         ),
         ggm=GGMConfig(gnn="GCN", num_layers=2, sigma=1.0, delta=5),
-        train=TrainConfig(batch_size=4, lr=1e-4),
+        train=TrainConfig(batch_size=4, lr=1e-4, epochs=1),
         num_answers=16,
     )
     return cfg.replace(**overrides) if overrides else cfg

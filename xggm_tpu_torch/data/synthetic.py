@@ -1,9 +1,10 @@
 """Synthetic data (counterpart of `xggm_tpu/data/synthetic.py`).
 
 `make_synthetic_gqa` writes the same miniature GQA-OOD corpus, file for file
-and value for value, as the JAX package's (it needs `h5py`, imported inside
-it). `synthetic_obj36` makes features and boxes in memory for a machine
-without `h5py`, and `synthetic_train_batch` a whole training batch.
+and value for value, as the JAX package's (`h5py` is imported only for its
+H5 files), or the same records as a feature pack with no H5 file.
+`synthetic_obj36` makes features and boxes in memory, and
+`synthetic_train_batch` a whole training batch.
 """
 from __future__ import annotations
 
@@ -97,9 +98,15 @@ def synthetic_train_batch(n: int, num_answers: int,
 
 def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
                        n_questions: int = 96, feat_dim: int = 2048,
-                       seed: int = 0) -> None:
-    import h5py
-
+                       seed: int = 0, pack: bool = False) -> None:
+    """The miniature GQA-OOD corpus of the JAX package's
+    `make_synthetic_gqa`: questions, answer vocabulary, image info and, per
+    image, obj36 features, boxes and an adjacency. With `pack=False` the
+    features go to `{split}_obj36.h5` and `{split}_obj36_adj_v2.h5` (needs
+    `h5py`); with `pack=True` to `{split}_obj36.xpack` and its index, with
+    the boxes divided by the image size, in the H5 files' key order (sorted
+    by name), as `convert_h5_to_xpack` of the H5 corpus writes it, and no
+    H5 file. Both modes draw the same random stream."""
     rng = np.random.RandomState(seed)
     gqa = os.path.join(root, "gqa_ood")
     feat = os.path.join(root, "gqa_imgfeat")
@@ -111,26 +118,26 @@ def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
               os.path.join(gqa, "trainval_ans2label.json"))
 
     img_ids = [f"synth_{split}_{i}" for i in range(n_images)]
-    info = []
-    with h5py.File(os.path.join(feat, f"{split}_obj36.h5"), "w") as obj, \
-            h5py.File(os.path.join(feat, f"{split}_obj36_adj_v2.h5"), "w") as adjf:
-        for img_id in img_ids:
-            w, h = int(rng.randint(200, 800)), int(rng.randint(200, 800))
-            boxes = np.empty((36, 4), np.float32)
-            x1 = rng.uniform(0, w * 0.8, 36)
-            y1 = rng.uniform(0, h * 0.8, 36)
-            boxes[:, 0] = x1
-            boxes[:, 1] = y1
-            boxes[:, 2] = x1 + rng.uniform(1, w - x1)
-            boxes[:, 3] = y1 + rng.uniform(1, h - y1)
-            grp = obj.create_group(img_id)
-            grp.create_dataset("features",
-                               data=rng.randn(36, feat_dim).astype(np.float32))
-            grp.create_dataset("boxes", data=boxes)
-            adjf.create_dataset(img_id, data=synthetic_adjacency(rng))
-            info.append({"img_id": img_id, "img_h": h, "img_w": w,
-                         "num_boxes": 36})
+    info, records = [], {}
+    for img_id in img_ids:
+        w, h = int(rng.randint(200, 800)), int(rng.randint(200, 800))
+        boxes = np.empty((36, 4), np.float32)
+        x1 = rng.uniform(0, w * 0.8, 36)
+        y1 = rng.uniform(0, h * 0.8, 36)
+        boxes[:, 0] = x1
+        boxes[:, 1] = y1
+        boxes[:, 2] = x1 + rng.uniform(1, w - x1)
+        boxes[:, 3] = y1 + rng.uniform(1, h - y1)
+        feats = rng.randn(36, feat_dim).astype(np.float32)
+        records[img_id] = (feats, boxes, synthetic_adjacency(rng))
+        info.append({"img_id": img_id, "img_h": h, "img_w": w,
+                     "num_boxes": 36})
     save_json(info, os.path.join(feat, f"{split}_obj36_info.json"))
+    if pack:
+        _write_pack(records, info, os.path.join(feat, f"{split}_obj36.xpack"),
+                    feat_dim)
+    else:
+        _write_h5(records, feat, split)
 
     questions = []
     for qi in range(n_questions):
@@ -143,3 +150,33 @@ def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
             "label": {ans: 1.0},
         })
     save_json(questions, os.path.join(gqa, f"{split}.json"))
+
+
+def _write_h5(records, feat_dir: str, split: str) -> None:
+    import h5py
+
+    with h5py.File(os.path.join(feat_dir, f"{split}_obj36.h5"), "w") as obj, \
+            h5py.File(os.path.join(feat_dir, f"{split}_obj36_adj_v2.h5"),
+                      "w") as adjf:
+        for img_id, (feats, boxes, adj) in records.items():
+            grp = obj.create_group(img_id)
+            grp.create_dataset("features", data=feats)
+            grp.create_dataset("boxes", data=boxes)
+            adjf.create_dataset(img_id, data=adj)
+
+
+def _write_pack(records, info, path: str, feat_dim: int) -> None:
+    from xggm_tpu_torch.data.xpack import write_xpack
+
+    size = {d["img_id"]: (d["img_w"], d["img_h"]) for d in info}
+
+    def normalised():
+        for img_id in sorted(records):
+            feats, boxes, adj = records[img_id]
+            w, h = size[img_id]
+            boxes = boxes.copy()
+            boxes[:, (0, 2)] /= w
+            boxes[:, (1, 3)] /= h
+            yield img_id, feats, boxes, adj
+
+    write_xpack(normalised(), path, feat_dim)

@@ -26,7 +26,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Mapping, Optional, Set, \
-    Tuple
+    Tuple, Union
 
 import torch
 
@@ -81,6 +81,26 @@ class BertAdamState:
 
     def active_flags(self) -> Dict[str, bool]:
         return dict(zip(self.names, self.active.tolist()))
+
+    def state_dict(self) -> Dict[str, object]:
+        """Every field, as tensors, lists and numbers (`touched` sorted)."""
+        return dict(names=list(self.names), m=dict(self.m), v=dict(self.v),
+                    lr_scale=self.lr_scale, leaf_count=self.leaf_count,
+                    active=self.active, count=self.count,
+                    touched=sorted(self.touched))
+
+    @classmethod
+    def from_state_dict(cls, d: Mapping[str, object],
+                        device: Union[str, torch.device]) -> "BertAdamState":
+        """The state of `state_dict`, its tensors on `device`."""
+        def to(x):
+            return x.to(device)
+        return cls(names=list(d["names"]),
+                   m={n: to(t) for n, t in d["m"].items()},
+                   v={n: to(t) for n, t in d["v"].items()},
+                   lr_scale=to(d["lr_scale"]), leaf_count=to(d["leaf_count"]),
+                   active=to(d["active"]), count=int(d["count"]),
+                   touched=set(d["touched"]))
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
