@@ -122,9 +122,36 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             feeder against the same steps on one resident batch, in turns
             (fed, resident, resident, fed, fed, resident; 2 feeder passes
             each), each pass's first step left out.
-11. summary the kernels line (all seven kernels; kernels 1 to 3 with their
-            trainer-phase launches too), the card's name and power limit,
-            and last {"ok": true, "device": {...}}.
+11. vqacp   the VQA-CP v2 recipe (`cli/vqacpv2.py`, 16039 answers, batch
+            92, clean phase first, delta 0) at full width in bf16: a pack
+            corpus (368 training questions over 64 images, 184 test
+            questions over 32) and a seeded random LXMERT pretraining
+            snapshot (9/5/5 layers, separate q/k/v, an answer head over
+            9500 answers, 1000 of them the corpus's). Run A: an epoch of 4
+            batches from `--loadLXMERTQA`; the load prints "Loaded 1000
+            answers ... and 15039 not", every encoder parameter and the
+            head's first layer equal the snapshot's bit for bit after the
+            fuse, the 1000 rows of the last layer their pretraining rows
+            and the others 0; branches all `rep`, the clean phase before
+            the GGM phase, finite losses, 8 updates, kernels 1 to 3
+            launched as derived from the code. Run B: the same, stopped by
+            a real SIGTERM after its second step: exit 75, PREEMPT with 2
+            batches done and train_iter 2, the save's seconds and bytes.
+            Run C: --resume in B's directory: "resumed from PREEMPT (epoch
+            0, 2 batches done)", 2 steps, step records and final
+            parameters equal to run A's (rtol 1e-4 on losses, atol 1e-5 on
+            parameters; the largest differences printed), PREEMPT gone.
+            The test arm from C's BEST_0 (--tmode OOD): 184 answers in the
+            vocabulary, the accuracy VQAEvaluator gives on the file, the
+            answers C's final parameters give in memory. The baseline CLI:
+            one clean update per batch, t_total 4, kernels 2 and 3 of the
+            clean phase alone. Each run's checkpoints are deleted once
+            read. It prints ms per batch through the trainer (runs A and
+            C), the snapshot's and the resume's load seconds and peak
+            device memory.
+12. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+            trainer-phase and VQA-CP launches too), the card's name and
+            power limit, and last {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -212,6 +239,17 @@ TRAINER_TRAIN = dict(n_questions=384, n_images=64, seed=0)
 TRAINER_VAL = dict(n_questions=192, n_images=32, seed=1)
 TRAINER_SEED = 9595
 FED_PASSES = 2  # feeder passes per timing turn of the trainer phase
+# The VQA-CP phase: a synthetic corpus written as feature packs (4 batches
+# of the recipe's 92 to train, 2 to test), an LXMERT pretraining snapshot
+# over VQACP_PRE_ANSWERS answers of which VQACP_SHARED are the corpus's,
+# and a resumed run held to the uninterrupted one within the tolerances of
+# the train step's trajectory test (bit for bit expected: kernels 1 to 3
+# use no atomics, and a step's draws come from its index).
+VQACP_TRAIN = dict(n_questions=368, n_images=64, seed=0)
+VQACP_TEST = dict(n_questions=184, n_images=32, seed=1)
+VQACP_SEED = 9595
+VQACP_PRE_ANSWERS, VQACP_SHARED = 9500, 1000
+RESUME_LOSS_RTOL, RESUME_PARAM_ATOL = 1e-4, 1e-5
 # An update reads g, m, v, p and writes m, v, p: 28 bytes per fp32 element
 # (24 where the gradient is null), and some 15 FLOPs.
 ADAM_BYTES, ADAM_FLOPS = 28, 15
@@ -1828,6 +1866,495 @@ def phase_trainer(torch, attn, phase8_ms_per_batch: float,
 
 
 
+def reference_lxrt_keys(name: str) -> list:
+    """The reference LXMERT snapshot's torch keys of the port's encoder
+    parameter `name` (`lxrt.*`), in the order the port fuses them along
+    dim 0: q, k, v for a self-attention's `qkv`, k, v for a cross
+    attention's `kv`. Written from the reference's module names, not from
+    the port's bridge, so that the load check holds the bridge to them."""
+    key = "bert." + name[len("lxrt."):]
+    for pat, rep in ((r"\.(lang|visn)_mlp\.intermediate\.", r".\1_inter.dense."),
+                     (r"\.(lang|visn)_mlp\.output\.", r".\1_output.dense."),
+                     (r"\.(lang|visn)_mlp\.LayerNorm\.", r".\1_output.LayerNorm."),
+                     (r"\.mlp\.intermediate\.", ".intermediate.dense."),
+                     (r"\.mlp\.output\.", ".output.dense."),
+                     (r"\.mlp\.LayerNorm\.", ".output.LayerNorm.")):
+        key = re.sub(pat, rep, key)
+    for fused, parts in ((".qkv.", ("query", "key", "value")),
+                         (".kv.", ("key", "value"))):
+        if fused in key:
+            return [key.replace(fused, f".{p}.") for p in parts]
+    return [key]
+
+
+def write_lxmert_snapshot(torch, lx, path: str, pre_answers: list) -> dict:
+    """A seeded random LXMERT pretraining snapshot at the width of `lx`, as
+    the reference saves one (`{name}_LXRT.pth`): the encoder's `bert.*`
+    keys with separate q/k/v, and `answer_head.logit_fc.{0,2,3}.*` over
+    `pre_answers`. Returns {port name: the tensor the load must give} for
+    the encoder and the head's first layer and LayerNorm, and the last
+    layer's pretraining weight and bias."""
+    from xggm_tpu_torch.models.lxmert import LxmertModel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def draw(shape, one=False):
+        t = 0.02 * torch.randn(shape, generator=gen, device="cuda")
+        return (t + 1) if one else t
+
+    encoder = LxmertModel(lx, device="cuda")
+    shapes = {n: tuple(p.shape) for n, p in encoder.state_dict().items()}
+    del encoder
+    sd, want = {}, {}
+    for name, shape in shapes.items():
+        name = "lxrt." + name
+        keys = reference_lxrt_keys(name)
+        one = name.endswith("weight") and len(shape) == 1  # a LayerNorm
+        parts = [draw((shape[0] // len(keys),) + shape[1:], one)
+                 for _ in keys]
+        sd.update(zip(keys, parts))
+        want[name] = torch.cat(parts)
+    hid = lx.bert.hidden_size
+    head = {"0.weight": draw((2 * hid, hid)), "0.bias": draw((2 * hid,)),
+            "2.weight": draw((2 * hid,), one=True), "2.bias": draw((2 * hid,)),
+            "3.weight": draw((len(pre_answers), 2 * hid)),
+            "3.bias": draw((len(pre_answers),))}
+    sd.update({f"answer_head.logit_fc.{k}": v for k, v in head.items()})
+    for port, ref in (("fc1", "0"), ("ln", "2")):
+        want[f"logit_fc.{port}.weight"] = head[f"{ref}.weight"]
+        want[f"logit_fc.{port}.bias"] = head[f"{ref}.bias"]
+    torch.save({k: v.cpu() for k, v in sd.items()}, path)
+    return dict(want=want, fc2_weight=head["3.weight"],
+                fc2_bias=head["3.bias"], tensors=len(sd),
+                bytes=os.path.getsize(path))
+
+
+class RunClock:
+    """Per-step ms of a trainer run from its step records, less the time
+    spent between two records in validations and saves; and, with
+    `sigterm_after`, a real SIGTERM to this process right after that step's
+    record, once the trainer's preemption guard is installed."""
+
+    def __init__(self, sigterm_after=None):
+        self.sigterm_after = sigterm_after
+        self.steps, self.excluded = [], 0.0
+
+    @contextlib.contextmanager
+    def patched(self):
+        import signal
+
+        from xggm_tpu_torch.training.metrics import MetricsLogger
+        from xggm_tpu_torch.training.trainer import XGGMTrainer
+        from xggm_tpu_torch.utils.preempt import PreemptionGuard
+
+        log_step = MetricsLogger.log_step
+        clock = self
+
+        def logged(logger, step, metrics, branch=""):
+            log_step(logger, step, metrics, branch)
+            clock.steps.append((step, time.perf_counter(), clock.excluded))
+            if step == clock.sigterm_after:
+                handler = signal.getsignal(signal.SIGTERM)
+                check(isinstance(getattr(handler, "__self__", None),
+                                 PreemptionGuard),
+                      f"no preemption guard holds SIGTERM: {handler}")
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        def excluded(fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    clock.excluded += time.perf_counter() - t0
+            return wrapper
+
+        with mock.patch.object(MetricsLogger, "log_step", logged), \
+                mock.patch.object(XGGMTrainer, "evaluate_valid",
+                                  excluded(XGGMTrainer.evaluate_valid)), \
+                mock.patch.object(XGGMTrainer, "save",
+                                  excluded(XGGMTrainer.save)):
+            yield self
+
+    def ms_per_step(self) -> list:
+        return [((t1 - t0) - (x1 - x0)) * 1e3 for (_, t0, x0), (_, t1, x1)
+                in zip(self.steps, self.steps[1:])]
+
+
+def phase_vqacp(torch, attn, phase10_launches: dict, t_start: float) -> dict:
+    """The VQA-CP v2 recipe at full width (16039 answers, batch 92, clean
+    phase first, delta 0): an LXMERT snapshot loaded with the answer-head
+    surgery, an epoch (run A), the same run stopped by SIGTERM after its
+    second step (B) and resumed (C), the test arm from C's checkpoint, and
+    the baseline CLI. Returns the kernels' launches over each run."""
+    import signal
+
+    from xggm_tpu_torch.cli import vqacpv2, vqacpv2_baseline
+    from xggm_tpu_torch.config import vqacpv2_config
+    from xggm_tpu_torch.data.datasets import VQACPDataset, VQAEvaluator
+    from xggm_tpu_torch.data.synthetic import (
+        ANSWERS, make_synthetic_vqacp, write_vocab)
+    from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.training.trainer import XGGMTrainer
+    from xggm_tpu_torch.utils.io import save_json
+
+    cfg = vqacpv2_config()
+    lx = cfg.lxmert.replace(dtype="bfloat16")
+    bs, feat_dim = cfg.train.batch_size, lx.visual.visual_feat_dim
+    counters = {"attention_fwd": attn.fused_attention,
+                "attention_dropout_fwd": attn.attention_dropout_fwd,
+                "attention_dropout_bwd": attn.attention_dropout_bwd}
+    tmp = tempfile.mkdtemp(prefix="xggm_vqacp_")
+    try:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        make_synthetic_vqacp(root, "train", feat_dim=feat_dim, pack=True,
+                             **VQACP_TRAIN)
+        make_synthetic_vqacp(root, "dev_test", feat_dim=feat_dim, pack=True,
+                             **VQACP_TEST)
+        write_vocab(os.path.join(root, "vocab.txt"))
+        label2ans = ANSWERS + [f"answer_{i}" for i in
+                               range(len(ANSWERS), cfg.num_answers)]
+        save_json(label2ans, os.path.join(root, "vqacpv2",
+                                          "trainval_label2ans.json"))
+        save_json({a: i for i, a in enumerate(label2ans)},
+                  os.path.join(root, "vqacpv2", "trainval_ans2label.json"))
+        feat_files = sorted(os.listdir(os.path.join(root, "mscoco_imgfeat")))
+        check(not [f for f in feat_files if f.endswith(".h5")],
+              f"the pack corpus holds H5 files: {feat_files}")
+        # the pretraining vocabulary: VQACP_SHARED of the corpus's answers
+        # (none of the 16 synthetic words), the rest its own, shuffled
+        shared = label2ans[len(ANSWERS):len(ANSWERS) + VQACP_SHARED]
+        pre_answers = shared + [f"pretrain_{j}" for j in range(
+            VQACP_PRE_ANSWERS - VQACP_SHARED)]
+        random.Random(SEED).shuffle(pre_answers)
+        os.makedirs(os.path.join(root, "lxmert"))
+        save_json([{"ans": a, "dsets": ["vqa"]} for a in pre_answers],
+                  os.path.join(root, "lxmert", "all_ans.json"))
+        os.makedirs(os.path.join(tmp, "pretrained"))
+        snapshot = write_lxmert_snapshot(
+            torch, lx, os.path.join(tmp, "pretrained", "model_LXRT.pth"),
+            pre_answers)
+        corpus_s = time.perf_counter() - t0
+
+        def argv(out, *extra):
+            return ["--xpack", "--train", "train", "--valid", "dev_test",
+                    "--data_root", root, "--output", os.path.join(tmp, out),
+                    "--bs", str(bs), "--epochs", "1", "--lr",
+                    str(cfg.train.lr), "--delta", str(cfg.ggm.delta),
+                    "--seed", str(VQACP_SEED), "--device", "cuda", "--dtype",
+                    "bfloat16", "--loadLXMERTQA",
+                    os.path.join(tmp, "pretrained", "model"), *extra]
+
+        def run(cli, args, clock=None, patches=()):
+            """cli.main(args), stdout captured, `patches` ((object, name,
+            replacement), ...) in place, counts at 0 just before and read
+            just after: (trainer or exit code, lines, launches, seconds)."""
+            for c in counters.values():
+                c.launches = 0
+            stdout = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(contextlib.redirect_stdout(stdout))
+                if clock is not None:
+                    stack.enter_context(clock.patched())
+                for obj, attr, fn in patches:
+                    stack.enter_context(mock.patch.object(obj, attr, fn))
+                try:
+                    result = cli.main(args)
+                except SystemExit as e:
+                    result = e.code
+            torch.cuda.synchronize()
+            return (result, stdout.getvalue().splitlines(),
+                    {n: c.launches for n, c in counters.items()},
+                    time.perf_counter() - t0)
+
+        def steps_of(out):
+            recs = [json.loads(ln) for ln in
+                    open(os.path.join(tmp, out, "metrics.jsonl"))]
+            return [{k: v for k, v in r.items() if k != "ts"}
+                    for r in recs if "branch" in r]
+
+        def validations(n_batches, offset):
+            """Validations of an epoch resumed after `offset` batches:
+            after the batches at linspace(0, n, 5)[1:-1] and at its end."""
+            mid = {int(n_batches * k / 4) for k in (1, 2, 3)}
+            return len({i for i in mid if i >= offset}) + 1
+
+        def want_launches(steps, n_valid, phases=2):
+            per_forward = math.ceil(VQACP_TEST["n_questions"] / max(bs, 64))
+            return {"attention_fwd":
+                    LAUNCHES_PER_FORWARD * per_forward * n_valid,
+                    "attention_dropout_fwd":
+                    LAUNCHES_PER_FORWARD * phases * steps,
+                    "attention_dropout_bwd":
+                    (LAUNCHES_PER_FORWARD * phases - 2) * steps}
+
+        # run A: an epoch from the snapshot; the load checked on the card
+        # right after it, and the order of the phases recorded
+        load = {}
+        real_load_qa = XGGMTrainer.load_lxmert_qa
+
+        def load_qa(trainer, path, all_ans):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_load_qa(trainer, path, all_ans)
+            torch.cuda.synchronize()
+            load["seconds"] = time.perf_counter() - t0
+            got = trainer.model.state_dict()
+            load["differ"] = sorted(n for n, t in snapshot["want"].items()
+                                    if not torch.equal(got[n], t))
+            load["params"] = len(snapshot["want"])
+            load["encoder_params"] = sum(n.startswith("lxrt.")
+                                         for n in snapshot["want"])
+            check(load["encoder_params"] == sum(
+                n.startswith("lxrt.") for n in got), "encoder coverage")
+            rows = torch.tensor([label2ans.index(a) for a in shared],
+                                device="cuda")
+            pre_rows = torch.tensor([pre_answers.index(a) for a in shared],
+                                    device="cuda")
+            rest = torch.ones(cfg.num_answers, dtype=torch.bool,
+                              device="cuda")
+            rest[rows] = False
+            w, b = got["logit_fc.fc2.weight"], got["logit_fc.fc2.bias"]
+            load["fc2_rows_loaded_equal"] = bool(
+                torch.equal(w[rows], snapshot["fc2_weight"][pre_rows])
+                and torch.equal(b[rows], snapshot["fc2_bias"][pre_rows]))
+            load["fc2_rows_zero"] = int(rest.sum())
+            load["fc2_rest_all_zero"] = bool(
+                (w[rest] == 0).all() and (b[rest] == 0).all())
+            # the snapshot's copy on the card is not the trainer's memory
+            for key in ("want", "fc2_weight", "fc2_bias"):
+                snapshot.pop(key)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        order = []
+
+        def recorded(name, fn):
+            def wrapper(*a, **kw):
+                if torch.is_grad_enabled():  # a training phase
+                    order.append(name)
+                return fn(*a, **kw)
+            return wrapper
+
+        phase_patches = [
+            (XGGMModel, "clean_forward",
+             recorded("clean", XGGMModel.clean_forward)),
+            (XGGMModel, "representation_branch",
+             recorded("rep", XGGMModel.representation_branch))]
+
+        clock_a = RunClock()
+        trainer_a, lines_a, launches_a, seconds_a = run(
+            vqacpv2, argv("a"), clock_a,
+            [(XGGMTrainer, "load_lxmert_qa", load_qa), *phase_patches])
+        n_batches = len(trainer_a.train_set) // bs
+        steps_a = steps_of("a")
+        count_a = trainer_a.state.opt_state.count
+        final_a = {n: p.detach().cpu() for n, p in
+                   trainer_a.model.named_parameters()}
+        loaded_line = (f"Loaded {VQACP_SHARED} answers from LXRTQA "
+                       f"pre-training and {cfg.num_answers - VQACP_SHARED} "
+                       "not")
+        want_a = want_launches(len(steps_a), validations(n_batches, 0))
+        emit("vqacp_load", snapshot_tensors=snapshot["tensors"],
+             snapshot_bytes=snapshot["bytes"], corpus_and_snapshot_seconds=
+             corpus_s, load_seconds=load.get("seconds"),
+             loaded_line=[ln for ln in lines_a if ln.startswith("Loaded ")],
+             params_checked=load.get("params"),
+             encoder_params_checked=load.get("encoder_params"),
+             params_differing=load.get("differ"),
+             fc2_shared_rows_equal=load.get("fc2_rows_loaded_equal"),
+             fc2_other_rows=load.get("fc2_rows_zero"),
+             fc2_other_rows_and_biases_zero=load.get("fc2_rest_all_zero"))
+        check(loaded_line in lines_a, f"no '{loaded_line}' in {lines_a}")
+        check(load.get("differ") == [], f"loaded parameters differ from the "
+                                        f"snapshot: {load.get('differ')}")
+        check(load["fc2_rows_loaded_equal"] and load["fc2_rest_all_zero"]
+              and load["fc2_rows_zero"] == cfg.num_answers - VQACP_SHARED,
+              "answer-head surgery")
+        emit("vqacp_train", cli_lines=lines_a, steps=len(steps_a),
+             branches=[r["branch"] for r in steps_a],
+             phase_order=order, losses=steps_a, optimizer_count=count_a,
+             t_total=trainer_a.opt.t_total, launches=launches_a,
+             expected_launches=want_a, phase10_launches=phase10_launches,
+             clean_phase_first=trainer_a.cfg.train.clean_phase_first,
+             rel_d_mult=trainer_a.cfg.train.rel_d_mult,
+             num_answers=trainer_a.num_answers, seconds=seconds_a)
+        check(len(steps_a) == n_batches == 4, f"{len(steps_a)} steps")
+        check(all(r["branch"] == "rep" for r in steps_a), "branches")
+        check(order == ["clean", "rep"] * n_batches, f"phases {order}")
+        check(trainer_a.cfg.train.clean_phase_first
+              and trainer_a.cfg.train.rel_d_mult == 8.0
+              and trainer_a.num_answers == cfg.num_answers, "config")
+        check(all(math.isfinite(v) for r in steps_a for v in r.values()
+                  if isinstance(v, float)), f"non-finite losses {steps_a}")
+        check(count_a == UPDATES_PER_BATCH * n_batches,
+              f"optimizer count {count_a}")
+        check(launches_a == want_a, f"launches {launches_a}, want {want_a}")
+        del trainer_a, snapshot
+        shutil.rmtree(os.path.join(tmp, "a"))  # read; free the disk
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: the same run, stopped by a SIGTERM after its second step
+        saves = {}
+        real_save_preempt = XGGMTrainer.save_preempt
+
+        def save_preempt(trainer, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_save_preempt(trainer, *a, **kw)
+            saves["seconds"] = time.perf_counter() - t0
+            saves.update(trainer.ckpt.history[-1])
+
+        before = signal.getsignal(signal.SIGTERM)
+        code_b, lines_b, launches_b, seconds_b = run(
+            vqacpv2, argv("bc"), RunClock(sigterm_after=1),
+            [(XGGMTrainer, "save_preempt", save_preempt)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        preempt = os.path.join(tmp, "bc", "PREEMPT")
+        cursor = None
+        if os.path.isdir(preempt):
+            state = torch.load(os.path.join(preempt, "state.pt"),
+                               map_location="cpu", weights_only=True)
+            cursor = {k: state[k] for k in
+                      ("epoch", "batches_done", "train_iter", "best_valid")}
+            del state
+        want_b = want_launches(2, 0)
+        emit("vqacp_preempt", exit_code=code_b, cli_lines=lines_b,
+             preempt_cursor=cursor, save_seconds=saves.get("seconds"),
+             save_bytes=saves.get("bytes"), save=saves,
+             steps=len(steps_of("bc")), launches=launches_b,
+             expected_launches=want_b, seconds=seconds_b)
+        check(code_b == 75, f"run B exited with {code_b!r}, not 75")
+        check(signal.getsignal(signal.SIGTERM) is before,
+              "the SIGTERM handler was not restored")
+        check(cursor is not None and cursor["epoch"] == 0
+              and cursor["batches_done"] == 2 and cursor["train_iter"] == 2,
+              f"PREEMPT cursor {cursor}")
+        check(launches_b == want_b, f"launches {launches_b}, want {want_b}")
+
+        # run C: --resume in B's directory
+        resume = {}
+        real_resume = XGGMTrainer.resume
+
+        def timed_resume(trainer):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_resume(trainer)
+            torch.cuda.synchronize()
+            resume["seconds"] = time.perf_counter() - t0
+            return out
+
+        clock_c = RunClock()
+        trainer_c, lines_c, launches_c, seconds_c = run(
+            vqacpv2, argv("bc", "--resume"), clock_c,
+            [(XGGMTrainer, "resume", timed_resume)])
+        steps_c = steps_of("bc")
+        loss_diff = max(abs(a - b) / max(abs(b), 1e-30)
+                        for ra, rb in zip(steps_c[2:], steps_a[2:])
+                        for a, b in ((ra[k], rb[k]) for k in rb
+                                     if isinstance(rb[k], float)))
+        records_equal = steps_c == steps_a
+        param_diff = max(float((p.detach().cpu() - final_a[n]).abs().max())
+                         for n, p in trainer_c.model.named_parameters())
+        bit_equal = all(torch.equal(p.detach().cpu(), final_a[n])
+                        for n, p in trainer_c.model.named_parameters())
+        want_c = want_launches(2, validations(n_batches, 2))
+        emit("vqacp_resume", cli_lines=lines_c, steps=steps_c[2:],
+             resume_seconds=resume.get("seconds"),
+             step_records_equal_run_a=records_equal,
+             max_rel_loss_diff=loss_diff, max_abs_param_diff=param_diff,
+             params_bit_equal=bit_equal, launches=launches_c,
+             expected_launches=want_c, seconds=seconds_c)
+        check("resumed from PREEMPT (epoch 0, 2 batches done)" in lines_c,
+              f"resume lines {lines_c}")
+        check(len(steps_c) == 4 and [r["step"] for r in steps_c] ==
+              [0, 1, 2, 3], f"step records {steps_c}")
+        check(loss_diff <= RESUME_LOSS_RTOL, f"losses differ: {loss_diff}")
+        check(param_diff <= RESUME_PARAM_ATOL,
+              f"parameters differ: {param_diff}")
+        check(not os.path.isdir(preempt), "PREEMPT left after the run")
+        check(trainer_c.state.opt_state.count == count_a, "update count")
+        check(launches_c == want_c, f"launches {launches_c}, want {want_c}")
+
+        # the test arm from C's checkpoint, against C's final parameters
+        test_raw = VQACPDataset("dev_test", trainer_c.cfg.data)
+        final_preds = trainer_c.predict(trainer_c.valid_set)
+        del trainer_c, final_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer_t, lines_t, launches_t, seconds_t = run(
+            vqacpv2, argv("bc", "--test", "dev_test", "--tmode", "OOD",
+                          "--load", "BEST_0", "--loadLXMERTQA", ""))
+        del trainer_t
+        preds = json.load(open(os.path.join(tmp, "bc", "OOD_predict.json")))
+        answers = {p["question_id"]: p["answer"] for p in preds}
+        acc = VQAEvaluator(test_raw).evaluate(answers)
+        differ = sum(answers.get(q) != a for q, a in final_preds.items())
+        want_t = want_launches(0, 1)
+        emit("vqacp_test_arm", cli_lines=lines_t, predictions=len(preds),
+             accuracy=acc, answers_differing_from_final_parameters=differ,
+             launches=launches_t, expected_launches=want_t,
+             seconds=seconds_t)
+        check(len(preds) == VQACP_TEST["n_questions"] and all(
+            a in set(label2ans) for a in answers.values()),
+            f"{len(preds)} predictions")
+        check(f"dev_test (OOD) accuracy: {acc * 100.:.2f}" in lines_t,
+              f"test arm lines {lines_t}, accuracy {acc}")
+        check(differ == 0 and len(answers) == len(final_preds),
+              f"{differ} answers differ from the final parameters'")
+        check(launches_t == want_t, f"launches {launches_t}, want {want_t}")
+        shutil.rmtree(os.path.join(tmp, "bc"))
+        peak_runs = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the baseline: one clean phase, one update per batch
+        order.clear()
+        torch.cuda.reset_peak_memory_stats()
+        trainer_p, lines_p, launches_p, seconds_p = run(
+            vqacpv2_baseline, argv("baseline"), patches=phase_patches)
+        steps_p = steps_of("baseline")
+        want_p = want_launches(len(steps_p), 1, phases=1)
+        emit("vqacp_baseline", cli_lines=lines_p, steps=len(steps_p),
+             branches=[r["branch"] for r in steps_p], phase_order=order,
+             losses=steps_p, optimizer_count=trainer_p.state.opt_state.count,
+             t_total=trainer_p.opt.t_total, launches=launches_p,
+             expected_launches=want_p, seconds=seconds_p)
+        check(len(steps_p) == n_batches and order == ["clean"] * n_batches
+              and all(r["branch"] == "clean" for r in steps_p),
+              f"baseline steps {steps_p}, phases {order}")
+        check(trainer_p.state.opt_state.count == n_batches
+              and trainer_p.opt.t_total == n_batches,
+              f"baseline count {trainer_p.state.opt_state.count}, t_total "
+              f"{trainer_p.opt.t_total}")
+        check(all(math.isfinite(v) for r in steps_p for v in r.values()
+                  if isinstance(v, float)), f"non-finite losses {steps_p}")
+        check(launches_p == want_p, f"launches {launches_p}, want {want_p}")
+        del trainer_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        emit("vqacp_timing", card=torch.cuda.get_device_name(0),
+             run_a_ms_per_batch=clock_a.ms_per_step(),
+             run_c_ms_per_batch=clock_c.ms_per_step(),
+             snapshot_load_seconds=load.get("seconds"),
+             resume_load_seconds=resume.get("seconds"),
+             preempt_save_seconds=saves.get("seconds"),
+             preempt_save_bytes=saves.get("bytes"),
+             max_memory_allocated_bytes=peak_runs,
+             baseline_max_memory_allocated_bytes=(
+                 torch.cuda.max_memory_allocated()),
+             seconds_so_far=time.perf_counter() - t_start)
+        return {"run_a": launches_a, "run_b": launches_b, "run_c": launches_c,
+                "test_arm": launches_t, "baseline": launches_p}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -2031,8 +2558,17 @@ def main() -> int:
     # 10. the trainer and its CLI: an epoch and the test arm
     trainer_launches = phase_trainer(
         torch, attn, tree_profile["timed_ms_per_batch"], t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 11. summary: one entry per kernel. Kernel 1 over one forward's
+    # 11. the VQA-CP v2 recipe: snapshot, epoch, preemption, resume, test
+    # arm, baseline
+    vqacp_launches = phase_vqacp(torch, attn, trainer_launches, t_start)
+
+    def vqacp(kernel):
+        return {run: counts[kernel] for run, counts in vqacp_launches.items()}
+
+    # 12. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -2055,6 +2591,7 @@ def main() -> int:
         "replaces": "xggm_tpu/ops/pallas_attention.py:95",
         "launches": launches,
         "trainer_launches": trainer_launches["attention_fwd"],
+        "vqacp_launches": vqacp("attention_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
@@ -2079,6 +2616,7 @@ def main() -> int:
          "replaces": "xggm_tpu/ops/pallas_attention.py:237",
          "launches": train_launches["attention_dropout_fwd"],
          "trainer_launches": trainer_launches["attention_dropout_fwd"],
+        "vqacp_launches": vqacp("attention_dropout_fwd"),
          "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("fwd_ms", drop_path),
          "plain_ms": per_forward("plain_fwd_ms", drop_path),
@@ -2095,6 +2633,7 @@ def main() -> int:
          "replaces": "xggm_tpu/ops/pallas_attention.py:250",
          "launches": train_launches["attention_dropout_bwd"],
          "trainer_launches": trainer_launches["attention_dropout_bwd"],
+        "vqacp_launches": vqacp("attention_dropout_bwd"),
          "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("bwd_ms", drop_path),
          "plain_ms": per_forward("plain_bwd_ms", drop_path),

@@ -140,8 +140,7 @@ def test_cli_end_to_end_without_jax_or_h5py(tmp_path):
 
 UNPORTED = [
     ["--multiGPU"], ["--pp", "2"], ["--model_parallel", "2"],
-    ["--shard_opt_state"], ["--remat"], ["--resume"],
-    ["--loadLXMERT", "snap/model"], ["--loadLXMERTQA", "snap/model"],
+    ["--shard_opt_state"], ["--remat"],
     ["--coordinator", "localhost:1234"], ["--num_hosts", "2"],
     ["--host_id", "1"], ["--gnn", "GIN"], ["--gnn", "GAT"]]
 

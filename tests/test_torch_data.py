@@ -7,7 +7,8 @@ from arrays (`make_synthetic_gqa(pack=True)`, no H5) byte for byte equal to
 JAX's `convert_h5_to_xpack` of the H5 corpus, read through the native
 loader and the numpy memmap alike; the feeder's index order, padding masks
 and batches against JAX's `Feeder` over two shuffled epochs and
-`set_position`, and a producer error re-raised; `check_step_finite` and
+`set_position`, and a producer error re-raised; `MultiEpochsFeeder` over
+three epochs and `Prefetcher` against JAX's; `check_step_finite` and
 `MetricsLogger` against JAX's. Torch runs on one thread (tiny shapes), and
 the tests loop over their cases (see tests/test_torch_attention_dropout.py
 for why the files hold few tests).
@@ -26,6 +27,8 @@ from xggm_tpu.config import DataConfig as JaxDataConfig
 from xggm_tpu.data import datasets as jax_ds
 from xggm_tpu.data import xpack as jax_xpack
 from xggm_tpu.data.feeder import Feeder as JaxFeeder
+from xggm_tpu.data.feeder import MultiEpochsFeeder as JaxMultiEpochsFeeder
+from xggm_tpu.data.feeder import Prefetcher as JaxPrefetcher
 from xggm_tpu.data.synthetic import make_synthetic_gqa as jax_make_gqa
 from xggm_tpu.data.synthetic import make_synthetic_vqacp as jax_make_vqacp
 from xggm_tpu.data.synthetic import write_vocab as jax_write_vocab
@@ -37,7 +40,7 @@ from xggm_tpu_torch.cli.common import dump_args
 from xggm_tpu_torch.config import DataConfig
 from xggm_tpu_torch.data import datasets as ds
 from xggm_tpu_torch.data import xpack
-from xggm_tpu_torch.data.feeder import Feeder
+from xggm_tpu_torch.data.feeder import Feeder, MultiEpochsFeeder, Prefetcher
 from xggm_tpu_torch.data.synthetic import make_synthetic_gqa
 from xggm_tpu_torch.data.tokenizer import BertTokenizer
 from xggm_tpu_torch.training.metrics import MetricsLogger
@@ -217,6 +220,28 @@ class _Failing:
         return self.inner.get_batch(idx)
 
 
+def _same_batches(got, want, feats_dtype):
+    """The port's (qids, tensors, mask) items equal JAX's, with the port's
+    types: int64 ids and masks, feats in `feats_dtype`, the rest fp32."""
+    assert len(got) == len(want) > 0
+    for (q, b, m), (jq, jb, jm) in zip(got, want):
+        assert q == jq
+        np.testing.assert_array_equal(m, jm)
+        assert set(b) == set(jb)
+        for k, v in b.items():
+            assert v.device.type == "cpu"
+            w = np.asarray(jb[k])
+            if k == "feats":
+                assert v.dtype == (torch.bfloat16 if feats_dtype
+                                   else torch.float32)
+                v, w = v.float(), w.astype(np.float32)
+            elif k in ("input_ids", "input_mask", "segment_ids"):
+                assert v.dtype == torch.int64
+            else:
+                assert v.dtype == torch.float32
+            np.testing.assert_array_equal(v.numpy(), w, err_msg=k)
+
+
 def test_feeder_matches_jax(corpus):
     root, vocab = corpus
     _, jraw, praw, jset, _ = _pairs(root, vocab)[0]
@@ -239,25 +264,24 @@ def test_feeder_matches_jax(corpus):
                 if epoch_run == 2:  # rewind to epoch 1, skipping 2 batches
                     ref.set_position(1, 2)
                     mine.set_position(1, 2)
-                got, want = list(mine), list(ref)
-                assert len(got) == len(want) > 0
-                for (q, b, m), (jq, jb, jm) in zip(got, want):
-                    assert q == jq
-                    np.testing.assert_array_equal(m, jm)
-                    assert set(b) == set(jb)
-                    for k, v in b.items():
-                        assert v.device.type == "cpu"
-                        w = np.asarray(jb[k])
-                        if k == "feats":
-                            assert v.dtype == (torch.bfloat16 if feats_dtype
-                                               else torch.float32)
-                            v, w = v.float(), w.astype(np.float32)
-                        elif k in ("input_ids", "input_mask", "segment_ids"):
-                            assert v.dtype == torch.int64
-                        else:
-                            assert v.dtype == torch.float32
-                        np.testing.assert_array_equal(v.numpy(), w,
-                                                      err_msg=k)
+                _same_batches(list(mine), list(ref), feats_dtype)
+    # one producer over epochs: the same batches, epoch after epoch
+    for kw in (cases[0], cases[2]):
+        ref = JaxMultiEpochsFeeder(jset, seed=7, **kw)
+        mine = MultiEpochsFeeder(pset, seed=7, device="cpu", **kw)
+        assert len(mine) == len(ref)
+        for _ in range(3):
+            _same_batches(list(mine), list(ref), None)
+    # the pull API over a feeder
+    mine, ref = Prefetcher(Feeder(pset, 96, device="cpu")), \
+        JaxPrefetcher(JaxFeeder(jset, 96))
+    got, want = [], []
+    while ref.batch is not None:
+        got.append(mine.next())
+        want.append(ref.next())
+    assert mine.next() is None
+    assert len(got) == len(Feeder(pset, 96, device="cpu"))
+    _same_batches(got, want, None)
     # a producer error reaches the consumer, with its cause
     failing = Feeder(_Failing(pset), 64, device="cpu")
     seen = []

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports with jax, flax and h5py blocked, no
-module of it (nor chip_smoke.py) imports xggm_tpu, and entry points called
-without device="cpu" on a machine with no card raise. Also the host-side
+"""The port stands alone: every module of it imports with jax, flax, h5py
+and matplotlib blocked, none of them (nor chip_smoke.py) imports xggm_tpu,
+and entry points called without device="cpu" on a machine with no card
+raise (the CLIs before they write anything). Also the host-side
 copies it keeps (tokenizer, synthetic corpus, feature store) against the
 JAX package's originals."""
 import ast
@@ -27,7 +28,7 @@ def _port_sources():
 def test_import_with_jax_flax_h5py_blocked():
     script = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "h5py", "ml_dtypes"):
+for name in ("jax", "jaxlib", "flax", "h5py", "ml_dtypes", "matplotlib"):
     sys.modules[name] = None
 import xggm_tpu_torch
 for m in pkgutil.walk_packages(xggm_tpu_torch.__path__, "xggm_tpu_torch."):
@@ -85,7 +86,7 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
-    from xggm_tpu_torch.cli import gqa_ood
+    from xggm_tpu_torch.cli import gqa_ood, vqacpv2, vqacpv2_baseline
     from xggm_tpu_torch.config import tiny_test_config
     from xggm_tpu_torch.data.feeder import Feeder
     from xggm_tpu_torch.models.lxmert import LxmertModel
@@ -98,12 +99,13 @@ def test_entry_points_default_to_the_card(tmp_path):
                  lambda: LxmertModel(cfg.lxmert),
                  lambda: XGGMTrainer(cfg.replace(output=str(tmp_path))),
                  lambda: Feeder([], 8),
-                 lambda: gqa_ood.main(
+                 *(lambda cli=cli: cli.main(
                      ["--synthetic", "--data_root", str(tmp_path / "data"),
-                      "--output", str(tmp_path / "out")])):
+                      "--output", str(tmp_path / "out")])
+                   for cli in (gqa_ood, vqacpv2, vqacpv2_baseline))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-    # the CLI raised before it wrote anything
+    # the CLIs raised before they wrote anything
     assert not os.listdir(tmp_path)
 
 

@@ -16,7 +16,8 @@ from the JAX trainer's initial parameters (`from_jax_params`):
     a `--profile` trace longer than the run closed at its end;
   * a checkpoint round trip: parameters and every BertAdamState field
     exact, and the same predictions after `load`, although the parameters
-    and moments were changed in place right after `save` returned;
+    and moments were changed in place right after `save` returned, and
+    `resume` with no `PREEMPT` or `BEST_{n}` starting at epoch 0;
   * `GQAEval`, `ood_test_report` and `tail_size_sweep` equal to JAX's.
 The JAX trainer's steps compile once per module, in the fixture.
 """
@@ -230,8 +231,10 @@ def test_checkpoint_round_trip(env, tmp_path):
     assert fresh.ckpt.latest_epoch() is None
     fresh.ckpt.remove("RT")
     assert not fresh.ckpt.exists("RT")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        fresh.resume()
+    # nothing to resume from: start at epoch 0, the state untouched
+    assert fresh.resume() == 0
+    for n, p in fresh.model.named_parameters():
+        assert torch.equal(p, params[n]), n
 
 
 def test_gqa_eval_matches_jax(tmp_path):

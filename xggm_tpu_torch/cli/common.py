@@ -9,6 +9,12 @@ The differences:
     the Philox generator of `ops/philox.py`;
   * the flags of paths not ported yet raise NotImplementedError, naming
     their ROADMAP.md item, when set (`reject_unported`).
+As in the JAX CLI, `--optim`, `--fast` and `--numWorkers` reach the config
+and nothing reads them (the reference scripts pass `--optim bert`, the only
+optimizer there is).
+
+`load_weights` and `train_or_exit` are the load, resume and preemption arms
+that the JAX CLIs repeat in each entry point.
 """
 from __future__ import annotations
 
@@ -24,8 +30,8 @@ import torch
 from xggm_tpu_torch.config import (
     BertConfig, DataConfig, GGMConfig, LxmertConfig, TrainConfig,
     VisualConfig, XGGMConfig)
+from xggm_tpu_torch.utils.preempt import PREEMPTED_EXIT_CODE, Preempted
 
-ITEM_2 = "ROADMAP.md section 1, item 2 (checkpoints, resume and loaders)"
 ITEM_4 = "ROADMAP.md section 1, item 4 (GIN and GAT generators)"
 ITEM_7 = "ROADMAP.md section 1, item 7 (scale-out)"
 
@@ -124,7 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a torch.profiler trace of the first N steps into "
                         "{output}/trace")
     p.add_argument("--resume", action="store_const", default=False,
-                   const=True, help=f"not ported: {ITEM_2}")
+                   const=True, help="resume from the newest checkpoint in "
+                                    "--output: a mid-epoch PREEMPT (written "
+                                    "on SIGTERM) or BEST_{epoch}")
     p.add_argument("--pallas_attention", action="store_const", default=False,
                    const=True, help="no effect: the port always runs its "
                                     "attention kernels")
@@ -153,10 +161,6 @@ def reject_unported(args: argparse.Namespace) -> None:
         ("--coordinator/--num_hosts/--host_id",
          args.coordinator is not None or args.num_hosts is not None
          or args.host_id is not None, ITEM_7),
-        ("--resume", args.resume, ITEM_2),
-        # an empty load flag means "from scratch"
-        ("--loadLXMERT", bool(args.load_lxmert), ITEM_2),
-        ("--loadLXMERTQA", bool(args.load_lxmert_qa), ITEM_2),
         (f"--gnn {args.gnn}", args.gnn != "GCN", ITEM_4),
     ]
     for flag, is_set, item in unported:
@@ -219,3 +223,30 @@ def dump_args(args: argparse.Namespace, output: str) -> None:
     os.makedirs(output, exist_ok=True)
     with open(os.path.join(output, "args.json"), "w") as f:
         json.dump(vars(args), f, indent=2, default=str)
+
+
+def load_weights(trainer, args: argparse.Namespace) -> None:
+    """The load flags, in the JAX CLIs' precedence: --load, else
+    --loadLXMERT, else --loadLXMERTQA (its answer table from --all_ans,
+    by default {data_root}/lxmert/all_ans.json). An empty value means
+    "from scratch"."""
+    if args.load:
+        trainer.load(args.load)
+    elif args.load_lxmert:
+        trainer.load_lxmert(args.load_lxmert)
+    elif args.load_lxmert_qa:
+        all_ans = args.all_ans or os.path.join(args.data_root, "lxmert",
+                                               "all_ans.json")
+        trainer.load_lxmert_qa(args.load_lxmert_qa, all_ans)
+
+
+def train_or_exit(trainer, resume: bool) -> float:
+    """`trainer.train` from the epoch `resume` finds (0 without
+    --resume); on a preemption, exit with PREEMPTED_EXIT_CODE once the
+    PREEMPT checkpoint is on disk."""
+    start_epoch = trainer.resume() if resume else 0
+    try:
+        return trainer.train(start_epoch)
+    except Preempted as e:
+        print(e)
+        raise SystemExit(PREEMPTED_EXIT_CODE)

@@ -8,7 +8,10 @@ or with --test SPLIT predict and score a split.
 
 It runs on the card unless `--device cpu` is given, and raises when there
 is none. `--load NAME` reads the checkpoint NAME (a path's last part) from
-`--output`.
+`--output`, or a reference task model from a `.pth` file; `--loadLXMERT`
+and `--loadLXMERTQA` read an LXMERT snapshot. `--resume` continues from
+`PREEMPT` or the newest `BEST_{epoch}`; a SIGTERM during training saves
+`PREEMPT` and exits with code 75.
 """
 from __future__ import annotations
 
@@ -16,8 +19,8 @@ import dataclasses
 import os
 
 from xggm_tpu_torch.cli.common import (
-    build_parser, dump_args, generate_synthetic_once, seed_everything,
-    to_config)
+    build_parser, dump_args, generate_synthetic_once, load_weights,
+    seed_everything, to_config, train_or_exit)
 from xggm_tpu_torch.utils.device import resolve_device
 
 
@@ -52,8 +55,7 @@ def main(argv=None):
                           profile_steps=args.profile, device=device)
     dump_args(args, args.output)
 
-    if args.load:  # an empty --load means "from scratch"
-        trainer.load(args.load)
+    load_weights(trainer, args)
 
     if args.test is not None:
         ds_raw = GQADataset(args.test, cfg.data)
@@ -66,7 +68,7 @@ def main(argv=None):
             print(f"{args.test} accuracy: {acc * 100.:.2f}")
     else:
         print(f"Oracle score: {trainer.oracle_score() * 100.:.2f}")
-        best = trainer.train()
+        best = train_or_exit(trainer, args.resume)
         print(f"Best valid: {best * 100.:.2f}")
     return trainer
 

@@ -1,5 +1,5 @@
-"""Feeder: background batch assembly and host-to-device copies (counterpart
-of `xggm_tpu/data/feeder.py::Feeder`, for one process).
+"""Feeders: background batch assembly and host-to-device copies
+(counterpart of `xggm_tpu/data/feeder.py`, for one process).
 
 A producer thread assembles each batch with `GraphBatchDataset.get_batch`,
 pads the last partial one to the batch size (with a validity mask), fills
@@ -9,6 +9,9 @@ the copy of batch N+1 overlaps the step of batch N. On the CPU it yields
 plain CPU tensors. Token ids, masks and segment ids are int64; the features
 are cast on the host to `feats_dtype` (bf16 when the model computes in bf16,
 halving the bytes copied); the rest is float32.
+
+`MultiEpochsFeeder` keeps one producer across epochs, and `Prefetcher`
+gives any of them a pull API; nothing in the trainer uses either.
 """
 from __future__ import annotations
 
@@ -96,13 +99,51 @@ class Feeder:
             out[k] = t
         return out
 
+    def _assemble(self, idx: np.ndarray, copy_stream) -> tuple:
+        """Batch `idx`, padded: (question ids, tensors, valid mask, event).
+        With a copy stream (a CUDA device), the tensors are the device
+        copies started on it and the event follows them."""
+        qids = self.dataset.question_ids(idx)
+        batch, mask = pad_batch_to(self.dataset.get_batch(idx),
+                                   self.batch_size)
+        host = self._host_tensors(batch)
+        if copy_stream is None:
+            return qids, host, mask, None
+        # the caching host allocator keeps each pinned buffer until the
+        # copy that reads it has run
+        with torch.cuda.stream(copy_stream):
+            dev = {k: t.to(self.device, non_blocking=True)
+                   for k, t in host.items()}
+            event = torch.cuda.Event()
+            event.record(copy_stream)
+        return qids, dev, mask, event
+
+    def _deliver(self, item):
+        """(question ids, tensors, mask) of an assembled item, its copies
+        ordered before the current stream's next work; re-raises a
+        producer's error."""
+        if isinstance(item, BaseException):
+            raise RuntimeError("feeder producer thread failed while "
+                               "assembling a batch") from item
+        qids, batch, mask, event = item
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for v in batch.values():
+                # made on the copy stream, used on this one
+                v.record_stream(stream)
+        return qids, batch, mask
+
+    def _copy_stream(self):
+        return (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
+
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
         sentinel = object()
         stop = threading.Event()
         skip, self._skip_next = self._skip_next, 0
-        cuda = self.device.type == "cuda"
-        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        copy_stream = self._copy_stream()
 
         def producer():
             try:
@@ -111,20 +152,7 @@ class Feeder:
                         return
                     if j < skip:
                         continue
-                    qids = self.dataset.question_ids(idx)
-                    batch, mask = pad_batch_to(self.dataset.get_batch(idx),
-                                               self.batch_size)
-                    host = self._host_tensors(batch)
-                    event = None
-                    if cuda:
-                        # the caching host allocator keeps each pinned
-                        # buffer until the copy that reads it has run
-                        with torch.cuda.stream(copy_stream):
-                            host = {k: t.to(self.device, non_blocking=True)
-                                    for k, t in host.items()}
-                            event = torch.cuda.Event()
-                            event.record(copy_stream)
-                    q.put((qids, host, mask, event))
+                    q.put(self._assemble(idx, copy_stream))
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 # a swallowed producer error would silently truncate the
                 # epoch; hand it to the consumer instead
@@ -139,18 +167,7 @@ class Feeder:
                 item = q.get()
                 if item is sentinel:
                     break
-                if isinstance(item, BaseException):
-                    raise RuntimeError(
-                        "feeder producer thread failed while assembling a "
-                        "batch") from item
-                qids, batch, mask, event = item
-                if event is not None:
-                    stream = torch.cuda.current_stream(self.device)
-                    stream.wait_event(event)
-                    for v in batch.values():
-                        # made on the copy stream, used on this one
-                        v.record_stream(stream)
-                yield qids, batch, mask
+                yield self._deliver(item)
         finally:
             # on an early exit, unblock the producer and let it end
             stop.set()
@@ -161,3 +178,62 @@ class Feeder:
                     pass
             t.join()
         self._epoch += 1
+
+
+class Prefetcher:
+    """A pull API with one batch of lookahead over any iterable of batches
+    (the reference's `DataPrefetcher`): `next()` returns the batch it holds
+    and takes the next one, and None once the iterable is exhausted. The
+    `Feeder` already assembles and copies ahead on its producer thread;
+    this keeps the calling convention of code written against the
+    reference."""
+
+    def __init__(self, loader):
+        self._it = iter(loader)
+        self._preload()
+
+    def _preload(self):
+        try:
+            self.batch = next(self._it)
+        except StopIteration:
+            self.batch = None
+
+    def next(self):
+        batch = self.batch
+        if batch is not None:
+            self._preload()
+        return batch
+
+
+class MultiEpochsFeeder(Feeder):
+    """A `Feeder` whose one producer thread streams epoch after epoch
+    through one queue (the reference's `MultiEpochsDataLoader`), so an
+    epoch does not pay the producer's start-up again. Each `__iter__`
+    yields exactly `len(self)` batches (one epoch) and leaves the stream
+    running; the shuffle still advances per epoch (seed + epoch), batch
+    for batch as `Feeder`'s. The batches are placed as `Feeder` places
+    them: pinned host tensors, copied on one side stream."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._q = None
+        self._thread = None
+
+    def _producer_loop(self, copy_stream):
+        try:
+            while True:
+                for idx in self._index_batches():
+                    self._q.put(self._assemble(idx, copy_stream))
+                self._epoch += 1
+        except BaseException as e:  # noqa: BLE001 - re-raised in __iter__
+            self._q.put(e)
+
+    def __iter__(self):
+        if self._thread is None:
+            self._q = queue.Queue(maxsize=self.prefetch_depth)
+            self._thread = threading.Thread(
+                target=self._producer_loop, args=(self._copy_stream(),),
+                daemon=True)
+            self._thread.start()
+        for _ in range(len(self)):
+            yield self._deliver(self._q.get())

@@ -1,8 +1,9 @@
 """Synthetic data (counterpart of `xggm_tpu/data/synthetic.py`).
 
-`make_synthetic_gqa` writes the same miniature GQA-OOD corpus, file for file
-and value for value, as the JAX package's (`h5py` is imported only for its
-H5 files), or the same records as a feature pack with no H5 file.
+`make_synthetic_gqa` and `make_synthetic_vqacp` write the same miniature
+GQA-OOD and VQA-CP v2 corpora, file for file and value for value, as the
+JAX package's (`h5py` is imported only for their H5 files), or the same
+records as a feature pack with no H5 file.
 `synthetic_obj36` makes features and boxes in memory, and
 `synthetic_train_batch` a whole training batch.
 """
@@ -101,23 +102,75 @@ def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
                        seed: int = 0, pack: bool = False) -> None:
     """The miniature GQA-OOD corpus of the JAX package's
     `make_synthetic_gqa`: questions, answer vocabulary, image info and, per
-    image, obj36 features, boxes and an adjacency. With `pack=False` the
-    features go to `{split}_obj36.h5` and `{split}_obj36_adj_v2.h5` (needs
-    `h5py`); with `pack=True` to `{split}_obj36.xpack` and its index, with
-    the boxes divided by the image size, in the H5 files' key order (sorted
-    by name), as `convert_h5_to_xpack` of the H5 corpus writes it, and no
-    H5 file. Both modes draw the same random stream."""
+    image, obj36 features, boxes and an adjacency (`_write_images`)."""
     rng = np.random.RandomState(seed)
     gqa = os.path.join(root, "gqa_ood")
-    feat = os.path.join(root, "gqa_imgfeat")
     os.makedirs(gqa, exist_ok=True)
-    os.makedirs(feat, exist_ok=True)
 
     save_json(ANSWERS, os.path.join(gqa, "trainval_label2ans.json"))
     save_json({a: i for i, a in enumerate(ANSWERS)},
               os.path.join(gqa, "trainval_ans2label.json"))
 
     img_ids = [f"synth_{split}_{i}" for i in range(n_images)]
+    _write_images(rng, os.path.join(root, "gqa_imgfeat"), split, img_ids,
+                  feat_dim, pack)
+
+    questions = []
+    for qi in range(n_questions):
+        sent = " ".join(rng.choice(WORDS, size=rng.randint(3, 10))) + " ?"
+        ans = ANSWERS[rng.randint(len(ANSWERS))]
+        questions.append({
+            "question_id": f"q{split}{qi:05d}",
+            "img_id": img_ids[qi % n_images],
+            "sent": sent,
+            "label": {ans: 1.0},
+        })
+    save_json(questions, os.path.join(gqa, f"{split}.json"))
+
+
+def make_synthetic_vqacp(root: str, split: str = "train", n_images: int = 32,
+                         n_questions: int = 96, feat_dim: int = 2048,
+                         seed: int = 0, pack: bool = False) -> None:
+    """The miniature VQA-CP v2 corpus of the JAX package's
+    `make_synthetic_vqacp`: annotations (integer question ids, answer ids
+    with scores), answer vocabulary, image info and the images of
+    `_write_images` under `mscoco_imgfeat/`."""
+    rng = np.random.RandomState(seed)
+    vqa = os.path.join(root, "vqacpv2")
+    os.makedirs(vqa, exist_ok=True)
+
+    save_json(ANSWERS, os.path.join(vqa, "trainval_label2ans.json"))
+    save_json({a: i for i, a in enumerate(ANSWERS)},
+              os.path.join(vqa, "trainval_ans2label.json"))
+
+    img_ids = [f"coco_{split}_{i}" for i in range(n_images)]
+    _write_images(rng, os.path.join(root, "mscoco_imgfeat"), split, img_ids,
+                  feat_dim, pack)
+
+    annotations = []
+    for qi in range(n_questions):
+        sent = " ".join(rng.choice(WORDS, size=rng.randint(3, 10))) + " ?"
+        aid = int(rng.randint(len(ANSWERS)))
+        annotations.append({
+            "question_id": int(qi),
+            "image_id": img_ids[qi % n_images],
+            "question": sent,
+            "label": [aid],
+            "score": [1.0],
+        })
+    save_json(annotations, os.path.join(vqa, f"{split}_annotations.json"))
+
+
+def _write_images(rng: np.random.RandomState, feat_dir: str, split: str,
+                  img_ids: List[str], feat_dim: int, pack: bool) -> None:
+    """Draw each image's size, 36 boxes, features and adjacency from `rng`
+    and write `{split}_obj36_info.json` and the records. With `pack=False`
+    the records go to `{split}_obj36.h5` and `{split}_obj36_adj_v2.h5`
+    (needs `h5py`); with `pack=True` to `{split}_obj36.xpack` and its index,
+    the boxes divided by the image size, in the H5 files' key order (sorted
+    by name), as `convert_h5_to_xpack` of the H5 corpus writes it, and no H5
+    file. Both modes draw the same random stream."""
+    os.makedirs(feat_dir, exist_ok=True)
     info, records = [], {}
     for img_id in img_ids:
         w, h = int(rng.randint(200, 800)), int(rng.randint(200, 800))
@@ -132,24 +185,12 @@ def make_synthetic_gqa(root: str, split: str = "train", n_images: int = 32,
         records[img_id] = (feats, boxes, synthetic_adjacency(rng))
         info.append({"img_id": img_id, "img_h": h, "img_w": w,
                      "num_boxes": 36})
-    save_json(info, os.path.join(feat, f"{split}_obj36_info.json"))
+    save_json(info, os.path.join(feat_dir, f"{split}_obj36_info.json"))
     if pack:
-        _write_pack(records, info, os.path.join(feat, f"{split}_obj36.xpack"),
-                    feat_dim)
+        _write_pack(records, info,
+                    os.path.join(feat_dir, f"{split}_obj36.xpack"), feat_dim)
     else:
-        _write_h5(records, feat, split)
-
-    questions = []
-    for qi in range(n_questions):
-        sent = " ".join(rng.choice(WORDS, size=rng.randint(3, 10))) + " ?"
-        ans = ANSWERS[rng.randint(len(ANSWERS))]
-        questions.append({
-            "question_id": f"q{split}{qi:05d}",
-            "img_id": img_ids[qi % n_images],
-            "sent": sent,
-            "label": {ans: 1.0},
-        })
-    save_json(questions, os.path.join(gqa, f"{split}.json"))
+        _write_h5(records, feat_dir, split)
 
 
 def _write_h5(records, feat_dir: str, split: str) -> None:

@@ -14,6 +14,11 @@ The same observable behaviour as the JAX trainer:
     `metrics.jsonl` records in the same format.
 The dropout and noise of a step come from a seed made of `cfg.train.seed`
 and the step's index, so they differ from the JAX package's draws.
+
+`train` saves a `PREEMPT` checkpoint at the first step boundary after a
+SIGTERM and raises `Preempted`; `resume` continues from it, or from the
+newest `BEST_{epoch}`. The loaders read the reference's torch snapshots
+(`load_lxmert`, `load_lxmert_qa`, `load` of a `.pth`).
 """
 from __future__ import annotations
 
@@ -25,7 +30,11 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from xggm_tpu_torch.checkpoint.answer_table import load_lxmert_qa
 from xggm_tpu_torch.checkpoint.manager import CheckpointManager
+from xggm_tpu_torch.checkpoint.torch_bridge import (
+    convert_lxrt_bert, convert_task_model, load_torch_state_dict, merge_into,
+    strip_prefixes)
 from xggm_tpu_torch.config import MAX_SEQ_LENGTH, XGGMConfig
 from xggm_tpu_torch.data.datasets import (
     GQADataset, GQAEvaluator, GraphBatchDataset, VQACPDataset, VQAEvaluator,
@@ -41,8 +50,9 @@ from xggm_tpu_torch.training.steps import (
     TrainState, make_clean_train_step, make_eval_step, make_ggm_train_step)
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
+from xggm_tpu_torch.utils.preempt import (
+    Preempted, PreemptionGuard, pack_rng_state, unpack_rng_state)
 
-ITEM_2 = "ROADMAP.md section 1, item 2 (checkpoints, resume and loaders)"
 ITEM_7 = "ROADMAP.md section 1, item 7 (scale-out)"
 
 
@@ -142,6 +152,10 @@ class XGGMTrainer:
         self.ckpt = CheckpointManager(self.output)
         self.logger = MetricsLogger(self.output)
         self.host_rng = random.Random(cfg.train.seed)
+        # installed by `train` when the caller has set none, so that making
+        # a trainer never touches the process's signal handlers
+        self.preempt: Optional[PreemptionGuard] = None
+        self._resume_cursor: Optional[Dict[str, float]] = None
 
     # ------------------------------------------------------------------
 
@@ -172,25 +186,55 @@ class XGGMTrainer:
         """The seed of step `train_iter`'s dropout and noise."""
         return self.cfg.train.seed * 2 ** 32 + train_iter
 
-    def load_lxmert(self, path: str) -> None:
-        raise NotImplementedError(f"--loadLXMERT: {ITEM_2}")
+    def _fresh_opt_state(self) -> None:
+        """A new BertAdam state for the parameters as they are now."""
+        self.state = TrainState.create(self.model, self.opt)
 
-    def load_lxmert_qa(self, path: str, all_ans_path: str) -> None:
-        raise NotImplementedError(f"--loadLXMERTQA: {ITEM_2}")
-
-    def load(self, name_or_path: str) -> None:
-        """--load: a checkpoint of this trainer's format, by name, from the
-        output directory ('BEST', 'BEST_3', or a path ending in one)."""
-        if name_or_path.endswith(".pth") or os.path.isfile(name_or_path):
-            raise NotImplementedError(f"loading a torch .pth: {ITEM_2}")
-        restored = self.ckpt.load(os.path.basename(name_or_path))
+    def _restore(self, restored: Dict[str, object], name: str) -> None:
+        """The model and BertAdam state of a checkpoint of this format."""
         self.model.load_state_dict(restored["model"])
         opt_state = BertAdamState.from_state_dict(restored["opt_state"],
                                                   self.device)
         if opt_state.names != self.state.opt_state.names:
-            raise ValueError(f"{name_or_path}: the optimizer state's "
-                             "parameters are not this model's")
+            raise ValueError(f"{name}: the optimizer state's parameters are "
+                             "not this model's")
         self.state.opt_state = opt_state
+
+    def load_lxmert(self, path: str) -> None:
+        """--loadLXMERT: the encoder of a torch LXMERT snapshot
+        (`{path}_LXRT.pth`, or `path` if it ends in .pth)."""
+        sd = strip_prefixes(load_torch_state_dict(
+            path if path.endswith(".pth") else f"{path}_LXRT.pth"))
+        prefix = "bert." if any(k.startswith("bert.") for k in sd) else ""
+        flat, _ = convert_lxrt_bert(sd, self.cfg.lxmert, torch_prefix=prefix,
+                                    our_prefix="lxrt")
+        unmatched = merge_into(self.model, flat)
+        self._fresh_opt_state()
+        print(f"load_lxmert: {len(flat)} tensors, "
+              f"{len(unmatched)} model params untouched")
+
+    def load_lxmert_qa(self, path: str, all_ans_path: str) -> None:
+        """--loadLXMERTQA: the encoder and the answer head of a torch LXMERT
+        pretraining snapshot, the head's rows matched by answer string."""
+        load_lxmert_qa(path, self.model, self.label2ans, self.cfg.lxmert,
+                       all_ans_path)
+        self._fresh_opt_state()
+
+    def load(self, name_or_path: str) -> None:
+        """--load: a reference torch task model (a .pth file), or a
+        checkpoint of this trainer's format by name from the output
+        directory ('BEST', 'BEST_3', or a path ending in one)."""
+        if name_or_path.endswith(".pth") or os.path.isfile(name_or_path):
+            flat = convert_task_model(load_torch_state_dict(name_or_path),
+                                      self.cfg.lxmert, self.cfg.ggm.gnn,
+                                      self.cfg.ggm.num_layers)
+            unmatched = merge_into(self.model, flat)
+            self._fresh_opt_state()
+            print(f"load(torch): {len(flat)} tensors, "
+                  f"{len(unmatched)} untouched")
+            return
+        name = os.path.basename(name_or_path)
+        self._restore(self.ckpt.load(name), name_or_path)
 
     def save(self, name: str, epoch: int = -1) -> None:
         self.ckpt.save(name, {"model": self.model.state_dict(),
@@ -199,10 +243,47 @@ class XGGMTrainer:
 
     def save_preempt(self, epoch: int, batches_done: int, train_iter: int,
                      best_valid: float) -> None:
-        raise NotImplementedError(f"PREEMPT checkpoints: {ITEM_2}")
+        """Commit the loop's state mid-epoch as `PREEMPT`, and wait for the
+        commit (the grace window after a SIGTERM is short): the model, the
+        BertAdam state, the epoch and batch cursor, the step count, the best
+        validation so far and the host's branch generator. No device
+        generator is saved: a step's dropout and noise come from
+        `_step_seed(train_iter)`, so the restored step count restores
+        their stream."""
+        self.ckpt.save("PREEMPT", {
+            "model": self.model.state_dict(),
+            "opt_state": self.state.opt_state.state_dict(),
+            "epoch": epoch, "batches_done": batches_done,
+            "train_iter": train_iter, "best_valid": best_valid,
+            "host_rng": pack_rng_state(self.host_rng).tolist()})
+        self.ckpt.wait()
 
     def resume(self) -> int:
-        raise NotImplementedError(f"--resume: {ITEM_2}")
+        """Restore the newest checkpoint in the output directory; returns
+        the epoch to start from (0 when there is none). `PREEMPT` wins when
+        its epoch is later than the newest `BEST_{n}`'s: `train` then goes
+        on with that epoch after its saved batches, with the saved host
+        generator and step count. Otherwise `BEST_{n}` is restored and
+        training starts at epoch n + 1."""
+        last = self.ckpt.latest_epoch()
+        if self.ckpt.exists("PREEMPT"):
+            restored = self.ckpt.load("PREEMPT")
+            ep = int(restored["epoch"])
+            if last is None or ep > last:
+                self._restore(restored, "PREEMPT")
+                unpack_rng_state(self.host_rng, restored["host_rng"])
+                self._resume_cursor = {
+                    "skip_batches": int(restored["batches_done"]),
+                    "train_iter": int(restored["train_iter"]),
+                    "best_valid": float(restored["best_valid"])}
+                print(f"resumed from PREEMPT (epoch {ep}, "
+                      f"{int(restored['batches_done'])} batches done)")
+                return ep
+        if last is None:
+            return 0
+        self._restore(self.ckpt.load(f"BEST_{last}"), f"BEST_{last}")
+        print(f"resumed from BEST_{last}")
+        return last + 1
 
     # ------------------------------------------------------------------
 
@@ -256,43 +337,77 @@ class XGGMTrainer:
 
     def train(self, start_epoch: int = 0) -> float:
         """GGM training: per batch one branch (relation or representation)
-        and the clean phase. Returns the best validation accuracy."""
+        and the clean phase. Returns the best validation accuracy.
+
+        Starts at `start_epoch`, after the batches a `resume` from `PREEMPT`
+        found done. At the first step boundary after the guard's signal it
+        saves `PREEMPT` and raises `Preempted`; a run that completes removes
+        `PREEMPT`. A guard that `train` installs itself is uninstalled when
+        it returns or raises."""
         cfg = self.cfg
         feeder = self._feeder(self.train_set, cfg.train.batch_size, True)
         n_batches = len(feeder)
         val_points = set(np.linspace(0, n_batches, 5, dtype=int)[1:-1].tolist())
+        own_guard = self.preempt is None
+        if own_guard:
+            self.preempt = PreemptionGuard()
+        cursor = self._resume_cursor or {}
+        self._resume_cursor = None
+        start_batch = int(cursor.get("skip_batches", 0))
+        best_valid = cursor.get("best_valid", 0.0)
+        train_iter = int(cursor.get("train_iter", 0))
+        # the shuffle of the resumed epoch, past the batches already done
+        feeder.set_position(start_epoch, start_batch)
         prof = self._start_trace()
-        best_valid, train_iter = 0.0, 0
-        feeder.set_position(start_epoch)
-        for epoch in range(start_epoch, cfg.train.epochs):
-            quesid2ans: Dict[object, str] = {}
-            t_epoch = time.time()
-            for i, (qids, batch, _mask) in enumerate(feeder):
-                use_relation = self.host_rng.randint(1, 10) <= cfg.ggm.delta
-                step = self.rel_step if use_relation else self.rep_step
-                self.state, metrics = step(self.state, batch,
-                                           self._step_seed(train_iter))
-                scalars = self._record(qids, metrics, quesid2ans)
-                branch_name = "rel" if use_relation else "rep"
-                check_step_finite(train_iter, branch_name, scalars)
-                self.logger.log_step(train_iter, scalars, branch=branch_name)
-                train_iter += 1
-                if prof is not None and train_iter >= self.profile_steps:
-                    self._stop_trace(prof)
-                    prof = None
+        try:
+            for epoch in range(start_epoch, cfg.train.epochs):
+                # after a resume from PREEMPT the epoch's train accuracy
+                # covers the batches left
+                quesid2ans: Dict[object, str] = {}
+                t_epoch = time.time()
+                offset = start_batch if epoch == start_epoch else 0
+                for i, (qids, batch, _mask) in enumerate(feeder,
+                                                         start=offset):
+                    use_relation = (self.host_rng.randint(1, 10)
+                                    <= cfg.ggm.delta)
+                    step = self.rel_step if use_relation else self.rep_step
+                    self.state, metrics = step(self.state, batch,
+                                               self._step_seed(train_iter))
+                    scalars = self._record(qids, metrics, quesid2ans)
+                    branch_name = "rel" if use_relation else "rep"
+                    check_step_finite(train_iter, branch_name, scalars)
+                    self.logger.log_step(train_iter, scalars,
+                                         branch=branch_name)
+                    train_iter += 1
+                    if prof is not None and train_iter >= self.profile_steps:
+                        self._stop_trace(prof)
+                        prof = None
 
-                if i in val_points and self.valid_set is not None:
-                    acc = self.evaluate_valid()
-                    self.logger.log_scalar("valid/mid_epoch_acc", acc,
-                                           train_iter)
-                    if acc > best_valid:
-                        best_valid = acc
-                        self.save("BEST")
-            best_valid = self._end_epoch(epoch, quesid2ans, best_valid,
-                                         t_epoch)
-        if prof is not None:  # a run shorter than profile_steps
-            self._stop_trace(prof)
+                    if self.preempt.should_save(train_iter):
+                        self.save_preempt(epoch, i + 1, train_iter,
+                                          best_valid)
+                        raise Preempted(
+                            f"preempted at epoch {epoch} batch {i + 1}; "
+                            f"PREEMPT checkpoint committed to {self.output}")
+
+                    if i in val_points and self.valid_set is not None:
+                        acc = self.evaluate_valid()
+                        self.logger.log_scalar("valid/mid_epoch_acc", acc,
+                                               train_iter)
+                        if acc > best_valid:
+                            best_valid = acc
+                            self.save("BEST")
+                best_valid = self._end_epoch(epoch, quesid2ans, best_valid,
+                                             t_epoch)
+        finally:
+            if prof is not None:  # a run shorter than profile_steps
+                self._stop_trace(prof)
+            if own_guard:
+                self.preempt.uninstall()
+                self.preempt = None
         self.ckpt.wait()
+        # a completed run: a PREEMPT cursor would be stale
+        self.ckpt.remove("PREEMPT")
         return best_valid
 
     def train_baseline(self) -> float:
