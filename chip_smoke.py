@@ -121,7 +121,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             and, on the trained model, ms of each of its steps fed by its
             feeder against the same steps on one resident batch, in turns
             (fed, resident, resident, fed, fed, resident; 2 feeder passes
-            each), each pass's first step left out.
+            each), each pass's first step left out. Its directory stays for
+            phase 12 (BEST is deleted once the test arm has read it).
 11. vqacp   the VQA-CP v2 recipe (`cli/vqacpv2.py`, 16039 answers, batch
             92, clean phase first, delta 0) at full width in bf16: a pack
             corpus (368 training questions over 64 images, 184 test
@@ -149,9 +150,54 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             read. It prints ms per batch through the trainer (runs A and
             C), the snapshot's and the resume's load seconds and peak
             device memory.
-12. summary the kernels line (all seven kernels; kernels 1 to 3 with their
-            trainer-phase and VQA-CP launches too), the card's name and
-            power limit, and last {"ok": true, "device": {...}}.
+12. export  phase 10's BEST_0 (full width, 1842 answers) exported through
+   serve    `cli/export.py` (`--load BEST_0`, any batch size) once in bf16
+            and once `--quantize int8`; each loaded with
+            `ServingModel.load` on the card (no predict.stablehlo, the
+            answer vocabulary, the int8 artifact with every Dense but
+            `logit_fc.fc2` an `Int8Dense`) and served through
+            `InferenceEngine` and the HTTP server over the validation
+            images in memory (`MemoryFeatureStore`: the card's machine has
+            no h5py): POSTs of 1, 16 and 64 queries, answers in the
+            vocabulary, 34 kernel-1 launches per forward and each
+            Int8Dense once a forward (the x-layers' shared cross-attention
+            twice); the bf16 artifact's logits on 64 validation queries
+            against those of phase 10's final parameters in memory (max abs
+            diff <= 0.1, argmax >= 90%), the int8 artifact's against the
+            bf16 artifact's over the split's distinct questions (per-row
+            relative L2 < 5%, the bound of tests/test_serving.py; the
+            answers the same, printed with each question's bf16 top-1
+            margin where they differ: near-ties of a model 4 updates from
+            random weights); per artifact its bytes, the export's and the
+            load's seconds, served pairs/s and p50 at batch 64,
+            predict_logits pairs/s at batch 512, peak memory; and the
+            device time of one forward at batch 512 by category
+            (torch.profiler), int8 and bf16. Then the int8 answers on a
+            model that has learnt its task: a corpus of phase 10's size
+            with each image's answer planted (+3 in its feature column,
+            and named in each question), a trainer at full width and
+            2/1/1 layers trained from random weights with plain BCE in
+            fp32 (`train_baseline`, 64 epochs, lr 1e-4), exported through
+            `cli/export.py` in bf16 and int8 and loaded; bf16 accuracy on
+            the validation split >= 50% (chance 1/16), int8 against bf16
+            per-row relative L2 < 5% and answers the same >= 90% (the
+            bounds of tests/test_serving.py).
+13. gin/gat the full-width training model of phase 8 with `--gnn GIN`,
+            then `--gnn GAT` (2 heads, merge projection): one relation and
+            one representation batch of 96 through make_ggm_train_step,
+            finite losses, 2 updates per batch, 68 kernel-2 and 66 kernel-3
+            launches per batch and no kernel-1 launch; each GGM branch's
+            loss and gradients through the kernels against the plain
+            attention, within phase 8's limits on the loss, on all
+            gradients together and on each parameter's, but GIN's eps
+            (a scalar whose terms nearly cancel), held in bf16 to the
+            generator's whole gradient and, by GIN's comparison repeated
+            from the same parameters computing in fp32, to its own; ms
+            per batch over 4 batches, pairs/s and peak memory.
+14. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+            trainer-phase, VQA-CP, served-artifact and GIN/GAT launches
+            too), the card's name and power limit, and last {"ok": true,
+            "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -248,6 +294,28 @@ FED_PASSES = 2  # feeder passes per timing turn of the trainer phase
 VQACP_TRAIN = dict(n_questions=368, n_images=64, seed=0)
 VQACP_TEST = dict(n_questions=184, n_images=32, seed=1)
 VQACP_SEED = 9595
+# The export-and-serve phase: int8 against bf16 at the JAX package's int8
+# envelope (tests/test_serving.py): per-row relative L2 of the logits and
+# argmax agreement.
+INT8_REL_L2 = 0.05
+SERVE_REQUESTS = 20
+# Phase 10's BEST_0, four updates from random weights, answers the questions
+# nearly alike: most of its bf16 top-1 margins lie below int8's error, so
+# the share of answers int8 keeps there counts near-ties, and is printed.
+# The answer gate reads a model whose answers follow its inputs: full width
+# at 2/1/1 layers, trained from random weights with plain BCE (one clean
+# update per batch) in fp32 on a corpus whose answer is planted in both
+# modalities, as the JAX package's int8 accuracy test and
+# tools/blind_parity.py plant it; then exported and served in bf16. At the
+# full depth, or in bf16, no input-dependent answer was learnt within the
+# run's budget. Its bf16 accuracy must show it learnt the task (chance is
+# 1/16).
+LEARN_DEPTH = ("2", "1", "1")
+LEARN_EPOCHS, LEARN_LR = 64, 1e-4
+LEARN_MIN_ACCURACY = 0.5
+# The GIN and GAT phase: one batch of each branch, then timed batches.
+GEN_PLAN = ("relation", "representation")
+GEN_TIMED_BATCHES = 4
 VQACP_PRE_ANSWERS, VQACP_SHARED = 9500, 1000
 RESUME_LOSS_RTOL, RESUME_PARAM_ATOL = 1e-4, 1e-5
 # An update reads g, m, v, p and writes m, v, p: 28 bytes per fp32 element
@@ -1173,10 +1241,14 @@ def forward_device_of(root: str) -> int:
     return 0
 
 
-def grad_agreement(torch, names, kernels, plain) -> dict:
+def grad_agreement(torch, names, kernels, plain, apart=(),
+                   watch=()) -> dict:
     """Relative L2 distance of two gradient lists (None: outside the
     graph): over all parameters together, and the largest over single
-    parameters whose plain gradient is nonzero."""
+    parameters whose plain gradient is nonzero. The parameters named in
+    `apart` are left out of that largest; those and the ones in `watch` are
+    each measured on their own and against the norm of the generator's
+    whole gradient."""
     same_graph = all((a is None) == (b is None)
                      for a, b in zip(kernels, plain))
     pairs = [(n, a.float(), b.float()) for n, a, b in zip(names, kernels, plain)
@@ -1184,17 +1256,31 @@ def grad_agreement(torch, names, kernels, plain) -> dict:
     diff = torch.stack([(a - b).norm() for _, a, b in pairs])
     norm = torch.stack([b.norm() for _, _, b in pairs])
     rel = torch.where(norm > 0, diff / norm, 0.0)
-    worst = int(rel.argmax())
+    own = torch.tensor([n not in apart for n, _, _ in pairs],
+                       device=rel.device)
+    worst = int(torch.where(own, rel, -1.0).argmax())
+    gen = torch.tensor([n.startswith("generator.") for n, _, _ in pairs],
+                       device=rel.device)
+    gen_norm = norm[gen].norm()
     return dict(same_graph=same_graph, params_with_grad=len(pairs),
                 grad_rel_l2=float(diff.norm() / norm.norm()),
                 max_param_grad_rel_l2=float(rel[worst]),
                 worst_param=pairs[worst][0],
-                median_param_grad_rel_l2=float(rel[norm > 0].median()))
+                median_param_grad_rel_l2=float(rel[norm > 0].median()),
+                apart=list(apart),
+                named={n: dict(rel_l2=float(rel[i]),
+                               rel_to_generator_grad=float(diff[i]
+                                                           / gen_norm))
+                       for i, (n, _, _) in enumerate(pairs)
+                       if n in apart or n in watch})
 
 
-def train_setup(torch, fused: bool):
-    """The full-width training model, BertAdam (`fused`: kernel 7), its
-    state, the two branch steps and one synthetic batch of 96."""
+def train_setup(torch, fused: bool, gnn: str = "GCN",
+                dtype: str = "bfloat16"):
+    """The full-width training model with the generator `gnn`, computing in
+    `dtype`, BertAdam (`fused`: kernel 7), its state, the two branch steps
+    and one synthetic batch of 96."""
+    from dataclasses import replace
     from types import SimpleNamespace
 
     from xggm_tpu_torch.config import gqa_ood_config
@@ -1205,7 +1291,8 @@ def train_setup(torch, fused: bool):
     from xggm_tpu_torch.training.steps import TrainState, make_ggm_train_step
 
     cfg = gqa_ood_config()
-    lx, tc = cfg.lxmert.replace(dtype="bfloat16"), cfg.train
+    cfg = cfg.replace(ggm=replace(cfg.ggm, gnn=gnn))
+    lx, tc = cfg.lxmert.replace(dtype=dtype), cfg.train
     train_b = tc.batch_size
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = init_weights(
@@ -1304,35 +1391,34 @@ def time_batches(torch, t) -> dict:
                 final_clean_loss=final)
 
 
-def phase_train(torch, attn, philox):
-    """The GGM train step at full width through kernels 2 and 3, with the
-    tree BertAdam. Returns the main path's counts and the profile."""
+def kernels_vs_plain(torch, attn, philox, t, state, phase: str, branches,
+                     apart=(), watch=()) -> list:
+    """Each phase's loss (`branches`: relation, representation, clean) and
+    its gradient for every parameter, from `state` and fixed seeds, once
+    through kernels 2 and 3 and once through the plain attention fed the
+    same Philox masks, with no update: within LOSS_RTOL, GRAD_RTOL overall
+    and PARAM_GRAD_RTOL per parameter; for the parameters in `apart`,
+    PARAM_GRAD_RTOL of the generator's whole gradient (those and the
+    ones in `watch` printed by name)."""
     from xggm_tpu_torch.training.steps import (
         make_clean_loss, make_ggm_loss, phase_seeds)
 
-    t = train_setup(torch, fused=False)
-    model, tc, cfg, names, batch = t.model, t.tc, t.cfg, t.names, t.batch
-    launches = drive_plan(torch, t, "train", {
-        "attention_fwd": attn.fused_attention,
-        "attention_dropout_fwd": attn.attention_dropout_fwd,
-        "attention_dropout_bwd": attn.attention_dropout_bwd})
-    state = t.state
-
-    # each phase's loss and gradients from this state and seeds, through the
-    # kernels and through the plain attention: the same Philox masks, so
-    # they agree; no update
     def plain_dropout(q, k, v, bias, heads, seed, rate):
         keep = philox.dropout_keep(seed, q.shape[0], q.shape[1], k.shape[1],
                                    rate, q.device)
         return attn.attention_dropout_reference(q, k, v, bias, heads, keep)
 
     ggm_dropout, ggm_noise, clean_dropout = phase_seeds(100)
-    params = [state.params[n] for n in names]
-    phases = {f"{br}_ggm_loss": (make_ggm_loss(model, tc, br),
-                                 (batch, ggm_dropout, ggm_noise))
-              for br in ("relation", "representation")}
-    phases["clean_loss"] = (make_clean_loss(model, cfg.num_answers),
-                            (batch, clean_dropout))
+    params = [state.params[n] for n in t.names]
+    phases = {}
+    for br in branches:
+        if br == "clean":
+            phases["clean_loss"] = (make_clean_loss(t.model,
+                                                    t.cfg.num_answers),
+                                    (t.batch, clean_dropout))
+        else:
+            phases[f"{br}_ggm_loss"] = (make_ggm_loss(t.model, t.tc, br),
+                                        (t.batch, ggm_dropout, ggm_noise))
 
     def loss_and_grads(fn, args):
         loss = fn(*args)[0]
@@ -1348,16 +1434,35 @@ def phase_train(torch, attn, philox):
         agreement.append(dict(
             phase=key, kernels=loss_k, plain=loss_p,
             loss_rel_diff=abs(loss_k - loss_p) / max(abs(loss_p), 1e-12),
-            **grad_agreement(torch, names, grads_k, grads_p)))
+            **grad_agreement(torch, t.names, grads_k, grads_p, apart,
+                             watch)))
         del grads_k, grads_p
-    emit("train_vs_plain", rows=agreement, loss_rtol=LOSS_RTOL,
-         grad_rtol=GRAD_RTOL, param_grad_rtol=PARAM_GRAD_RTOL)
+    emit(phase, rows=agreement, loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL,
+         param_grad_rtol=PARAM_GRAD_RTOL)
     bad = [r for r in agreement
            if not (r["same_graph"] and r["loss_rel_diff"] <= LOSS_RTOL
                    and r["grad_rel_l2"] <= GRAD_RTOL
-                   and r["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL)]
-    check(not bad, f"losses and gradients with kernels vs plain "
+                   and r["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL
+                   and all(v["rel_to_generator_grad"] <= PARAM_GRAD_RTOL
+                           for n, v in r["named"].items()
+                           if n in r["apart"]))]
+    check(not bad, f"{phase}: losses and gradients with kernels vs plain "
                    f"attention: {bad}")
+    return agreement
+
+
+def phase_train(torch, attn, philox):
+    """The GGM train step at full width through kernels 2 and 3, with the
+    tree BertAdam. Returns the main path's counts and the profile."""
+    t = train_setup(torch, fused=False)
+    launches = drive_plan(torch, t, "train", {
+        "attention_fwd": attn.fused_attention,
+        "attention_dropout_fwd": attn.attention_dropout_fwd,
+        "attention_dropout_bwd": attn.attention_dropout_bwd})
+    state = t.state
+
+    kernels_vs_plain(torch, attn, philox, t, state, "train_vs_plain",
+                     ("relation", "representation", "clean"))
 
     timing = time_batches(torch, t)
     emit("train_timing", **timing)
@@ -1574,19 +1679,18 @@ def kernel_category(name: str) -> str:
     return "elementwise and reductions"
 
 
-def profile_batch(torch, step, state, batch, timed_ms: float) -> dict:
-    """Device time of one two-phase batch by kernel, from torch.profiler
-    (CUDA activity only): the sum of kernel durations is the device's busy
-    time (one stream), and its idle share is taken against the unprofiled
-    ms per batch of the timing run."""
+def profile_call(torch, fn, category=kernel_category) -> dict:
+    """Device time of one call of `fn` by kernel, from torch.profiler (CUDA
+    activity only), after one unprofiled call: the sum of kernel durations
+    is the device's busy time (one stream)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step(state, batch, 2000)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, 2001)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, by_cat, launches = {}, {}, 0
@@ -1595,274 +1699,309 @@ def profile_batch(torch, step, state, batch, timed_ms: float) -> dict:
             continue
         us = evt.time_range.elapsed_us()
         by_name[evt.name] = by_name.get(evt.name, 0.0) + us / 1e3
-        cat = kernel_category(evt.name)
+        cat = category(evt.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3
         launches += 1
     busy = sum(by_cat.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return dict(wall_ms_profiled=wall_ms, timed_ms_per_batch=timed_ms,
-                device_busy_ms=busy,
-                device_idle_share=(1.0 - busy / timed_ms) if busy else None,
+    return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
                 device_events=launches, device_ms_by_category=by_cat,
                 top_kernels_ms=[[n[:120], ms] for n, ms in top],
                 note=("no device events: not measured" if not busy
                       else "device events from torch.profiler (CUPTI)"))
 
 
+def profile_batch(torch, step, state, batch, timed_ms: float) -> dict:
+    """Device time of one two-phase batch by kernel; its idle share is
+    taken against the unprofiled ms per batch of the timing run."""
+    seeds = iter((2000, 2001))
+    prof = profile_call(torch, lambda: step(state, batch, next(seeds)))
+    busy = prof["device_busy_ms"]
+    return dict(prof, timed_ms_per_batch=timed_ms,
+                device_idle_share=(1.0 - busy / timed_ms) if busy else None)
+
+
+def write_answer_tables(root: str, label2ans: list) -> None:
+    """The GQA-OOD answer vocabulary of a corpus under `root`."""
+    from xggm_tpu_torch.utils.io import save_json
+
+    save_json(label2ans, os.path.join(root, "gqa_ood",
+                                      "trainval_label2ans.json"))
+    save_json({a: i for i, a in enumerate(label2ans)},
+              os.path.join(root, "gqa_ood", "trainval_ans2label.json"))
+
+
 def phase_trainer(torch, attn, phase8_ms_per_batch: float,
-                  t_start: float) -> dict:
+                  t_start: float, tmp: str):
     """The GQA-OOD trainer through its CLI at full width: a pack corpus
-    written without H5 (1842 answers), one epoch of 4 batches of 96 in bf16,
-    then the test arm from its checkpoint. Kernels 1, 2 and 3 counted over
-    the train arm (counts at 0 just before, read just after). Returns the
-    counts."""
+    written without H5 (1842 answers) under `tmp`, one epoch of 4 batches of
+    96 in bf16, then the test arm from its checkpoint. Kernels 1, 2 and 3
+    counted over the train arm (counts at 0 just before, read just after).
+    Returns the counts, and what phase 12 serves: the run's directories,
+    the validation questions over an in-memory store of their images, and
+    the epoch's final parameters' logits (those BEST_0 holds) on the first
+    64 of them, through the serving path."""
     from xggm_tpu_torch.cli import gqa_ood
     from xggm_tpu_torch.config import gqa_ood_config
-    from xggm_tpu_torch.data.datasets import GQADataset, GraphBatchDataset
+    from xggm_tpu_torch.data.datasets import (
+        GQADataset, GraphBatchDataset, MemoryFeatureStore)
     from xggm_tpu_torch.data.feeder import Feeder
     from xggm_tpu_torch.data.synthetic import (
         ANSWERS, make_synthetic_gqa, write_vocab)
     from xggm_tpu_torch.data.xpack import XPackFeatureStore
+    from xggm_tpu_torch.serving.artifact import ServingModel
+    from xggm_tpu_torch.serving.server import InferenceEngine
     from xggm_tpu_torch.utils.guard import check_step_finite
-    from xggm_tpu_torch.utils.io import save_json
 
     cfg = gqa_ood_config()
     bs, feat_dim = cfg.train.batch_size, cfg.lxmert.visual.visual_feat_dim
     counters = {"attention_fwd": attn.fused_attention,
                 "attention_dropout_fwd": attn.attention_dropout_fwd,
                 "attention_dropout_bwd": attn.attention_dropout_bwd}
-    tmp = tempfile.mkdtemp(prefix="xggm_trainer_")
-    try:
-        root, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    make_synthetic_gqa(root, "train", feat_dim=feat_dim, pack=True,
+                       **TRAINER_TRAIN)
+    make_synthetic_gqa(root, "val", feat_dim=feat_dim, pack=True,
+                       **TRAINER_VAL)
+    write_vocab(os.path.join(root, "vocab.txt"))
+    # the recipe's answer vocabulary size, as the serving phase pads it
+    label2ans = ANSWERS + [f"answer_{i}" for i in
+                           range(len(ANSWERS), cfg.num_answers)]
+    write_answer_tables(root, label2ans)
+    feat_files = sorted(os.listdir(os.path.join(root, "gqa_imgfeat")))
+    corpus_s = time.perf_counter() - t0
+    check(not [f for f in feat_files if f.endswith(".h5")],
+          f"the pack corpus holds H5 files: {feat_files}")
+
+    argv = ["--train", "train", "--valid", "val", "--data_root", root,
+            "--output", out, "--bs", str(bs), "--epochs", "1", "--lr",
+            str(cfg.train.lr), "--seed", str(TRAINER_SEED), "--device",
+            "cuda", "--xpack", "--dtype", "bfloat16"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        trainer = gqa_ood.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lines = stdout.getvalue().splitlines()
+
+    recs = [json.loads(ln) for ln in
+            open(os.path.join(out, "metrics.jsonl"))]
+    steps = [r for r in recs if "branch" in r]
+    vals = [r for r in recs if "valid/mid_epoch_acc" in r]
+    log = open(os.path.join(out, "log.log")).read().splitlines()
+    epoch_lines = [ln for ln in log if ln.startswith("Epoch 0: ")]
+    end = re.match(r"Epoch 0: Train [\d.]+, Valid ([\d.]+), Best "
+                   r"([\d.]+) \(([\d.]+)s\)$",
+                   epoch_lines[0] if epoch_lines else "")
+    best_line = [ln for ln in lines if ln.startswith("Best valid: ")]
+    draw = random.Random(TRAINER_SEED)
+    want_branches = ["rel" if draw.randint(1, 10) <= cfg.ggm.delta
+                     else "rep" for _ in steps]
+    n_batches = len(trainer.train_set) // bs
+    # validations: after the batches at linspace(0, n, 5)[1:-1] and
+    # at the epoch's end; each predicts the split in batches of
+    # max(bs, 64), 34 kernel-1 launches a forward
+    mid = len({int(x) for x in
+               [n_batches * k / 4 for k in (1, 2, 3)]})
+    eval_forwards = (mid + 1) * math.ceil(len(trainer.valid_set)
+                                          / max(bs, 64))
+    want = {"attention_fwd": LAUNCHES_PER_FORWARD * eval_forwards,
+            "attention_dropout_fwd": FWD_LAUNCHES_PER_BATCH * len(steps),
+            "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * len(steps)}
+    # ms per training batch: gaps between consecutive step records that
+    # no validation (and its save) separates
+    val_after = {r["step"] for r in vals}
+    gaps = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(steps, steps[1:])
+            if b["step"] not in val_after]
+    trainer_ms = statistics.median(gaps) if gaps else None
+    saves = list(trainer.ckpt.history)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    count = trainer.state.opt_state.count
+    native = trainer.train_set.store.pack.native
+    losses = [{k: v for k, v in r.items()
+               if k not in ("step", "branch", "ts")} for r in steps]
+    checkpoints = sorted(d for d in os.listdir(out)
+                         if d.startswith("BEST"))
+    accs = [r["valid/mid_epoch_acc"] for r in vals]
+    end_acc = float(end.group(1)) / 100 if end else None
+    improved = any(a > 0 for a in accs + [end_acc or 0.0])
+    emit("trainer", cli_lines=lines, corpus_seconds=corpus_s,
+         feature_files=feat_files, steps=len(steps),
+         branches=[r["branch"] for r in steps],
+         expected_branches=want_branches, losses=losses,
+         validation_steps=sorted(val_after), validation_accuracies=accs,
+         end_of_epoch_accuracy=end_acc, optimizer_count=count,
+         launches=launches, expected_launches=want,
+         eval_forwards=eval_forwards, checkpoints=checkpoints,
+         log_lines=log, xpack_native=native, params=n_params)
+    check("Oracle score: 100.00" in lines, f"oracle: {lines}")
+    check(len(steps) == n_batches == 4, f"{len(steps)} steps")
+    check(all(math.isfinite(v) for d in losses for v in d.values()),
+          f"non-finite trainer losses: {losses}")
+    check([r["branch"] for r in steps] == want_branches,
+          "branches are not random.Random(seed)'s draws")
+    check(count == UPDATES_PER_BATCH * len(steps),
+          f"optimizer count {count} after {len(steps)} batches")
+    check(launches == want, f"launches {launches}, expected {want}")
+    check(len(epoch_lines) == 1 and end is not None and best_line,
+          f"log.log {log}, stdout {lines}")
+    # BEST after an improvement on 0, BEST_0 at the end of the epoch
+    check(("BEST" in checkpoints) == improved and "BEST_0" in checkpoints,
+          f"checkpoints {checkpoints}, accuracies {accs}, {end_acc}")
+    check(saves and all(s["bytes"] >= 3 * 4 * n_params for s in saves),
+          f"checkpoint sizes {saves}")
+
+    # the epoch's final parameters (those BEST_0 holds) predict the
+    # split in memory, before the timing turns below change them
+    final_preds = trainer.predict(trainer.valid_set)
+    save_names = [sv["name"] for sv in saves]
+    pack = XPackFeatureStore(os.path.join(root, "gqa_imgfeat",
+                                          "val_obj36.xpack"))
+    val_store = MemoryFeatureStore({i: pack.get(i)[:2]
+                                    for i in pack.img_ids()})
+    pack.close()
+    val_queries = [{"img_id": r.img_id, "sent": r.sent}
+                   for r in trainer.valid_set.records]
+    in_memory = InferenceEngine(ServingModel(trainer.model, {
+        "batch_size": None, "seq_len": 20, "num_objects": 36,
+        "feat_dim": feat_dim}), trainer.tokenizer, val_store)
+    served_batch = in_memory._assemble(val_queries[:64])
+    handoff = dict(root=root, out=out, tmp=tmp, label2ans=label2ans,
+                   tokenizer=trainer.tokenizer, store=val_store,
+                   queries=val_queries, batch=served_batch,
+                   final_logits=in_memory.model.predict_logits(
+                       served_batch))
+    del in_memory
+
+    # the feeder alone over the train set: host ms per batch
+    store = XPackFeatureStore(os.path.join(root, "gqa_imgfeat",
+                                           "train_obj36.xpack"))
+    ds = GraphBatchDataset(GQADataset("train", trainer.cfg.data),
+                           trainer.tokenizer, store=store)
+    feeder = Feeder(ds, bs, shuffle=True, drop_last=True,
+                    seed=TRAINER_SEED, feats_dtype=torch.bfloat16,
+                    device="cuda")
+    feeder_ms = []
+    for _ in range(3):
         t0 = time.perf_counter()
-        make_synthetic_gqa(root, "train", feat_dim=feat_dim, pack=True,
-                           **TRAINER_TRAIN)
-        make_synthetic_gqa(root, "val", feat_dim=feat_dim, pack=True,
-                           **TRAINER_VAL)
-        write_vocab(os.path.join(root, "vocab.txt"))
-        # the recipe's answer vocabulary size, as the serving phase pads it
-        label2ans = ANSWERS + [f"answer_{i}" for i in
-                               range(len(ANSWERS), cfg.num_answers)]
-        save_json(label2ans, os.path.join(root, "gqa_ood",
-                                          "trainval_label2ans.json"))
-        save_json({a: i for i, a in enumerate(label2ans)},
-                  os.path.join(root, "gqa_ood", "trainval_ans2label.json"))
-        feat_files = sorted(os.listdir(os.path.join(root, "gqa_imgfeat")))
-        corpus_s = time.perf_counter() - t0
-        check(not [f for f in feat_files if f.endswith(".h5")],
-              f"the pack corpus holds H5 files: {feat_files}")
-
-        argv = ["--train", "train", "--valid", "val", "--data_root", root,
-                "--output", out, "--bs", str(bs), "--epochs", "1", "--lr",
-                str(cfg.train.lr), "--seed", str(TRAINER_SEED), "--device",
-                "cuda", "--xpack", "--dtype", "bfloat16"]
+        n = sum(1 for _ in feeder)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        stdout = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            trainer = gqa_ood.main(argv)
+        feeder_ms.append((time.perf_counter() - t0) * 1e3 / n)
+    store.close()
+
+    # the trainer's steps fed by its feeder against the same steps on
+    # one batch already on the card, in alternating turns (fed,
+    # resident, resident, fed, fed, resident), each of FED_PASSES
+    # feeder passes. Each step is timed on its own, with the trainer's
+    # host reads. The first step of each pass (the producer's start-up,
+    # which no step overlaps) is left out, at the same positions in
+    # both modes: if the copies overlap the steps, the two agree within
+    # the noise
+    train_feeder = trainer._feeder(trainer.train_set, bs, True)
+    per_pass = len(train_feeder)
+    resident = list(train_feeder)[0]
+
+    def run(items) -> list:
+        """ms of each step after the pass's first."""
+        times = []
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = {name: c.launches for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        lines = stdout.getvalue().splitlines()
+        t = time.perf_counter()
+        for i, (qids, batch, _) in enumerate(items):
+            step = trainer.rel_step if i % 2 == 0 else trainer.rep_step
+            trainer.state, m = step(trainer.state, batch, 10_000 + i)
+            check_step_finite(i, "timing", trainer._record(qids, m, {}))
+            now = time.perf_counter()
+            if i % per_pass:
+                times.append((now - t) * 1e3)
+            t = now
+        return times
 
-        recs = [json.loads(ln) for ln in
-                open(os.path.join(out, "metrics.jsonl"))]
-        steps = [r for r in recs if "branch" in r]
-        vals = [r for r in recs if "valid/mid_epoch_acc" in r]
-        log = open(os.path.join(out, "log.log")).read().splitlines()
-        epoch_lines = [ln for ln in log if ln.startswith("Epoch 0: ")]
-        end = re.match(r"Epoch 0: Train [\d.]+, Valid ([\d.]+), Best "
-                       r"([\d.]+) \(([\d.]+)s\)$",
-                       epoch_lines[0] if epoch_lines else "")
-        best_line = [ln for ln in lines if ln.startswith("Best valid: ")]
-        draw = random.Random(TRAINER_SEED)
-        want_branches = ["rel" if draw.randint(1, 10) <= cfg.ggm.delta
-                         else "rep" for _ in steps]
-        n_batches = len(trainer.train_set) // bs
-        # validations: after the batches at linspace(0, n, 5)[1:-1] and
-        # at the epoch's end; each predicts the split in batches of
-        # max(bs, 64), 34 kernel-1 launches a forward
-        mid = len({int(x) for x in
-                   [n_batches * k / 4 for k in (1, 2, 3)]})
-        eval_forwards = (mid + 1) * math.ceil(len(trainer.valid_set)
-                                              / max(bs, 64))
-        want = {"attention_fwd": LAUNCHES_PER_FORWARD * eval_forwards,
-                "attention_dropout_fwd": FWD_LAUNCHES_PER_BATCH * len(steps),
-                "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * len(steps)}
-        # ms per training batch: gaps between consecutive step records that
-        # no validation (and its save) separates
-        val_after = {r["step"] for r in vals}
-        gaps = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(steps, steps[1:])
-                if b["step"] not in val_after]
-        trainer_ms = statistics.median(gaps) if gaps else None
-        saves = list(trainer.ckpt.history)
-        n_params = sum(p.numel() for p in trainer.model.parameters())
-        count = trainer.state.opt_state.count
-        native = trainer.train_set.store.pack.native
-        losses = [{k: v for k, v in r.items()
-                   if k not in ("step", "branch", "ts")} for r in steps]
-        checkpoints = sorted(d for d in os.listdir(out)
-                             if d.startswith("BEST"))
-        accs = [r["valid/mid_epoch_acc"] for r in vals]
-        end_acc = float(end.group(1)) / 100 if end else None
-        improved = any(a > 0 for a in accs + [end_acc or 0.0])
-        emit("trainer", cli_lines=lines, corpus_seconds=corpus_s,
-             feature_files=feat_files, steps=len(steps),
-             branches=[r["branch"] for r in steps],
-             expected_branches=want_branches, losses=losses,
-             validation_steps=sorted(val_after), validation_accuracies=accs,
-             end_of_epoch_accuracy=end_acc, optimizer_count=count,
-             launches=launches, expected_launches=want,
-             eval_forwards=eval_forwards, checkpoints=checkpoints,
-             log_lines=log, xpack_native=native, params=n_params)
-        check("Oracle score: 100.00" in lines, f"oracle: {lines}")
-        check(len(steps) == n_batches == 4, f"{len(steps)} steps")
-        check(all(math.isfinite(v) for d in losses for v in d.values()),
-              f"non-finite trainer losses: {losses}")
-        check([r["branch"] for r in steps] == want_branches,
-              "branches are not random.Random(seed)'s draws")
-        check(count == UPDATES_PER_BATCH * len(steps),
-              f"optimizer count {count} after {len(steps)} batches")
-        check(launches == want, f"launches {launches}, expected {want}")
-        check(len(epoch_lines) == 1 and end is not None and best_line,
-              f"log.log {log}, stdout {lines}")
-        # BEST after an improvement on 0, BEST_0 at the end of the epoch
-        check(("BEST" in checkpoints) == improved and "BEST_0" in checkpoints,
-              f"checkpoints {checkpoints}, accuracies {accs}, {end_acc}")
-        check(saves and all(s["bytes"] >= 3 * 4 * n_params for s in saves),
-              f"checkpoint sizes {saves}")
+    def fed():
+        for _ in range(FED_PASSES):
+            yield from train_feeder
 
-        # the epoch's final parameters (those BEST_0 holds) predict the
-        # split in memory, before the timing turns below change them
-        final_preds = trainer.predict(trainer.valid_set)
-        save_names = [sv["name"] for sv in saves]
+    turns = []
+    for mode in ("fed", "resident", "resident", "fed", "fed",
+                 "resident"):
+        turns.append((mode, run(fed() if mode == "fed" else
+                                [resident] * (FED_PASSES * per_pass))))
+    steady = {mode: statistics.median(
+        [t for m, ts in turns if m == mode for t in ts])
+        for mode in ("fed", "resident")}
+    best_valid = float(best_line[0].split()[-1])
+    del trainer, ds, feeder, train_feeder, resident
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # the feeder alone over the train set: host ms per batch
-        store = XPackFeatureStore(os.path.join(root, "gqa_imgfeat",
-                                               "train_obj36.xpack"))
-        ds = GraphBatchDataset(GQADataset("train", trainer.cfg.data),
-                               trainer.tokenizer, store=store)
-        feeder = Feeder(ds, bs, shuffle=True, drop_last=True,
-                        seed=TRAINER_SEED, feats_dtype=torch.bfloat16,
-                        device="cuda")
-        feeder_ms = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            n = sum(1 for _ in feeder)
-            torch.cuda.synchronize()
-            feeder_ms.append((time.perf_counter() - t0) * 1e3 / n)
-        store.close()
+    # the test arm, from BEST when it was saved, else BEST_0. Either
+    # holds the final parameters when it was the last save but BEST_0's
+    # own (BEST saved at the epoch's end): its answers must then be
+    # final_preds', answer for answer
+    load = "BEST" if improved else "BEST_0"
+    holds_final = (load == "BEST_0"
+                   or save_names[-2:] == ["BEST", "BEST_0"])
+    want_acc = best_valid if improved else float(end.group(1))
+    for c in counters.values():
+        c.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        gqa_ood.main(argv + ["--test", "val", "--load",
+                             os.path.join(out, load)])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = counters["attention_fwd"].launches
+    test_lines = stdout.getvalue().splitlines()
+    # phase 12 exports BEST_0; free the disk of the other checkpoint
+    shutil.rmtree(os.path.join(out, "BEST"), ignore_errors=True)
+    preds = json.load(open(os.path.join(out, "val_predict.json")))
+    acc_line = [ln for ln in test_lines
+                if ln.startswith("val accuracy: ")]
+    vocab = set(label2ans)
+    loaded_preds = {p["questionId"]: p["prediction"] for p in preds}
+    differ = (sum(loaded_preds.get(q) != a for q, a in final_preds.items())
+              if holds_final else None)
+    emit("trainer_test_arm", loaded=load, cli_lines=test_lines,
+         predictions=len(preds), seconds=test_s,
+         attention_fwd_launches=test_launches,
+         expected_accuracy=f"{want_acc:.2f}",
+         compared_with_final_parameters=holds_final,
+         answers_differing_from_final_parameters=differ)
+    check(len(preds) == TRAINER_VAL["n_questions"]
+          and all(p["prediction"] in vocab for p in preds),
+          f"{len(preds)} predictions")
+    check(not holds_final or (differ == 0 and len(loaded_preds)
+                              == len(final_preds)),
+          f"{load}'s test arm: {differ} answers differ from the final "
+          "parameters' in memory")
+    check(acc_line and acc_line[0].split()[-1] == f"{want_acc:.2f}",
+          f"test arm accuracy {acc_line}, expected {want_acc:.2f}")
+    check(test_launches == LAUNCHES_PER_FORWARD * math.ceil(
+        len(preds) / max(bs, 64)), f"{test_launches} test-arm launches")
 
-        # the trainer's steps fed by its feeder against the same steps on
-        # one batch already on the card, in alternating turns (fed,
-        # resident, resident, fed, fed, resident), each of FED_PASSES
-        # feeder passes. Each step is timed on its own, with the trainer's
-        # host reads. The first step of each pass (the producer's start-up,
-        # which no step overlaps) is left out, at the same positions in
-        # both modes: if the copies overlap the steps, the two agree within
-        # the noise
-        train_feeder = trainer._feeder(trainer.train_set, bs, True)
-        per_pass = len(train_feeder)
-        resident = list(train_feeder)[0]
-
-        def run(items) -> list:
-            """ms of each step after the pass's first."""
-            times = []
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for i, (qids, batch, _) in enumerate(items):
-                step = trainer.rel_step if i % 2 == 0 else trainer.rep_step
-                trainer.state, m = step(trainer.state, batch, 10_000 + i)
-                check_step_finite(i, "timing", trainer._record(qids, m, {}))
-                now = time.perf_counter()
-                if i % per_pass:
-                    times.append((now - t) * 1e3)
-                t = now
-            return times
-
-        def fed():
-            for _ in range(FED_PASSES):
-                yield from train_feeder
-
-        turns = []
-        for mode in ("fed", "resident", "resident", "fed", "fed",
-                     "resident"):
-            turns.append((mode, run(fed() if mode == "fed" else
-                                    [resident] * (FED_PASSES * per_pass))))
-        steady = {mode: statistics.median(
-            [t for m, ts in turns if m == mode for t in ts])
-            for mode in ("fed", "resident")}
-        best_valid = float(best_line[0].split()[-1])
-        del trainer, ds, feeder, train_feeder, resident
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # the test arm, from BEST when it was saved, else BEST_0. Either
-        # holds the final parameters when it was the last save but BEST_0's
-        # own (BEST saved at the epoch's end): its answers must then be
-        # final_preds', answer for answer
-        load = "BEST" if improved else "BEST_0"
-        holds_final = (load == "BEST_0"
-                       or save_names[-2:] == ["BEST", "BEST_0"])
-        want_acc = best_valid if improved else float(end.group(1))
-        for c in counters.values():
-            c.launches = 0
-        stdout = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            gqa_ood.main(argv + ["--test", "val", "--load",
-                                 os.path.join(out, load)])
-        torch.cuda.synchronize()
-        test_s = time.perf_counter() - t0
-        test_launches = counters["attention_fwd"].launches
-        test_lines = stdout.getvalue().splitlines()
-        preds = json.load(open(os.path.join(out, "val_predict.json")))
-        acc_line = [ln for ln in test_lines
-                    if ln.startswith("val accuracy: ")]
-        vocab = set(label2ans)
-        loaded_preds = {p["questionId"]: p["prediction"] for p in preds}
-        differ = (sum(loaded_preds.get(q) != a for q, a in final_preds.items())
-                  if holds_final else None)
-        emit("trainer_test_arm", loaded=load, cli_lines=test_lines,
-             predictions=len(preds), seconds=test_s,
-             attention_fwd_launches=test_launches,
-             expected_accuracy=f"{want_acc:.2f}",
-             compared_with_final_parameters=holds_final,
-             answers_differing_from_final_parameters=differ)
-        check(len(preds) == TRAINER_VAL["n_questions"]
-              and all(p["prediction"] in vocab for p in preds),
-              f"{len(preds)} predictions")
-        check(not holds_final or (differ == 0 and len(loaded_preds)
-                                  == len(final_preds)),
-              f"{load}'s test arm: {differ} answers differ from the final "
-              "parameters' in memory")
-        check(acc_line and acc_line[0].split()[-1] == f"{want_acc:.2f}",
-              f"test arm accuracy {acc_line}, expected {want_acc:.2f}")
-        check(test_launches == LAUNCHES_PER_FORWARD * math.ceil(
-            len(preds) / max(bs, 64)), f"{test_launches} test-arm launches")
-
-        emit("trainer_timing", card=torch.cuda.get_device_name(0),
-             trainer_ms_per_batch=trainer_ms, trainer_gaps_ms=gaps,
-             phase8_ms_per_batch=phase8_ms_per_batch,
-             feeder_host_ms_per_batch=feeder_ms,
-             copy_overlaps=(None if trainer_ms is None else
-                            trainer_ms - phase8_ms_per_batch
-                            <= min(feeder_ms)),
-             steps_fed_vs_resident_ms=turns,
-             steady_ms_per_batch=steady,
-             fed_minus_resident_ms=steady["fed"] - steady["resident"],
-             xpack_native=native, checkpoint_saves=saves,
-             epoch_seconds_log=float(end.group(3)), train_arm_seconds=train_s,
-             max_memory_allocated_bytes=peak,
-             seconds_so_far=time.perf_counter() - t_start)
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    emit("trainer_timing", card=torch.cuda.get_device_name(0),
+         trainer_ms_per_batch=trainer_ms, trainer_gaps_ms=gaps,
+         phase8_ms_per_batch=phase8_ms_per_batch,
+         feeder_host_ms_per_batch=feeder_ms,
+         copy_overlaps=(None if trainer_ms is None else
+                        trainer_ms - phase8_ms_per_batch
+                        <= min(feeder_ms)),
+         steps_fed_vs_resident_ms=turns,
+         steady_ms_per_batch=steady,
+         fed_minus_resident_ms=steady["fed"] - steady["resident"],
+         xpack_native=native, checkpoint_saves=saves,
+         epoch_seconds_log=float(end.group(3)), train_arm_seconds=train_s,
+         max_memory_allocated_bytes=peak,
+         seconds_so_far=time.perf_counter() - t_start)
+    return launches, handoff
 
 
 
@@ -2355,6 +2494,463 @@ def phase_vqacp(torch, attn, phase10_launches: dict, t_start: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def int8_category(name: str) -> str:
+    """`kernel_category`, with the int8 GEMMs of `torch._int_mm` apart."""
+    low = name.lower()
+    if "gemm" in low and re.search(r"s8|i8|int8|imma", low):
+        return "int8 GEMM (torch._int_mm)"
+    return kernel_category(name)
+
+
+def int8_layers_exact(torch, sm, int8: dict, batch) -> dict:
+    """One forward of `batch` with every Int8Dense's input and output
+    captured; then, per layer, the int32 product of `int8_matmul` against
+    the float64 product of the same int8 operands (exact: the sums stay far
+    below 2^53), and the layer's output against its formula on that
+    product."""
+    from xggm_tpu_torch.serving.quant import dynamic_act_quant, int8_matmul
+
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args, out):  # the first call's input and output
+            seen.setdefault(name, (args[0].detach(), out.detach()))
+        return hook
+
+    for name, m in int8.items():
+        hooks.append(m.register_forward_hook(keep(name)))
+    try:
+        sm.predict_logits(batch)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    bad, shapes = [], set()
+    for name, (x, y) in seen.items():
+        m = int8[name]
+        x_q, a_scale = dynamic_act_quant(x.reshape(-1, x.shape[-1]))
+        acc = int8_matmul(x_q, m.weight)
+        ref = x_q.double() @ m.weight.double().t()
+        want = acc.float() * (a_scale * m.weight_scale)
+        if m.bias is not None:
+            want = want + m.bias.float()
+        shapes.add(tuple(x_q.shape) + (m.weight.shape[0],))
+        if not (torch.equal(acc.double(), ref) and torch.equal(
+                want.to(m.dtype).reshape(y.shape), y)):
+            bad.append(name)
+    check(len(seen) == len(int8) and not bad,
+          f"Int8Dense against float64 on the card: {len(seen)} of "
+          f"{len(int8)} layers seen, differing {bad}")
+    return dict(layers=len(seen), gemm_shapes_mkn=sorted(shapes))
+
+
+def plant_answers(root: str, split: str, seed: int, feat_dim: int) -> None:
+    """Give each image of the split's pack an answer, +3 in that answer's
+    feature column of all its objects, and each of its questions that
+    answer, named among filler words in a random place."""
+    from xggm_tpu_torch.data.synthetic import ANSWERS, WORDS
+    from xggm_tpu_torch.data.xpack import XPackFeatureStore, write_xpack
+    from xggm_tpu_torch.utils.io import save_json
+
+    rng = random.Random(seed)
+    path = os.path.join(root, "gqa_imgfeat", f"{split}_obj36.xpack")
+    store = XPackFeatureStore(path)
+    records, truth = [], {}
+    for img_id in store.img_ids():
+        feats, boxes, adj = store.get(img_id)
+        truth[img_id] = rng.randrange(len(ANSWERS))
+        feats = feats.copy()
+        feats[:, truth[img_id]] += 3.0
+        records.append((img_id, feats, boxes, adj))
+    store.close()
+    write_xpack(records, path, feat_dim)
+    fillers = [w for w in WORDS if w not in ANSWERS]
+    path = os.path.join(root, "gqa_ood", f"{split}.json")
+    with open(path) as f:
+        questions = json.load(f)
+    for q in questions:
+        ans = ANSWERS[truth[q["img_id"]]]
+        words = [rng.choice(fillers) for _ in range(rng.randint(2, 8))]
+        words.insert(rng.randint(0, len(words)), ans)
+        q["sent"], q["label"] = " ".join(words) + " ?", {ans: 1.0}
+    save_json(questions, path)
+
+
+def int8_on_a_learnt_model(torch, h: dict, card: str) -> None:
+    """The int8 answer gate on a model that has learnt its task: a planted
+    corpus the size of phase 10's, a trainer at full width and LEARN_DEPTH
+    layers trained from random weights with `train_baseline` in fp32,
+    saved, exported through `cli/export.py` in bf16 and int8 and loaded
+    with `ServingModel.load`; int8 against bf16 over the validation split's
+    questions at the bounds of tests/test_serving.py, and the bf16
+    accuracy at least LEARN_MIN_ACCURACY."""
+    import numpy as np
+
+    from xggm_tpu_torch.cli import export
+    from xggm_tpu_torch.cli.common import (
+        build_parser, seed_everything, to_config)
+    from xggm_tpu_torch.data.datasets import MemoryFeatureStore
+    from xggm_tpu_torch.data.synthetic import make_synthetic_gqa, write_vocab
+    from xggm_tpu_torch.data.xpack import XPackFeatureStore
+    from xggm_tpu_torch.serving.artifact import ServingModel
+    from xggm_tpu_torch.serving.server import InferenceEngine
+    from xggm_tpu_torch.training.trainer import XGGMTrainer
+    from xggm_tpu_torch.utils.device import resolve_device
+
+    root = os.path.join(h["tmp"], "learn_data")
+    out = os.path.join(h["tmp"], "learn_out")
+    feat_dim = 2048
+    for split, cut in (("train", TRAINER_TRAIN), ("val", TRAINER_VAL)):
+        make_synthetic_gqa(root, split, feat_dim=feat_dim, pack=True, **cut)
+        plant_answers(root, split, cut["seed"], feat_dim)
+    write_vocab(os.path.join(root, "vocab.txt"))
+    label2ans = h["label2ans"]
+    write_answer_tables(root, label2ans)
+    depth = ["--llayers", LEARN_DEPTH[0], "--xlayers", LEARN_DEPTH[1],
+             "--rlayers", LEARN_DEPTH[2]]
+    common = ["--data_root", root, "--output", out, "--bs", "96", "--seed",
+              str(TRAINER_SEED), "--device", "cuda", "--xpack"] + depth
+    args = build_parser().parse_args(common + [
+        "--train", "train", "--valid", "", "--epochs", str(LEARN_EPOCHS),
+        "--lr", str(LEARN_LR), "--dtype", "float32"])
+    seed_everything(args.seed)
+    trainer = XGGMTrainer(to_config(args, task="gqa"), task="gqa",
+                          use_xpack=True, device=resolve_device("cuda"))
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        trainer.train_baseline()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = trainer.state.opt_state.count
+    trainer.save("LEARNT")
+    trainer.ckpt.wait()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pack = XPackFeatureStore(os.path.join(root, "gqa_imgfeat",
+                                          "val_obj36.xpack"))
+    store = MemoryFeatureStore({i: pack.get(i)[:2] for i in pack.img_ids()})
+    pack.close()
+    with open(os.path.join(root, "gqa_ood", "val.json")) as f:
+        questions = json.load(f)
+    split = list({(q["img_id"], q["sent"]): q for q in questions}.values())
+    gold = [next(iter(q["label"])) for q in split]
+    logits = {}
+    for kind, flags in (("bf16", []), ("int8", ["--quantize", "int8"])):
+        path = os.path.join(h["tmp"], f"learnt_{kind}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            export.main(common + [
+                "--task", "gqa", "--artifact", path, "--valid", "val",
+                "--load", "LEARNT", "--dtype", "bfloat16", "--serve_bs",
+                "0"] + flags)
+        sm = ServingModel.load(path, device="cuda")
+        engine = InferenceEngine(sm, h["tokenizer"], store)
+        logits[kind] = sm.predict_logits(engine._assemble(
+            [{"img_id": q["img_id"], "sent": q["sent"]} for q in split]))
+        del sm, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    s16, s8 = logits["bf16"], logits["int8"]
+    rel = (((s8 - s16) ** 2).sum(-1) ** 0.5 / ((s16 ** 2).sum(-1) ** 0.5))
+    same = s8.argmax(-1) == s16.argmax(-1)
+    top2 = -np.sort(-s16, axis=-1)[:, :2]
+    margin = top2[:, 0] - top2[:, 1]
+    accuracy = {kind: float(np.mean([label2ans[i] == a for i, a in zip(
+        lg.argmax(-1).tolist(), gold)])) for kind, lg in logits.items()}
+    emit("export_serve_learnt", card=card, layers=list(LEARN_DEPTH),
+         epochs=LEARN_EPOCHS, lr=LEARN_LR, updates=steps,
+         train_seconds=train_s, log_lines=stdout.getvalue().splitlines(),
+         split_questions=len(split), accuracy=accuracy,
+         min_accuracy=LEARN_MIN_ACCURACY,
+         bf16_answers_distinct=len(set(s16.argmax(-1).tolist())),
+         int8_vs_bf16_max_row_rel_l2=float(rel.max()),
+         int8_vs_bf16_median_row_rel_l2=float(np.median(rel)),
+         int8_rel_l2_limit=INT8_REL_L2,
+         int8_vs_bf16_argmax_agreement=float(same.mean()),
+         min_argmax_agreement=MIN_ARGMAX_AGREEMENT,
+         bf16_top1_margin_p10_median=[float(np.percentile(margin, 10)),
+                                      float(np.median(margin))],
+         bf16_top1_margin_of_differing=margin[~same].tolist(),
+         int8_max_abs_err_median=float(np.median(abs(s8 - s16).max(-1))))
+    check(bool(np.isfinite(s16).all() and np.isfinite(s8).all()),
+          "learnt model: non-finite logits")
+    check(accuracy["bf16"] >= LEARN_MIN_ACCURACY,
+          f"learnt model: bf16 accuracy {accuracy['bf16']}, "
+          f"{LEARN_MIN_ACCURACY} required")
+    check(float(rel.max()) < INT8_REL_L2,
+          f"learnt model: int8 vs bf16 relative L2 {float(rel.max())}")
+    check(float(same.mean()) >= MIN_ARGMAX_AGREEMENT,
+          f"learnt model: int8 vs bf16: {float(same.mean())} of the "
+          f"answers the same, {MIN_ARGMAX_AGREEMENT} required")
+
+
+def phase_export_serve(torch, attn, handoff: dict, card: str,
+                       t_start: float) -> dict:
+    """Phase 10's BEST_0 (full width, 1842 answers) exported through
+    `cli/export.py` in bf16 and in int8, each loaded with
+    `ServingModel.load` on the card and served through `InferenceEngine`
+    and the HTTP server over the validation images in memory. Kernel 1
+    counted over each artifact's POSTs (counts at 0 just before, read just
+    after). Returns the counts."""
+    import numpy as np
+
+    from xggm_tpu_torch.cli import export
+    from xggm_tpu_torch.ops.basic import Dense
+    from xggm_tpu_torch.serving.artifact import ServingModel
+    from xggm_tpu_torch.serving.quant import Int8Dense
+    from xggm_tpu_torch.serving.server import InferenceEngine, make_server
+
+    h = handoff
+    queries_all = h["queries"]
+    # the validation split's distinct questions, for the int8 check
+    split = list({(q["img_id"], q["sent"]): q for q in queries_all}.values())
+
+    def queries(n, offset=0):
+        return [queries_all[(offset + i) % len(queries_all)]
+                for i in range(n)]
+
+    results, launches, logits, split_logits = {}, {}, {}, {}
+    exact = None
+    for kind, flags in (("bf16", []), ("int8", ["--quantize", "int8"])):
+        path = os.path.join(h["tmp"], f"artifact_{kind}")
+        argv = ["--task", "gqa", "--artifact", path, "--valid", "val",
+                "--data_root", h["root"], "--output", h["out"], "--load",
+                "BEST_0", "--xpack", "--device", "cuda", "--dtype",
+                "bfloat16", "--serve_bs", "0", "--seed", str(TRAINER_SEED)]
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            export.main(argv + flags)
+        export_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm = ServingModel.load(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        meta = sm.meta
+        int8 = {n: m for n, m in sm.model.named_modules()
+                if isinstance(m, Int8Dense)}
+        dense = [n for n, m in sm.model.named_modules() if type(m) is Dense]
+        check(meta["label2ans"] == h["label2ans"] and meta["batch_size"] is None
+              and meta["quantize"] == (flags[-1] if flags else None)
+              and not os.path.exists(os.path.join(path, "predict.stablehlo")),
+              f"{kind} artifact meta: {str(meta)[:300]}")
+        if kind == "bf16":
+            check(not int8 and "bfloat16" in meta["param_dtypes"].values(),
+                  f"bf16 artifact: {len(int8)} int8 layers")
+            n_dense = len(dense)
+        else:
+            check(dense == ["logit_fc.fc2"] and len(int8) == n_dense - 1,
+                  f"int8 artifact: {len(int8)} Int8Dense of {n_dense} Dense, "
+                  f"plain Dense {dense}")
+
+        engine = InferenceEngine(sm, h["tokenizer"], h["store"])
+        server = make_server(engine, "127.0.0.1", 0)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            # the main path: counts at 0 just before, read just after
+            attn.fused_attention.launches = 0
+            for m in int8.values():
+                m.calls = 0
+            answers = [post(url + "/predict", {"queries": queries(n)})
+                       for n in SERVE_BATCHES]
+            torch.cuda.synchronize()
+            launches[kind] = attn.fused_attention.launches
+            calls = {n: m.calls for n, m in int8.items()}
+            forwards = len(SERVE_BATCHES)
+            vocab = set(h["label2ans"])
+            for n, resp in zip(SERVE_BATCHES, answers):
+                check(len(resp.get("answers", ())) == n and
+                      all(a in vocab for a in resp["answers"]),
+                      f"{kind} batch {n}: {str(resp)[:300]}")
+            check(launches[kind] == LAUNCHES_PER_FORWARD * forwards,
+                  f"{kind}: {launches[kind]} kernel-1 launches for "
+                  f"{forwards} forwards")
+            # each Int8Dense once a forward; the x-layers' cross-attention
+            # serves both directions, twice
+            want_calls = {n: forwards * (2 if ".visual_attention." in n
+                                         else 1) for n in int8}
+            check(calls == want_calls, f"Int8Dense calls {calls}")
+            logits[kind] = sm.predict_logits(h["batch"])
+            split_logits[kind] = sm.predict_logits(engine._assemble(split))
+            if int8:
+                exact = int8_layers_exact(torch, sm, int8, h["batch"])
+
+            torch.cuda.reset_peak_memory_stats()
+            lat, t0 = [], time.perf_counter()
+            for i in range(SERVE_REQUESTS):
+                t = time.perf_counter()
+                resp = post(url + "/predict", {"queries": queries(64, 64 * i)})
+                lat.append((time.perf_counter() - t) * 1e3)
+                check(len(resp.get("answers", ())) == 64, str(resp)[:300])
+            served = 64 * SERVE_REQUESTS / (time.perf_counter() - t0)
+            big = engine._assemble(queries(512))
+            for _ in range(2):
+                sm.predict_logits(big)
+            torch.cuda.synchronize()
+            iters, t0 = 10, time.perf_counter()
+            for _ in range(iters):
+                sm.predict_logits(big)
+            torch.cuda.synchronize()
+            offline = 512 * iters / (time.perf_counter() - t0)
+            profile = profile_call(torch, lambda: sm.predict_logits(big),
+                                   int8_category)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        results[kind] = dict(
+            artifact_bytes=size, export_seconds=export_s,
+            load_seconds=load_s, export_lines=stdout.getvalue().splitlines(),
+            param_dtypes=sorted(set(meta["param_dtypes"].values())),
+            int8_layers=len(int8), int8_calls=sum(calls.values()),
+            int8_exact_vs_float64=exact if int8 else None,
+            kernel1_launches=launches[kind], forwards=forwards,
+            served_pairs_per_s_bs64=served,
+            served_p50_ms_bs64=statistics.median(lat),
+            predict_logits_pairs_per_s_bs512=offline,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            answers_sample=answers[-1]["answers"][:8])
+        emit(f"export_serve_{kind}_profile", card=card, forward_batch=512,
+             **profile)
+        del sm, engine, server, big
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    final = h["final_logits"]
+    bf16, q8 = logits["bf16"], logits["int8"]
+    diff = float(abs(bf16 - final).max())
+    agree = float((bf16.argmax(-1) == final.argmax(-1)).mean())
+    # int8 against bf16 over the split's distinct questions
+    s16, s8 = split_logits["bf16"], split_logits["int8"]
+    rel = (((s8 - s16) ** 2).sum(-1) ** 0.5 / ((s16 ** 2).sum(-1) ** 0.5))
+    same = s8.argmax(-1) == s16.argmax(-1)
+    agree8 = float(same.mean())
+    # the bf16 top-1 margin of each question, and the int8 error beside it
+    top2 = -np.sort(-s16, axis=-1)[:, :2]
+    margin = top2[:, 0] - top2[:, 1]
+    err = abs(s8 - s16).max(-1)
+    emit("export_serve", card=card, artifacts=results,
+         bf16_vs_final_parameters_max_abs_diff=diff, logits_atol=LOGITS_ATOL,
+         bf16_vs_final_parameters_argmax_agreement=agree,
+         split_questions=len(split),
+         int8_vs_bf16_max_row_rel_l2=float(rel.max()),
+         int8_vs_bf16_median_row_rel_l2=float(statistics.median(rel.tolist())),
+         int8_rel_l2_limit=INT8_REL_L2, int8_vs_bf16_argmax_agreement=agree8,
+         int8_vs_bf16_argmax_agreement_first_64=float(
+             (q8.argmax(-1) == bf16.argmax(-1)).mean()),
+         bf16_answers_distinct=len(set(s16.argmax(-1).tolist())),
+         bf16_top1_margin_p10_median=[float(np.percentile(margin, 10)),
+                                      float(np.median(margin))],
+         bf16_top1_margin_of_differing=margin[~same].tolist(),
+         int8_max_abs_err_of_differing=err[~same].tolist(),
+         int8_max_abs_err_median=float(np.median(err)),
+         logits_std=float(s16.std()),
+         seconds_so_far=time.perf_counter() - t_start)
+    check(bf16.shape == final.shape == (64, len(h["label2ans"])),
+          f"logits shape {bf16.shape}")
+    check(bool(np.isfinite(s16).all() and np.isfinite(s8).all()),
+          "non-finite logits")
+    check(diff <= LOGITS_ATOL and agree >= MIN_ARGMAX_AGREEMENT,
+          f"bf16 artifact vs the final parameters: {diff}, {agree}")
+    check(float(rel.max()) < INT8_REL_L2,
+          f"int8 vs bf16: relative L2 {float(rel.max())}")
+    int8_on_a_learnt_model(torch, h, card)
+    return launches
+
+
+def phase_generators(torch, attn, philox, card: str, t_start: float) -> dict:
+    """The full-width GQA-OOD training model with the GIN and then the GAT
+    generator (2 heads, merge projection): one relation and one
+    representation batch of 96 through `make_ggm_train_step`, kernels 1 to
+    3 counted over them (counts at 0 just before, read just after); each GGM
+    branch's loss and gradients through the kernels against the plain
+    attention; ms per batch and peak memory. Returns the counts by gnn."""
+    counters = {"attention_fwd": attn.fused_attention,
+                "attention_dropout_fwd": attn.attention_dropout_fwd,
+                "attention_dropout_bwd": attn.attention_dropout_bwd}
+    out = {}
+    for gnn in ("GIN", "GAT"):
+        t = train_setup(torch, fused=False, gnn=gnn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        state, losses = t.state, []
+        for i, br in enumerate(GEN_PLAN):
+            state, m = t.steps[br](state, t.batch, i)
+            losses.append({k: float(v) for k, v in m.items()
+                           if v.dim() == 0})
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        out[gnn] = launches
+        want = {"attention_fwd": 0,
+                "attention_dropout_fwd": FWD_LAUNCHES_PER_BATCH * len(GEN_PLAN),
+                "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * len(GEN_PLAN)}
+        count = state.opt_state.count
+        gen_params = {n: p.numel() for n, p in t.model.named_parameters()
+                      if n.startswith("generator.")}
+        emit(f"generators_{gnn}", plan=list(GEN_PLAN), losses=losses,
+             launches=launches, expected_launches=want,
+             optimizer_count=count, generator_tensors=len(gen_params),
+             generator_params=sum(gen_params.values()),
+             params=sum(p.numel() for p in t.model.parameters()))
+        check(all(math.isfinite(x) for d in losses for x in d.values()),
+              f"{gnn}: non-finite train loss {losses}")
+        check(count == UPDATES_PER_BATCH * len(GEN_PLAN),
+              f"{gnn}: optimizer count {count}")
+        check(launches == want, f"{gnn}: launches {launches}, expected {want}")
+        # the gates of phase 8: each loss, all gradients together and each
+        # parameter's. GIN's eps [1] sums the products of every node's
+        # features with their gradients, some 2.6 M terms that nearly
+        # cancel, so a bf16 ulp of difference in the terms moves the sum
+        # far from itself: in bf16 its difference is held to the
+        # generator's whole gradient, and the same comparison from the same
+        # parameters computing in fp32 holds it to its own
+        eps = tuple(n for n in t.names if n.endswith(".eps"))
+        kernels_vs_plain(torch, attn, philox, t, state,
+                         f"generators_{gnn}_vs_plain", GEN_PLAN, apart=eps)
+        if eps:
+            t32 = train_setup(torch, fused=False, gnn=gnn, dtype="float32")
+            with torch.no_grad():
+                for n in t.names:
+                    t32.state.params[n].copy_(state.params[n])
+            kernels_vs_plain(torch, attn, philox, t32, t32.state,
+                             f"generators_{gnn}_fp32_vs_plain", GEN_PLAN,
+                             watch=eps)
+            del t32
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(GEN_TIMED_BATCHES):
+            state, m = t.steps[GEN_PLAN[i % 2]](state, t.batch, 1000 + i)
+        final = float(m["clean_loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(math.isfinite(final), f"{gnn}: non-finite timed loss")
+        emit(f"generators_{gnn}_timing", card=card,
+             batches=GEN_TIMED_BATCHES, batch_size=t.train_b,
+             ms_per_batch=dt / GEN_TIMED_BATCHES * 1e3,
+             pairs_per_s=t.train_b * GEN_TIMED_BATCHES / dt,
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+             seconds_so_far=time.perf_counter() - t_start)
+        del t, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -2555,20 +3151,42 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. the trainer and its CLI: an epoch and the test arm
-    trainer_launches = phase_trainer(
-        torch, attn, tree_profile["timed_ms_per_batch"], t_start)
+    # 10. the trainer and its CLI: an epoch and the test arm; its BEST_0
+    # stays on disk for phase 12
+    trainer_dir = tempfile.mkdtemp(prefix="xggm_trainer_")
+    try:
+        trainer_launches, handoff = phase_trainer(
+            torch, attn, tree_profile["timed_ms_per_batch"], t_start,
+            trainer_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 11. the VQA-CP v2 recipe: snapshot, epoch, preemption, resume,
+        # test arm, baseline
+        vqacp_launches = phase_vqacp(torch, attn, trainer_launches, t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 12. phase 10's BEST_0 exported in bf16 and int8, and served
+        served_launches = phase_export_serve(torch, attn, handoff, card,
+                                             t_start)
+    finally:
+        shutil.rmtree(trainer_dir, ignore_errors=True)
+    del handoff
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 11. the VQA-CP v2 recipe: snapshot, epoch, preemption, resume, test
-    # arm, baseline
-    vqacp_launches = phase_vqacp(torch, attn, trainer_launches, t_start)
+    # 13. training with the GIN and the GAT generators
+    generator_launches = phase_generators(torch, attn, philox, card, t_start)
 
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
 
-    # 12. summary: one entry per kernel. Kernel 1 over one forward's
+    def generators(kernel):
+        return {gnn: counts[kernel]
+                for gnn, counts in generator_launches.items()}
+
+    # 14. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -2592,6 +3210,7 @@ def main() -> int:
         "launches": launches,
         "trainer_launches": trainer_launches["attention_fwd"],
         "vqacp_launches": vqacp("attention_fwd"),
+        "served_artifact_launches": served_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
@@ -2616,7 +3235,8 @@ def main() -> int:
          "replaces": "xggm_tpu/ops/pallas_attention.py:237",
          "launches": train_launches["attention_dropout_fwd"],
          "trainer_launches": trainer_launches["attention_dropout_fwd"],
-        "vqacp_launches": vqacp("attention_dropout_fwd"),
+         "vqacp_launches": vqacp("attention_dropout_fwd"),
+         "generator_launches": generators("attention_dropout_fwd"),
          "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("fwd_ms", drop_path),
          "plain_ms": per_forward("plain_fwd_ms", drop_path),
@@ -2633,7 +3253,8 @@ def main() -> int:
          "replaces": "xggm_tpu/ops/pallas_attention.py:250",
          "launches": train_launches["attention_dropout_bwd"],
          "trainer_launches": trainer_launches["attention_dropout_bwd"],
-        "vqacp_launches": vqacp("attention_dropout_bwd"),
+         "vqacp_launches": vqacp("attention_dropout_bwd"),
+         "generator_launches": generators("attention_dropout_bwd"),
          "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("bwd_ms", drop_path),
          "plain_ms": per_forward("plain_bwd_ms", drop_path),

@@ -32,7 +32,7 @@ ARGVS = [
      "--test", "testdev", "--data_root", "d", "--vocab", "v.txt",
      "--delta", "3", "--sigma", "0.5", "--num_layer", "3", "--dropout",
      "0.2", "--seed", "7", "--output", "o", "--tmode", "ID",
-     "--numWorkers", "3", "--fast", "--optim", "adam"],
+     "--numWorkers", "3", "--fast", "--optim", "adam", "--gnn", "GAT"],
     ["--fp16", "--dtype", "float32", "--train", "", "--valid", ""],
     ["--pallas_attention", "--prng", "threefry2x32", "--space", "9",
      "--tf_writer", "false", "--eg", "GCN", "--accum_steps", "2"],
@@ -142,7 +142,7 @@ UNPORTED = [
     ["--multiGPU"], ["--pp", "2"], ["--model_parallel", "2"],
     ["--shard_opt_state"], ["--remat"],
     ["--coordinator", "localhost:1234"], ["--num_hosts", "2"],
-    ["--host_id", "1"], ["--gnn", "GIN"], ["--gnn", "GAT"]]
+    ["--host_id", "1"]]
 
 
 def test_unported_flags_raise(tmp_path):

@@ -13,7 +13,8 @@ package:
 fp32 everywhere and dropout off; tolerance 2e-5 (the goldens' tolerance in
 tests/test_parity.py), the losses rtol 1e-6 as there.
 Also, on the port alone: the training forward's dropout draws from its
-seed, the noise draws, and the GIN and GAT generators are not ported yet.
+seed, and the noise draws; and `make_generator`'s GIN and GAT generators
+against JAX's (tests/test_torch_generators.py holds the rest of them).
 Tests loop over their cases (see tests/test_torch_attention_dropout.py for
 why the files hold few tests)."""
 import dataclasses
@@ -27,6 +28,7 @@ import torch
 from xggm_tpu.checkpoint.torch_bridge import (
     _Mapper, _map_gcn, _map_linear_gelu_ln)
 from xggm_tpu.config import tiny_test_config as jax_tiny
+from xggm_tpu.ggm.generators import make_generator as jax_make_generator
 from xggm_tpu.models.task_model import XGGMModel as JaxXGGM
 from xggm_tpu.serving.artifact import _flatten
 from xggm_tpu_torch.checkpoint.jax_params import from_jax_params
@@ -210,7 +212,7 @@ def test_random_draws_and_unported_generators():
     others, and no rng gives the deterministic forward. Edge noise is
     symmetric with a zero diagonal, both noise draws have score target
     -noise / sigma^2, and a generator seed repeats its draw. The GIN and GAT
-    generators are not ported yet."""
+    generators of `make_generator` equal JAX's at 2e-5."""
     cfg = _shallow(tiny_test_config())
     model = init_weights(
         XGGMModel(cfg.lxmert, cfg.num_answers, cfg.ggm, device="cpu"),
@@ -248,6 +250,23 @@ def test_random_draws_and_unported_generators():
     assert torch.equal(remove_self_loops(torch.ones(1, 3, 3)),
                        1.0 - torch.eye(3)[None])
 
+    # the GIN and GAT generators of make_generator, as the task model
+    # builds them, equal JAX's on the same parameters (dropout off)
+    rng = np.random.RandomState(4)
+    x, adj = rng.randn(2, 36, 64).astype(np.float32), remove_self_loops(
+        torch.rand(2, 36, 36)).numpy()
     for gnn in ("GIN", "GAT"):
-        with pytest.raises(NotImplementedError):
-            make_generator(gnn, 64, 2, device="cpu")
+        jax_module = jax_make_generator(gnn, 64, 2)
+        shapes = jax.eval_shape(lambda k: jax_module.init(k, x, adj, True),
+                                jax.random.PRNGKey(0))
+        params = jax.tree.map(
+            lambda s: (0.1 * rng.randn(*s.shape)).astype(np.float32), shapes)
+        want = jax_module.apply(params, x, adj, True)
+        port = _load(make_generator(gnn, 64, 2, device="cpu"),
+                     {k[len("params/"):]: v
+                      for k, v in _flatten(params).items()})
+        with torch.no_grad():
+            got = port(_t(x), _t(adj))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=gnn, **TOL)

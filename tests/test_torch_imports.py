@@ -86,7 +86,7 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
-    from xggm_tpu_torch.cli import gqa_ood, vqacpv2, vqacpv2_baseline
+    from xggm_tpu_torch.cli import export, gqa_ood, vqacpv2, vqacpv2_baseline
     from xggm_tpu_torch.config import tiny_test_config
     from xggm_tpu_torch.data.feeder import Feeder
     from xggm_tpu_torch.models.lxmert import LxmertModel
@@ -102,7 +102,11 @@ def test_entry_points_default_to_the_card(tmp_path):
                  *(lambda cli=cli: cli.main(
                      ["--synthetic", "--data_root", str(tmp_path / "data"),
                       "--output", str(tmp_path / "out")])
-                   for cli in (gqa_ood, vqacpv2, vqacpv2_baseline))):
+                   for cli in (gqa_ood, vqacpv2, vqacpv2_baseline)),
+                 lambda: export.main(
+                     ["--synthetic", "--data_root", str(tmp_path / "data"),
+                      "--output", str(tmp_path / "out"), "--artifact",
+                      str(tmp_path / "art")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     # the CLIs raised before they wrote anything

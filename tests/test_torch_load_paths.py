@@ -12,14 +12,17 @@ tests/test_load_paths.py builds them:
     `port_name`; the entries a snapshot lacks keep their values; the load
     flags' precedence and their empty values;
   * `AnswerTable.convert_ans` and `surger_answer_head` against JAX's;
-  * the refusals: GIN and GAT name ROADMAP item 4, an unknown name raises,
-    a snapshot without an encoder key fails its coverage assert, a shape
+  * `--load x.pth` of a GIN and of a GAT task model against JAX's
+    `convert_task_model` + `merge_into`, exactly;
+  * the refusals: an unknown generator or parameter name raises, a
+    snapshot without an encoder key fails its coverage assert, a shape
     mismatch is reported and leaves the entry as it was.
 
 No JAX trainer, train step or model is built: JAX's side works on numpy
 copies of the port's initial parameters.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -33,8 +36,9 @@ import torch
 from xggm_tpu.checkpoint import answer_table as jax_answer_table
 from xggm_tpu.checkpoint import torch_bridge as jax_bridge
 from xggm_tpu.config import tiny_test_config as jax_tiny_config
+from xggm_tpu.serving.artifact import _unflatten
 from xggm_tpu_torch.checkpoint import answer_table, torch_bridge
-from xggm_tpu_torch.checkpoint.jax_params import port_name
+from xggm_tpu_torch.checkpoint.jax_params import port_name, to_jax_params
 from xggm_tpu_torch.cli.common import build_parser, load_weights
 from xggm_tpu_torch.config import DataConfig, tiny_test_config
 from xggm_tpu_torch.data.synthetic import (
@@ -68,6 +72,17 @@ def _golden_encoder():
 # the port's names of the task model's head and GGM modules -> the
 # reference task model's torch keys
 _TORCH_KEYS = [
+    # GIN convs and GAT heads (the reference's names), before GCN's convs
+    (r"^generator\.gnn\.(\d+)\.conv\.(\d+)\.eps$",
+     r"generator.gnn_layers.\1.gnn_convs.\2.eps"),
+    (r"^generator\.gnn\.(\d+)\.conv\.(\d+)\.linear\.fc\.",
+     r"generator.gnn_layers.\1.gnn_convs.\2.linear.0."),
+    (r"^generator\.gnn\.(\d+)\.conv\.(\d+)\.linear\.ln\.",
+     r"generator.gnn_layers.\1.gnn_convs.\2.linear.2."),
+    (r"^generator\.gnn\.(\d+)\.head\.(\d+)\.linear_layer\.",
+     r"generator.gnn_layers.\1.gat_layers.\2.linear_layer."),
+    (r"^generator\.gnn\.(\d+)\.head\.(\d+)\.attn$",
+     r"generator.gnn_layers.\1.gat_layers.\2.attn_layer.weight"),
     (r"^logit_fc\.fc1\.", "logit_fc.0."), (r"^logit_fc\.ln\.", "logit_fc.2."),
     (r"^logit_fc\.fc2\.", "logit_fc.3."), (r"^encoder_adj\.", "encoder_adj.0."),
     (r"^(node_fc|fusion_fc)\.fc\.", r"\1.0."),
@@ -135,9 +150,10 @@ def env(tmp_path_factory):
                    str(snaps / "task.pth")))
 
 
-def _trainer(root, out):
+def _trainer(root, out, gnn="GCN"):
     cfg = tiny_test_config().replace(
         data=DataConfig(train="train", valid="", data_root=root), output=out)
+    cfg = cfg.replace(ggm=dataclasses.replace(cfg.ggm, gnn=gnn))
     with contextlib.redirect_stdout(io.StringIO()):
         return XGGMTrainer(cfg, task="vqa", use_xpack=True, device="cpu")
 
@@ -294,10 +310,44 @@ def test_answer_table_and_surgery_match_jax(env):
 def test_refusals(env, tmp_path):
     cfg = tiny_test_config().lxmert
     sd = torch_bridge.load_torch_state_dict(env["task"])
+    with pytest.raises(ValueError, match="GNN"):
+        torch_bridge.convert_task_model(sd, cfg, "GNN", 2)
+    # --load x.pth of a GIN and of a GAT task model: the port trainer's
+    # state equals JAX's convert_task_model + merge_into on the same
+    # initial parameters; GAT's merge projections (no reference key) keep
+    # their values
+    rng = np.random.RandomState(6)
     for gnn in ("GIN", "GAT"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md section 1, item 4"):
-            torch_bridge.convert_task_model(sd, cfg, gnn, 2)
+        trainer = _trainer(env["root"], str(tmp_path / gnn), gnn)
+        init = to_jax_params(trainer.model)
+        task = {k: v for k, v in sd.items()
+                if not k.startswith("module.generator.")}
+        for name, p in trainer.model.state_dict().items():
+            if name.startswith("generator.") and ".merge." not in name:
+                v = rng.randn(*p.shape).astype(np.float32)
+                task[f"module.{_torch_key(name)}"] = (
+                    v.T if name.endswith(".attn") else v)
+        path = _save(task, str(tmp_path / f"{gnn}.pth"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            load_weights(trainer, build_parser().parse_args(["--load", path]))
+        flat = jax_bridge.convert_task_model(
+            jax_bridge.load_torch_state_dict(path),
+            jax_tiny_config().lxmert, gnn, 2, 2)
+        params, _ = jax_bridge.merge_into(
+            {"params": _unflatten({k[len("params/"):]: v
+                                   for k, v in init.items()})}, flat)
+        want = _port_layout(_flat(params["params"]))
+        got = trainer.model.state_dict()
+        assert set(want) == set(got), gnn
+        for n, t in got.items():
+            assert torch.equal(t, torch.tensor(want[n])), (gnn, n)
+        merge = [n for n in got if n.startswith("generator.merge.")]
+        assert bool(merge) == (gnn == "GAT")
+        jax_key = {port_name(k): k for k in init}
+        for n in merge:
+            w = init[jax_key[n]]
+            assert torch.equal(got[n], torch.tensor(
+                w.T if n.endswith("weight") else w)), n
     trainer = _trainer(env["root"], str(tmp_path))
     with pytest.raises(KeyError, match="no counterpart"):
         torch_bridge.merge_into(trainer.model,

@@ -4,7 +4,10 @@ tiny XGGMModel, Pallas attention interpreted on the CPU) served by the port's
 
 Tolerances: fp32 artifact, logits within 1e-5 (both sides in fp32; only the
 summation order differs) and identical answers; bf16-weights artifact in
-bf16 compute, within 0.05, the bf16 envelope of tests/test_serving.py."""
+bf16 compute, within 0.05, the bf16 envelope of tests/test_serving.py;
+int8 artifact of the fp32 model, per-row relative L2 within 5e-3 (a tenth
+of the int8 envelope there: a summation-order difference can flip an
+activation's int8 rounding) and identical answers."""
 import dataclasses
 import json
 import os
@@ -31,6 +34,8 @@ from xggm_tpu_torch.data.synthetic import synthetic_obj36, vocab_tokens
 from xggm_tpu_torch.data.tokenizer import BertTokenizer
 from xggm_tpu_torch.models.task_model import PlainModel
 from xggm_tpu_torch.serving.artifact import ServingModel
+from xggm_tpu_torch.ops.basic import Dense
+from xggm_tpu_torch.serving.quant import Int8Dense
 from xggm_tpu_torch.serving.server import InferenceEngine, make_server
 from xggm_tpu_torch.training.steps import make_eval_step
 
@@ -38,6 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=0.05, atol=0.05)
+INT8_RTOL = 5e-3
 LABELS = [f"a{i}" for i in range(16)]
 
 
@@ -65,8 +71,8 @@ def _jax_model(dtype):
 @pytest.fixture(scope="module")
 def artifacts(tmp_path_factory):
     """(fp32 artifact, bf16-weights artifact, batch of 8, the JAX
-    ServingModel of the fp32 artifact) from one set of JAX params, GGM
-    submodules included."""
+    ServingModel of the fp32 artifact, int8 artifact of the fp32 model)
+    from one set of JAX params, GGM submodules included."""
     from __graft_entry__ import _make_batch
 
     batch = _make_batch(np.random.RandomState(0), 8, 128, 32, 16)
@@ -76,18 +82,21 @@ def artifacts(tmp_path_factory):
         {"params": key, "dropout": key}, *args, key,
         method=JaxXGGM.init_all))
     root = tmp_path_factory.mktemp("art")
-    fp32, bf16 = str(root / "fp32"), str(root / "bf16")
+    fp32, bf16, int8 = (str(root / k) for k in ("fp32", "bf16", "int8"))
     export_model(_jax_model("float32"), params, fp32, batch_size=8,
                  label2ans=LABELS, platforms=("cpu",), bf16_weights=False)
     export_model(_jax_model("bfloat16"), params, bf16, batch_size=8,
                  label2ans=LABELS, platforms=("cpu",))
+    export_model(_jax_model("float32"), params, int8, batch_size=8,
+                 label2ans=LABELS, platforms=("cpu",), bf16_weights=False,
+                 quantize="int8")
     serve = {k: batch[k] for k in ("input_ids", "input_mask", "segment_ids",
                                    "feats", "boxes")}
-    return fp32, bf16, serve, JaxServing.load(fp32)
+    return fp32, bf16, serve, JaxServing.load(fp32), int8
 
 
 def test_fp32_artifact_matches_jax(artifacts):
-    fp32, _, batch, want = artifacts
+    fp32, _, batch, want, _ = artifacts
     sm = ServingModel.load(fp32, tiny_test_config(), device="cpu")
     logits = sm.predict_logits(batch)
     np.testing.assert_allclose(logits, want.predict_logits(batch), **FP32_TOL)
@@ -98,7 +107,7 @@ def test_fp32_artifact_matches_jax(artifacts):
 
 
 def test_ragged_batch_pads_like_jax(artifacts):
-    fp32, _, batch, jax_sm = artifacts
+    fp32, _, batch, jax_sm, _ = artifacts
     sm = ServingModel.load(fp32, tiny_test_config(), device="cpu")
     short = {k: v[:5] for k, v in batch.items()}
     padded, n = sm.pad_batch(short)
@@ -114,7 +123,7 @@ def test_ragged_batch_pads_like_jax(artifacts):
 
 
 def test_bf16_weights_artifact_matches_jax(artifacts):
-    _, bf16, batch, _ = artifacts
+    _, bf16, batch, _, _ = artifacts
     dtypes = json.load(open(os.path.join(bf16, "meta.json")))["param_dtypes"]
     assert "bfloat16" in dtypes.values()
     sm = ServingModel.load(bf16, tiny_test_config(), device="cpu")
@@ -126,7 +135,7 @@ def test_bf16_weights_artifact_matches_jax(artifacts):
 
 
 def test_plain_model_takes_the_same_params(artifacts):
-    fp32, _, batch, _ = artifacts
+    fp32, _, batch, _, _ = artifacts
     sm = ServingModel.load(fp32, tiny_test_config(), device="cpu")
     plain = PlainModel(sm.model.cfg, sm.model.num_answers, device="cpu")
     plain.load_state_dict(sm.model.state_dict())
@@ -141,13 +150,36 @@ def test_plain_model_takes_the_same_params(artifacts):
 
 
 def test_int8_artifact_raises(artifacts, tmp_path):
-    fp32 = artifacts[0]
-    art = str(tmp_path / "int8")
-    shutil.copytree(fp32, art)
+    """The port serves a JAX-exported int8 artifact (fp32 model) as JAX's
+    ServingModel does: per-row relative L2 of the logits within INT8_RTOL,
+    a tenth of the 5% envelope of int8 against fp32
+    (tests/test_serving.py), and every answer the same; every Dense but
+    the answer projection runs int8. A quantize mode it does not know
+    raises."""
+    fp32, _, batch, _, int8 = artifacts
+    sm = ServingModel.load(int8, tiny_test_config(), device="cpu")
+    jax_sm = JaxServing.load(int8)
+    got, want = sm.predict_logits(batch), jax_sm.predict_logits(batch)
+    rel = np.linalg.norm(got - want, axis=-1) / np.linalg.norm(want, axis=-1)
+    assert rel.max() <= INT8_RTOL, rel
+    assert sm.predict_answers(batch) == jax_sm.predict_answers(batch)
+    full = ServingModel.load(fp32, tiny_test_config(), device="cpu")
+    swapped = [n for n, m in sm.model.named_modules()
+               if isinstance(m, Int8Dense)]
+    assert swapped == [n for n, m in full.model.named_modules()
+                       if type(m) is Dense and n != "logit_fc.fc2"]
+    assert len(swapped) == 27
+    # int8 against the fp32 artifact: the JAX package's PTQ envelope
+    ref = full.predict_logits(batch)
+    assert (np.linalg.norm(got - ref, axis=-1)
+            / np.linalg.norm(ref, axis=-1)).max() < 0.05
+
+    art = str(tmp_path / "int4")
+    shutil.copytree(int8, art)
     meta = json.load(open(os.path.join(art, "meta.json")))
-    meta["quantize"] = "int8"
+    meta["quantize"] = "int4"
     json.dump(meta, open(os.path.join(art, "meta.json"), "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="int4"):
         ServingModel.load(art, tiny_test_config(), device="cpu")
 
 
@@ -171,7 +203,7 @@ def _post(url, body):
 
 
 def test_http_server_answers_like_jax_engine(artifacts):
-    fp32, _, _, jax_sm = artifacts
+    fp32, _, _, jax_sm, _ = artifacts
     vocab = {t: i for i, t in enumerate(vocab_tokens())}
     store = synthetic_obj36(3, feat_dim=32, seed=1)
     engine = InferenceEngine(

@@ -60,8 +60,8 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _shrink(cfg):
-    """Depth 1/1/1, every dropout 0."""
+def _shrink(cfg, gnn="GCN"):
+    """Depth 1/1/1, every dropout 0, the generator `gnn`."""
     lx = cfg.lxmert
     return cfg.replace(
         lxmert=lx.replace(
@@ -69,7 +69,7 @@ def _shrink(cfg):
                                      attention_probs_dropout_prob=0.0),
             visual=dataclasses.replace(lx.visual, l_layers=1, x_layers=1,
                                        r_layers=1)),
-        ggm=dataclasses.replace(cfg.ggm, dropout=0.0))
+        ggm=dataclasses.replace(cfg.ggm, dropout=0.0, gnn=gnn))
 
 
 def _batches():
@@ -97,13 +97,14 @@ def _batches():
     return out
 
 
-def _jax_trajectory(batches, fused=False):
+def _jax_trajectory(batches, fused=False, gnn="GCN"):
     """Initial flat params, then per step the metrics, the flat params and
     BertAdam's per-leaf counters and flags after it. `fused` takes
     `bert_adam(fused=True)`, the Pallas BertAdam interpreted, its
     `fused_step` under a `jax.jit` of its own: a step's two updates then
-    share one lowering of the 123 interpreted kernels (about 0.13 s each)."""
-    cfg = _shrink(jax_tiny())
+    share one lowering of the 123 interpreted kernels (about 0.13 s each).
+    `gnn` names the generator."""
+    cfg = _shrink(jax_tiny(), gnn)
     model = JaxXGGM(cfg.lxmert, cfg.ggm, cfg.num_answers)
     b0, key = batches[0], jax.random.PRNGKey(0)
 
@@ -168,9 +169,9 @@ def _torch_batch(batch):
     return out
 
 
-def _port_trajectory(flat0, batches, fused=False):
+def _port_trajectory(flat0, batches, fused=False, gnn="GCN"):
     """The port's record of the same steps as `_jax_trajectory`."""
-    cfg = _shrink(tiny_test_config())
+    cfg = _shrink(tiny_test_config(), gnn)
     model, opt, state = _port_model(flat0, cfg, fused)
     port_record = []
     for i, (branch, batch) in enumerate(zip(PLAN, batches)):

@@ -6,9 +6,14 @@ the format `xggm_tpu/serving/artifact.py::_flatten` writes to `params.npz`
 The port keeps the same tree, so the mapping is by name: '/' becomes '.',
 the per-layer lists `layer_i`, `r_layer_i`, `x_layer_i` become
 `layer.i`, `r_layers.i`, `x_layers.i` (and the GGM's `gnn_i`, `conv_i`,
-`proj_i` become `gnn.i`, `conv.i`, `proj.i`), a Dense `kernel` [in, out]
-becomes `weight` [out, in], and LayerNorm `scale` and Embed `embedding`
-become `weight`.
+`proj_i`, `head_i`, `merge_i` become `gnn.i`, `conv.i`, `proj.i`,
+`head.i`, `merge.i`), a Dense `kernel` [in, out] becomes `weight` [out,
+in], LayerNorm `scale` and Embed `embedding` become `weight`, and an int8
+artifact's `kernel_scale_int8` becomes `weight_scale`. GIN's `eps` and
+GAT's `attn` [2F, 1] keep their names and shapes.
+
+`to_jax_params` is the inverse: a port model's parameters under the JAX
+package's flat names, in the order `jax.tree_util` flattens them.
 """
 from __future__ import annotations
 
@@ -19,15 +24,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from xggm_tpu_torch.ops.basic import Dense, Embedding, LayerNorm
+
 # Top-level submodules of the JAX XGGMModel that only a training model holds;
 # a serving model (and a serving artifact) has none of them.
 GGM_SUBMODULES = frozenset({"generator", "encoder_adj", "node_fc",
                             "fusion_fc"})
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-           "bias": "bias"}
-_LAYER_LIST = re.compile(r"^(layer|r_layer|x_layer|gnn|conv|proj)_(\d+)$")
+           "bias": "bias", "eps": "eps", "attn": "attn",
+           "kernel_scale_int8": "weight_scale"}
+_LAYER_LIST = re.compile(
+    r"^(layer|r_layer|x_layer|gnn|conv|proj|head|merge)_(\d+)$")
 _LIST_NAMES = {"layer": "layer", "r_layer": "r_layers", "x_layer": "x_layers",
-               "gnn": "gnn", "conv": "conv", "proj": "proj"}
+               "gnn": "gnn", "conv": "conv", "proj": "proj", "head": "head",
+               "merge": "merge"}
+_JAX_LISTS = {v: k for k, v in _LIST_NAMES.items()}
 
 
 def bf16_bits_to_float32(bits: np.ndarray) -> np.ndarray:
@@ -55,7 +66,7 @@ def from_jax_params(flat: Mapping[str, np.ndarray], model: nn.Module,
                     dtypes: Optional[Mapping[str, str]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Map a flat JAX parameter dict onto `model`'s state dict (float32 CPU
-    tensors, ready for `load_state_dict`).
+    tensors, int8 for an int8 kernel, ready for `load_state_dict`).
 
     `dtypes` gives each key's true dtype where a bf16 leaf arrives as its
     uint16 bits. The parameters of a GGM submodule that `model` does not hold
@@ -81,10 +92,55 @@ def from_jax_params(flat: Mapping[str, np.ndarray], model: nn.Module,
         if tuple(arr.shape) != tuple(expected[name].shape):
             raise ValueError(f"JAX parameter {key!r} {arr.shape} does not fit "
                              f"{name!r} {tuple(expected[name].shape)}")
-        out[name] = torch.tensor(arr, dtype=torch.float32)
+        # an int8 kernel stays int8; every other leaf becomes float32
+        out[name] = torch.tensor(arr, dtype=torch.int8 if arr.dtype == np.int8
+                                 else torch.float32)
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"{len(missing)} parameters of "
                        f"{type(model).__name__} have no JAX counterpart, "
                        f"e.g. {missing[:3]}")
     return out
+
+
+def _jax_leaf(module: nn.Module, leaf: str) -> str:
+    """The JAX leaf name of `module`'s entry `leaf`."""
+    # an int8 Dense holds its per-channel scale beside the weight
+    if leaf == "weight":
+        if isinstance(module, Dense) or hasattr(module, "weight_scale"):
+            return "kernel"
+        if isinstance(module, LayerNorm):
+            return "scale"
+        if isinstance(module, Embedding):
+            return "embedding"
+    if leaf == "weight_scale":
+        return "kernel_scale_int8"
+    return leaf
+
+
+def to_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """`model`'s state as `{'params/...' JAX path: numpy array}`, the keys,
+    shapes and order of `xggm_tpu/serving/artifact.py::_flatten` for the
+    same model (Dense kernels [in, out]; float32 parameters as float32)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        mod_path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        module = model.get_submodule(mod_path)
+        parts = mod_path.split(".") if mod_path else []
+        path, i = [], 0
+        while i < len(parts):
+            if (parts[i] in _JAX_LISTS and i + 1 < len(parts)
+                    and parts[i + 1].isdigit()):
+                path.append(f"{_JAX_LISTS[parts[i]]}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        jax_leaf = _jax_leaf(module, leaf)
+        key = "/".join(["params", *path, jax_leaf])
+        if port_name(key) != name:
+            raise KeyError(f"{name!r} has no JAX name (got {key!r})")
+        arr = t.detach().cpu().numpy()
+        out[key] = np.ascontiguousarray(arr.T if jax_leaf == "kernel" else arr)
+    # jax.tree_util flattens a dict in sorted key order, level by level
+    return {k: out[k] for k in sorted(out, key=lambda k: k.split("/"))}

@@ -29,8 +29,6 @@ import torch
 from xggm_tpu_torch.checkpoint.jax_params import port_name
 from xggm_tpu_torch.config import LxmertConfig
 
-ITEM_4 = "ROADMAP.md section 1, item 4 (GIN and GAT generators)"
-
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     """A .pth state dict (or a pickled module's) as numpy arrays."""
@@ -199,14 +197,38 @@ def _map_gcn(m: _Mapper, t: str, o: str, n_convs: int):
         _map_linear_gelu_ln(m, f"{t}.linear_prediction.{j}", f"{o}/proj_{j}")
 
 
+def _map_gin(m: _Mapper, t: str, o: str, n_convs: int):
+    for j in range(n_convs):
+        eps = m._take(f"{t}.gnn_convs.{j}.eps")
+        if eps is not None:
+            m.out[f"{o}/conv_{j}/eps"] = eps
+        _map_linear_gelu_ln(m, f"{t}.gnn_convs.{j}.linear",
+                            f"{o}/conv_{j}/linear")
+    for j in range(n_convs + 1):
+        _map_linear_gelu_ln(m, f"{t}.linear_prediction.{j}", f"{o}/proj_{j}")
+
+
+def _map_gat(m: _Mapper, t: str, o: str, n_heads: int):
+    """torch {t}.gat_layers.{h}.{linear_layer, attn_layer}; the attention
+    weight [1, 2F] becomes `attn` [2F, 1]. The reference has no merge
+    projection: `merge_i` is left as it is."""
+    for h in range(n_heads):
+        th, oh = f"{t}.gat_layers.{h}", f"{o}/head_{h}"
+        m.linear_nobias(f"{th}.linear_layer", f"{oh}/linear_layer")
+        w = m._take(f"{th}.attn_layer.weight")
+        if w is not None:
+            m.out[f"{oh}/attn"] = np.ascontiguousarray(w.T)
+
+
 def convert_task_model(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
-                       gnn: str = "GCN", n_layers: int = 2
-                       ) -> Dict[str, np.ndarray]:
+                       gnn: str = "GCN", n_layers: int = 2,
+                       gat_heads: int = 2) -> Dict[str, np.ndarray]:
     """A reference task-model state dict (the GQA and VQA models' keys) as
     the XGGMModel's flat JAX names: the encoder, the answer head, the GGM
-    glue and the GCN generator."""
-    if gnn != "GCN":
-        raise NotImplementedError(f"--gnn {gnn} checkpoints: {ITEM_4}")
+    glue and the generator `gnn` names (GCN, GIN or GAT with `gat_heads`
+    heads)."""
+    if gnn not in ("GCN", "GIN", "GAT"):
+        raise ValueError(gnn)
     sd = strip_prefixes(sd)
     _, m = convert_lxrt_bert(sd, cfg, torch_prefix="lxrt_encoder.model.bert.",
                              our_prefix="lxrt")
@@ -219,8 +241,13 @@ def convert_task_model(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
     _map_linear_gelu_ln(m, "node_fc", "node_fc")
     _map_linear_gelu_ln(m, "fusion_fc", "fusion_fc")
     for i in range(n_layers):
-        _map_gcn(m, f"generator.gnn_layers.{i}", f"generator/gnn_{i}",
-                 n_convs=2)
+        t, o = f"generator.gnn_layers.{i}", f"generator/gnn_{i}"
+        if gnn == "GCN":
+            _map_gcn(m, t, o, n_convs=2)
+        elif gnn == "GIN":
+            _map_gin(m, t, o, n_convs=1)
+        else:
+            _map_gat(m, t, o, gat_heads)
     return m.out
 
 

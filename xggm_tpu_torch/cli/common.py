@@ -32,7 +32,6 @@ from xggm_tpu_torch.config import (
     VisualConfig, XGGMConfig)
 from xggm_tpu_torch.utils.preempt import PREEMPTED_EXIT_CODE, Preempted
 
-ITEM_4 = "ROADMAP.md section 1, item 4 (GIN and GAT generators)"
 ITEM_7 = "ROADMAP.md section 1, item 7 (scale-out)"
 
 
@@ -95,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     # OOD config
     p.add_argument("--tmode", default="OOD", type=str)
     p.add_argument("--gnn", default="GCN", type=str,
-                   help=f"GCN; GIN and GAT are not ported: {ITEM_4}")
+                   help="the graph generator: GCN, GIN or GAT (2 heads)")
     p.add_argument("--num_layer", default=2, type=int)
     p.add_argument("--sigma", default=1.0, type=float)
     p.add_argument("--delta", default=5, type=int)
@@ -161,7 +160,6 @@ def reject_unported(args: argparse.Namespace) -> None:
         ("--coordinator/--num_hosts/--host_id",
          args.coordinator is not None or args.num_hosts is not None
          or args.host_id is not None, ITEM_7),
-        (f"--gnn {args.gnn}", args.gnn != "GCN", ITEM_4),
     ]
     for flag, is_set, item in unported:
         if is_set:

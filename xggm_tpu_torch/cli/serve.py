@@ -1,4 +1,5 @@
-"""Serve an artifact exported by the JAX package over HTTP, with PyTorch.
+"""Serve an artifact exported by either package (bf16, fp32 or int8) over
+HTTP, with PyTorch.
 
     python -m xggm_tpu_torch.cli.serve --artifact art/ --data_root data \
         --task gqa --split val --port 8000 [--device cuda|cpu] [--synthetic]
@@ -6,7 +7,8 @@
 The artifact brings the weights and the answer vocabulary; this process adds
 the tokenizer and the obj36 feature store and answers
 {"queries": [{"img_id", "sent"}]} POSTs on /predict. It runs on the card
-unless `--device cpu` is given.
+unless `--device cpu` is given. The features are read from H5 files, so
+this CLI needs h5py; `InferenceEngine` takes any feature store.
 """
 from __future__ import annotations
 

@@ -82,11 +82,12 @@ class LxmertConfig:
 class GGMConfig:
     """Graph-generative-module config."""
 
-    gnn: str = "GCN"  # 'GCN' | 'GIN' | 'GAT'; the port runs GCN
+    gnn: str = "GCN"  # 'GCN' | 'GIN' | 'GAT'
     num_layers: int = 2
     sigma: float = 1.0  # score-matching noise scale
     delta: int = 5  # relation-branch probability delta / 10
     dropout: float = 0.5  # generator dropout
+    gat_heads: int = 2  # GAT heads per round
 
 
 @dataclass(frozen=True)

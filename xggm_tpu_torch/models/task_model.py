@@ -4,7 +4,7 @@ encoder, the answer head and the GGM parts.
 `XGGMModel` always holds `lxrt` and `logit_fc`, the serving path's
 submodules; an artifact exported by the JAX package holds only those. Given
 a `GGMConfig` it is a training model and also holds the GGM submodules:
-  - generator: the GCN graph generator;
+  - generator: the graph generator `ggm.gnn` names (GCN, GIN or GAT);
   - encoder_adj: Linear(hid -> 630) + sigmoid (pooled -> triu adjacency);
   - node_fc: Linear(hid -> hid) + GeLU + LN(1e-5);
   - fusion_fc: Linear(2 hid -> hid) + GeLU + LN(1e-5).
@@ -66,7 +66,8 @@ class XGGMModel(nn.Module):
         self.logit_fc = AnswerHead(hid, num_answers, dt, device=dev)
         if ggm is not None:
             self.generator = make_generator(ggm.gnn, hid, ggm.num_layers,
-                                            ggm.dropout, dt, device=dev)
+                                            ggm.dropout, dt, ggm.gat_heads,
+                                            device=dev)
             self.encoder_adj = TorchLinear(hid, NUM_TRIU_EDGES, dt,
                                            device=dev)
             self.node_fc = NodeFC(hid, hid, dt, device=dev)

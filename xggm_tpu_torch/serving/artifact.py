@@ -1,14 +1,26 @@
-"""Serve an artifact exported by the JAX package (counterpart of
-`xggm_tpu/serving/artifact.py::ServingModel`).
+"""Serving artifacts: export the port's own models, and serve artifacts of
+either package (counterpart of `xggm_tpu/serving/artifact.py`).
 
-An artifact directory holds `params.npz` (flat `{'/'-joined path: array}`,
-bf16 leaves as uint16 bits), `meta.json` (answer vocabulary, input shapes,
-dtypes) and `predict.stablehlo`, the JAX graph, which the port ignores: it
-rebuilds the model from the parameter shapes and keys and runs it in PyTorch.
+An artifact directory holds `params.npz` (flat `{'/'-joined JAX path:
+array}`, bf16 leaves as uint16 bits, int8 kernels as int8) and `meta.json`
+(answer vocabulary, input shapes, dtypes, `param_dtypes`, `notes`). The JAX
+package also writes `predict.stablehlo`, its compiled graph; the port
+ignores it and rebuilds the model from the parameter shapes and keys.
+
+`export_model` writes the JAX package's `params.npz` and `meta.json` for a
+port model, key for key and bit for bit, but no `predict.stablehlo`: the
+port has no JAX, so an artifact it exports is served by the port only. It
+records the attention head count, which no parameter shape shows, under
+`notes["num_attention_heads"]`; `ServingModel.load` reads it from there
+when present, from its `config` otherwise.
+
+`quantize="int8"` artifacts (either package's) are served with every
+`Dense` that has an int8 kernel swapped for `serving.quant.Int8Dense`.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 from typing import Dict, List, Mapping, Optional, Tuple
@@ -16,9 +28,15 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from xggm_tpu_torch.checkpoint.jax_params import from_jax_params
-from xggm_tpu_torch.config import LxmertConfig, XGGMConfig, gqa_ood_config
+from xggm_tpu_torch.checkpoint.jax_params import (
+    GGM_SUBMODULES, bf16_bits_to_float32, from_jax_params, port_name,
+    to_jax_params)
+from xggm_tpu_torch.config import (
+    MAX_SEQ_LENGTH, NUM_OBJECTS, LxmertConfig, XGGMConfig, gqa_ood_config)
 from xggm_tpu_torch.models.task_model import XGGMModel
+from xggm_tpu_torch.ops.basic import Dense
+from xggm_tpu_torch.serving.quant import (
+    SCALE_KEY, Int8Dense, quantize_dense_params)
 from xggm_tpu_torch.training.steps import make_logits_step
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.io import load_json
@@ -27,6 +45,109 @@ ARTIFACT_VERSION = 1
 _PARAMS_FILE = "params.npz"
 _META_FILE = "meta.json"
 _LAYER = re.compile(r"^lxrt/encoder/(layer|r_layer|x_layer)_(\d+)/")
+# Parent-module markers of the leaves the model reads in float32
+# (LayerNorms); every other kernel and bias is read in the compute dtype.
+_LN_MARKERS = ("layernorm", "layer_norm")
+HEADS_NOTE = "num_attention_heads"
+
+
+def _bf16_consumed(key: str) -> bool:
+    """The JAX package's bf16 parameter layout
+    (`xggm_tpu/training/steps.py::_bf16_consumed`): a `kernel` or `bias`
+    whose parent module's name holds no LayerNorm marker."""
+    parts = key.split("/")
+    parent = parts[-2].lower() if len(parts) > 1 else ""
+    return (parts[-1] in ("kernel", "bias")
+            and not any(m in parent for m in _LN_MARKERS))
+
+
+def _bf16_round(arr: np.ndarray) -> np.ndarray:
+    """float32 -> the uint16 bits of its bfloat16 (round to nearest even)."""
+    bf16 = torch.from_numpy(np.ascontiguousarray(arr)).to(torch.bfloat16)
+    return bf16.view(torch.int16).numpy().view(np.uint16)
+
+
+def export_model(model: XGGMModel, path: str, *,
+                 batch_size: Optional[int] = 16,
+                 label2ans: Optional[List[str]] = None,
+                 bf16_weights: bool = True, quantize: Optional[str] = None,
+                 notes: Optional[dict] = None) -> str:
+    """Write `model` (every parameter, the GGM parts included) as an
+    artifact directory at `path`; returns `path`.
+
+    With `bf16_weights` and a bf16 model, the leaves `_bf16_consumed`
+    selects are stored in bfloat16 (as the JAX package's `_serve_params`
+    overlays its bf16 shadow). `quantize="int8"` then quantizes the Dense
+    kernels (`serving.quant.quantize_dense_params`), the bf16-rounded ones
+    where there are. `batch_size` None: any batch size."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize mode {quantize!r}")
+    flat = to_jax_params(model)
+    bf16 = set()
+    if bf16_weights and model.cfg.compute_dtype == torch.bfloat16:
+        for key in flat:
+            if _bf16_consumed(key):
+                flat[key] = bf16_bits_to_float32(_bf16_round(flat[key]))
+                bf16.add(key)
+    if quantize == "int8":
+        flat, n_q = quantize_dense_params(flat)
+        if n_q == 0:
+            raise ValueError("quantize='int8' found no Dense kernels")
+        bf16 = {k for k in bf16 if flat[k].dtype != np.int8}
+    dtypes = {k: "bfloat16" if k in bf16 else str(v.dtype)
+              for k, v in flat.items()}
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, _PARAMS_FILE),
+             **{k: _bf16_round(v) if k in bf16 else v
+                for k, v in flat.items()})
+    cfg = model.cfg
+    meta = {
+        "artifact_version": ARTIFACT_VERSION,
+        "jax_version": None,
+        "platforms": [],
+        "batch_size": batch_size,
+        "seq_len": MAX_SEQ_LENGTH,
+        "num_objects": NUM_OBJECTS,
+        "feat_dim": cfg.visual.visual_feat_dim,
+        "feats_dtype": ("bfloat16" if cfg.compute_dtype == torch.bfloat16
+                        else "float32"),
+        "quantize": quantize,
+        "num_answers": int(model.num_answers),
+        "param_dtypes": dtypes,
+        "label2ans": label2ans,
+        "notes": {**(notes or {}),
+                  HEADS_NOTE: cfg.bert.num_attention_heads},
+    }
+    with open(os.path.join(path, _META_FILE), "w") as f:
+        json.dump(meta, f, indent=2)
+    return path
+
+
+def _swap_int8_dense(model: XGGMModel, flat: Mapping[str, np.ndarray]
+                     ) -> int:
+    """Replace each `Dense` of `model` whose kernel `flat` holds in int8 by
+    an `Int8Dense` of the same shape (filled by the state-dict load);
+    returns the number swapped. The GGM submodules a serving model lacks
+    are skipped; an int8 kernel on any other module type raises."""
+    held = {n for n, _ in model.named_children()}
+    n = 0
+    for key in flat:
+        if not key.endswith("/" + SCALE_KEY):
+            continue
+        name = port_name(key[:-len(SCALE_KEY)] + "kernel")[:-len(".weight")]
+        if name.split(".")[0] in GGM_SUBMODULES - held:
+            continue
+        dense = model.get_submodule(name)
+        if type(dense) is not Dense:
+            raise ValueError(f"int8 kernel {key!r} on a "
+                             f"{type(dense).__name__}, not a Dense")
+        out_f, in_f = dense.weight.shape
+        parent, _, child = name.rpartition(".")
+        setattr(model.get_submodule(parent), child, Int8Dense(
+            in_f, out_f, dense.dtype, bias=dense.bias is not None,
+            device=dense.weight.device))
+        n += 1
+    return n
 
 
 def lxmert_config_from_params(flat: Mapping[str, np.ndarray], meta: dict,
@@ -77,24 +198,28 @@ class ServingModel:
     @classmethod
     def load(cls, path: str, config: Optional[XGGMConfig] = None,
              device="cuda") -> "ServingModel":
-        """Load an artifact written by the JAX package's `export_model`.
-        `config` supplies what the parameters do not show (the head count);
-        it defaults to `gqa_ood_config()`."""
+        """Load an artifact written by either package's `export_model`,
+        bf16, fp32 or int8. The head count comes from the artifact's notes,
+        else from `config` (default `gqa_ood_config()`)."""
         dev = resolve_device(device)
         meta = load_json(os.path.join(path, _META_FILE))
         if meta["artifact_version"] != ARTIFACT_VERSION:
             raise ValueError(
                 f"artifact version {meta['artifact_version']} != "
                 f"{ARTIFACT_VERSION} supported by this build")
-        if meta.get("quantize"):
-            raise NotImplementedError(
-                f"quantize={meta['quantize']!r} artifacts are not served by "
-                "the PyTorch port yet (int8 serving is queued in ROADMAP.md)")
+        if meta.get("quantize") not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode {meta['quantize']!r}")
         with np.load(os.path.join(path, _PARAMS_FILE)) as raw:
             flat = {k: raw[k] for k in raw.files}
         base = (config or gqa_ood_config()).lxmert
+        heads = (meta.get("notes") or {}).get(HEADS_NOTE)
+        if heads is not None:
+            base = base.replace(bert=dataclasses.replace(
+                base.bert, num_attention_heads=heads))
         cfg, num_answers = lxmert_config_from_params(flat, meta, base)
         model = XGGMModel(cfg, num_answers, device=dev)
+        if meta.get("quantize") == "int8":
+            _swap_int8_dense(model, flat)
         model.load_state_dict(
             from_jax_params(flat, model, meta["param_dtypes"]))
         return cls(model, meta)

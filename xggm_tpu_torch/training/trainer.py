@@ -227,7 +227,8 @@ class XGGMTrainer:
         if name_or_path.endswith(".pth") or os.path.isfile(name_or_path):
             flat = convert_task_model(load_torch_state_dict(name_or_path),
                                       self.cfg.lxmert, self.cfg.ggm.gnn,
-                                      self.cfg.ggm.num_layers)
+                                      self.cfg.ggm.num_layers,
+                                      self.cfg.ggm.gat_heads)
             unmatched = merge_into(self.model, flat)
             self._fresh_opt_state()
             print(f"load(torch): {len(flat)} tensors, "
