@@ -194,10 +194,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             generator's whole gradient and, by GIN's comparison repeated
             from the same parameters computing in fp32, to its own; ms
             per batch over 4 batches, pairs/s and peak memory.
-14. summary the kernels line (all seven kernels; kernels 1 to 3 with their
-            trainer-phase, VQA-CP, served-artifact and GIN/GAT launches
-            too), the card's name and power limit, and last {"ok": true,
-            "device": {...}}.
+14. pretrain LXMERT pretraining (`cli/pretrain.py`) at the width of
+            scripts/pretrain.sh: 9/5/5 layers, hidden 768, 12 heads,
+            vocabulary 30522, 1600 objects, 400 attributes, 2048-d
+            features, 9500 answers, all four tasks and the visual losses
+            obj, attr and feat, bf16, from scratch. A TSV corpus (no h5py
+            on the card's machine) of 6 batches of 256 to train and one to
+            validate. Run A: one epoch at batch 256, kernel 2 and kernel 3
+            34 launches per step (every attention feeds a head), kernel 1
+            34 per validation forward, finite losses with all six named in
+            the epoch line, 6 BertAdam updates and t_total 6, Epoch01 and
+            BEST_EVAL_LOSS. Run B: the same with --accum_steps 2 --bs 128:
+            12 microbatches, 6 updates, the counts per microbatch. Then one
+            batch of 256's loss and every gradient (the tied word table's
+            too, row 0 included), with no update, through the kernels and
+            through the plain attention, within phase 8's limits; ms per
+            step on a resident batch and pairs/s, the featurizer's host ms
+            per batch, peak memory, one profiled step by category (the
+            tied decoder's fp32 GEMMs apart) and the tied decoder's own
+            forward and backward time.
+15. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+            trainer-phase, VQA-CP, served-artifact, GIN/GAT and
+            pretraining launches too), the card's name and power limit,
+            and last {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -317,6 +336,17 @@ LEARN_MIN_ACCURACY = 0.5
 GEN_PLAN = ("relation", "representation")
 GEN_TIMED_BATCHES = 4
 VQACP_PRE_ANSWERS, VQACP_SHARED = 9500, 1000
+# The pretraining phase (scripts/pretrain.sh at full width): a TSV corpus
+# of PRETRAIN_STEPS batches of 256 sentences to train (128 images x 6
+# captions and 6 questions) and one to validate (32 x 4 x 2), an answer
+# table of 9500; run A at batch 256, run B at batch 128 with two
+# microbatches per update.
+PRETRAIN_BS, PRETRAIN_STEPS, PRETRAIN_ANSWERS = 256, 6, 9500
+PRETRAIN_SOURCES = {
+    "mscoco_train": dict(n_images=128, sents_per_img=6, seed=0),
+    "mscoco_minival": dict(n_images=32, sents_per_img=4, seed=1)}
+PRETRAIN_RUNS = {"A": (PRETRAIN_BS, 1), "B": (PRETRAIN_BS // 2, 2)}
+PRETRAIN_TIMED_STEPS = 4
 RESUME_LOSS_RTOL, RESUME_PARAM_ATOL = 1e-4, 1e-5
 # An update reads g, m, v, p and writes m, v, p: 28 bytes per fp32 element
 # (24 where the gradient is null), and some 15 FLOPs.
@@ -2951,6 +2981,249 @@ def phase_generators(torch, attn, philox, card: str, t_start: float) -> dict:
     return out
 
 
+def pretrain_category(name: str) -> str:
+    """kernel_category, with the fp32 GEMMs (the tied decoder's, the only
+    fp32 products of a bf16 pretraining step: cuBLAS's f32f32 xmma and
+    CUTLASS's simt sgemm kernels) apart."""
+    if "f32f32_f32f32" in name or "sgemm" in name:
+        return "GEMM fp32 (tied decoder)"
+    return kernel_category(name)
+
+
+def pretrain_corpus(root: str) -> None:
+    """The pretraining corpus: TSV features (the card's machine has no
+    h5py), 2048-d, object ids below 1600 and attribute ids below 400; the
+    training source holds PRETRAIN_STEPS batches of PRETRAIN_BS sentences,
+    the validation source one; an all_ans.json of PRETRAIN_ANSWERS answers,
+    the corpus's among them."""
+    from xggm_tpu_torch.data.synthetic import ANSWERS
+    from xggm_tpu_torch.data.synthetic_pretrain import make_synthetic_pretrain
+    from xggm_tpu_torch.utils.io import save_json
+
+    for source, kw in PRETRAIN_SOURCES.items():
+        make_synthetic_pretrain(root, source, feat_dim=2048, tsv=True, **kw)
+    answers = ANSWERS + [f"answer_{i}" for i in
+                         range(len(ANSWERS), PRETRAIN_ANSWERS)]
+    save_json([{"ans": a, "dsets": ["vqa", "gqa", "visual7w"]}
+               for a in answers],
+              os.path.join(root, "lxmert", "all_ans.json"))
+
+
+def pretrain_launches_per_pass(model) -> tuple:
+    """Attention launches of one forward and of one backward, from the
+    model: a language layer and an r-layer attend once, an x-layer four
+    times (both cross directions and both self-attentions). Every attention
+    gets a gradient when the visual heads read the last x-layer's visual
+    stream; without them, its visual self-attention and visual->language
+    cross-attention feed no loss."""
+    v = model.cfg.visual
+    forward = v.l_layers + v.r_layers + 4 * v.x_layers
+    return forward, forward if model.task_obj_predict else forward - 2
+
+
+def phase_pretrain(torch, attn, philox, card: str, t_start: float) -> dict:
+    """LXMERT pretraining through `cli/pretrain.py` at the width of
+    scripts/pretrain.sh (9/5/5 layers, hidden 768, 12 heads, vocabulary
+    30522, 1600 objects, 400 attributes, 2048-d features, 9500 answers),
+    batch 256, all four tasks, in bf16: run A one epoch of PRETRAIN_STEPS
+    steps and a validation batch; run B the same with --accum_steps 2 --bs
+    128. Kernels 1 to 3 counted over each run (counts at 0 just before,
+    read just after); BertAdam's count and t_total; Epoch01 and
+    BEST_EVAL_LOSS. Then, on B's model, one batch's loss and gradients
+    through the kernels against the plain attention (phase 8's gates), ms
+    per step on a resident batch, the featurizer's host ms per batch, peak
+    memory, one profiled step and the tied decoder's time. Returns the
+    launches by run."""
+    from xggm_tpu_torch.cli import pretrain
+    from xggm_tpu_torch.ops.basic import DropoutRng
+    from xggm_tpu_torch.models.lxmert import tied_logits
+
+    counters = {"attention_fwd": attn.fused_attention,
+                "attention_dropout_fwd": attn.attention_dropout_fwd,
+                "attention_dropout_bwd": attn.attention_dropout_bwd}
+    tmp = tempfile.mkdtemp(prefix="xggm_pretrain_")
+    out = {}
+    try:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        pretrain_corpus(root)
+        corpus_s = time.perf_counter() - t0
+        base = ["--data_root", root, "--train", "mscoco_train",
+                "--valid", "mscoco_minival", "--llayers", "9", "--xlayers",
+                "5", "--rlayers", "5", "--lr", "1e-4", "--epochs", "1",
+                "--taskMaskLM", "--taskObjPredict", "--taskMatched",
+                "--taskQA", "--visualLosses", "obj,attr,feat", "--qaSets",
+                "vqa,gqa,visual7w", "--fromScratch", "--seed", "9595"]
+        trainer = None
+        for run, (bs, accum) in PRETRAIN_RUNS.items():
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            output = os.path.join(tmp, f"out_{run}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stdout = io.StringIO()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                trainer = pretrain.main(base + [
+                    "--bs", str(bs), "--accum_steps", str(accum),
+                    "--output", output])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {name: c.launches for name, c in counters.items()}
+            out[run] = launches
+            lines = stdout.getvalue().splitlines()
+            n_train = len(trainer.train_feat)
+            n_valid = len(trainer.valid_feat)
+            micro = n_train // bs
+            updates = micro // accum
+            per_fwd, per_bwd = pretrain_launches_per_pass(trainer.model)
+            want = {"attention_fwd": per_fwd * (n_valid // bs),
+                    "attention_dropout_fwd": per_fwd * micro,
+                    "attention_dropout_bwd": per_bwd * micro}
+            epoch = [ln for ln in lines if ln.startswith("Epoch 0: ")]
+            losses = {}
+            if epoch:
+                # Epoch 0: train loss X Mask_LM: X Matched: X ...
+                parts = epoch[0].split()
+                losses = {"train loss": float(parts[4])}
+                losses.update((parts[i].rstrip(":"), float(parts[i + 1]))
+                              for i in range(5, len(parts) - 1, 2))
+            saved = sorted(d for d in os.listdir(output)
+                           if not d.startswith("."))
+            emit(f"pretrain_{run}", card=card, batch_size=bs,
+                 accum_steps=accum, sentences=n_train,
+                 valid_sentences=n_valid, microbatches=micro,
+                 launches=launches, expected_launches=want,
+                 optimizer_count=trainer.state.opt_state.count,
+                 t_total=trainer.t_total, expected_updates=updates,
+                 lines=lines, losses=losses, saved=saved,
+                 params=sum(p.numel() for p in trainer.model.parameters()),
+                 run_seconds=run_s, corpus_seconds=corpus_s,
+                 checkpoint_saves=trainer.ckpt.history,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 seconds_so_far=time.perf_counter() - t_start)
+            names = ("train loss", "Mask_LM", "Matched", "Obj", "Attr",
+                     "Feat", "QA")
+            check(len(epoch) == 1 and set(losses) == set(names)
+                  and all(math.isfinite(v) for v in losses.values()),
+                  f"pretrain {run}: epoch line {epoch}")
+            check(any(ln.startswith("valid loss ") for ln in lines),
+                  f"pretrain {run}: no validation line")
+            check(trainer.state.opt_state.count == updates == trainer.t_total
+                  == PRETRAIN_STEPS,
+                  f"pretrain {run}: {trainer.state.opt_state.count} updates,"
+                  f" t_total {trainer.t_total}, expected {updates}")
+            check(per_fwd == per_bwd == LAUNCHES_PER_FORWARD,
+                  f"pretrain {run}: {per_fwd} and {per_bwd} attentions per "
+                  f"pass, expected {LAUNCHES_PER_FORWARD}")
+            check(launches == want,
+                  f"pretrain {run}: launches {launches}, expected {want}")
+            check({"Epoch01", "BEST_EVAL_LOSS"} <= set(saved),
+                  f"pretrain {run}: saved {saved}")
+            shutil.rmtree(output, ignore_errors=True)
+
+        # on run B's model: kernels vs plain, times and the profile
+        model = trainer.model
+        batch_np, _ = trainer.train_feat.featurize(
+            list(range(PRETRAIN_BS)))
+        batch = trainer.put(batch_np)
+        names = [n for n, _ in model.named_parameters()]
+        params = [p for _, p in model.named_parameters()]
+
+        def plain_dropout(q, k, v, bias, heads, seed, rate):
+            keep = philox.dropout_keep(seed, q.shape[0], q.shape[1],
+                                       k.shape[1], rate, q.device)
+            return attn.attention_dropout_reference(q, k, v, bias, heads,
+                                                    keep)
+
+        def loss_and_grads():
+            total = model.compute_losses(
+                batch, DropoutRng(100, trainer.device))[0]
+            return float(total.detach()), torch.autograd.grad(total, params)
+
+        loss_k, grads_k = loss_and_grads()
+        with mock.patch.object(attn, "fused_attention_dropout",
+                               plain_dropout):
+            loss_p, grads_p = loss_and_grads()
+        word = names.index("lxrt.embeddings.word_embeddings.weight")
+        row0 = float(grads_k[word][0].float().norm())
+        word_rel = float((grads_k[word].float() - grads_p[word].float()).norm()
+                         / grads_p[word].float().norm())
+        agree = dict(kernels=loss_k, plain=loss_p,
+                     loss_rel_diff=abs(loss_k - loss_p) / abs(loss_p),
+                     word_table_grad_rel_l2=word_rel,
+                     word_table_row0_grad_norm=row0,
+                     **grad_agreement(torch, names, grads_k, grads_p))
+        del grads_k, grads_p
+        emit("pretrain_vs_plain", batch_size=PRETRAIN_BS, **agree,
+             loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL,
+             param_grad_rtol=PARAM_GRAD_RTOL)
+        check(agree["same_graph"] and agree["loss_rel_diff"] <= LOSS_RTOL
+              and agree["grad_rel_l2"] <= GRAD_RTOL
+              and agree["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL
+              and word_rel <= PARAM_GRAD_RTOL and row0 > 0,
+              f"pretrain: kernels vs plain attention {agree}")
+
+        # ms per step on a resident batch, the featurizer's host time
+        trainer.train_step(batch, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(PRETRAIN_TIMED_STEPS):
+            loss, _, _ = trainer.train_step(batch, 2 + i)
+        final = float(loss)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / PRETRAIN_TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        check(math.isfinite(final), "pretrain: non-finite timed loss")
+        t0 = time.perf_counter()
+        for i in range(2):
+            host = trainer.train_feat.featurize(
+                list(range(i * PRETRAIN_BS, (i + 1) * PRETRAIN_BS)))[0]
+        featurize_ms = (time.perf_counter() - t0) / 2 * 1e3
+        t0 = time.perf_counter()
+        trainer.put(host)
+        torch.cuda.synchronize()
+        put_ms = (time.perf_counter() - t0) * 1e3
+        seeds = iter(range(3000, 3010))
+        prof = profile_call(torch, lambda: trainer.train_step(batch,
+                                                              next(seeds)),
+                            pretrain_category)
+        busy = prof["device_busy_ms"]
+        # the tied decoder alone: forward and backward at the step's shape
+        table = model.lxrt.embeddings.word_embeddings.weight
+        vocab, hidden = table.shape
+        lang = torch.randn(PRETRAIN_BS, 20, hidden, device=trainer.device,
+                           dtype=torch.bfloat16, requires_grad=True)
+
+        def decoder():
+            logits = tied_logits(lang, table)
+            torch.autograd.grad(logits, (lang, table), torch.ones_like(logits))
+
+        decoder_ms = cuda_ms(decoder, iters=5, warmup=2)
+        emit("pretrain_timing", card=card, batch_size=PRETRAIN_BS,
+             ms_per_step=step_s * 1e3, pairs_per_s=PRETRAIN_BS / step_s,
+             steps=PRETRAIN_TIMED_STEPS, final_loss=final,
+             featurize_host_ms_per_batch=featurize_ms,
+             put_host_ms_per_batch=put_ms,
+             max_memory_allocated_bytes=peak,
+             profile=dict(prof, timed_ms_per_step=step_s * 1e3,
+                          device_idle_share=(1.0 - busy / (step_s * 1e3))
+                          if busy else None),
+             tied_decoder_fwd_bwd_ms=decoder_ms,
+             tied_decoder_flops=3 * 2 * PRETRAIN_BS * 20 * hidden * vocab,
+             seconds_so_far=time.perf_counter() - t_start)
+        del trainer, model, batch, params, lang, table
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -3179,6 +3452,9 @@ def main() -> int:
     # 13. training with the GIN and the GAT generators
     generator_launches = phase_generators(torch, attn, philox, card, t_start)
 
+    # 14. LXMERT pretraining through its CLI, batch 256 and accumulated
+    pretrain_launches = phase_pretrain(torch, attn, philox, card, t_start)
+
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
 
@@ -3186,7 +3462,11 @@ def main() -> int:
         return {gnn: counts[kernel]
                 for gnn, counts in generator_launches.items()}
 
-    # 14. summary: one entry per kernel. Kernel 1 over one forward's
+    def pretraining(kernel):
+        return {run: counts[kernel]
+                for run, counts in pretrain_launches.items()}
+
+    # 15. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -3211,6 +3491,7 @@ def main() -> int:
         "trainer_launches": trainer_launches["attention_fwd"],
         "vqacp_launches": vqacp("attention_fwd"),
         "served_artifact_launches": served_launches,
+        "pretrain_launches": pretraining("attention_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
@@ -3237,6 +3518,7 @@ def main() -> int:
          "trainer_launches": trainer_launches["attention_dropout_fwd"],
          "vqacp_launches": vqacp("attention_dropout_fwd"),
          "generator_launches": generators("attention_dropout_fwd"),
+         "pretrain_launches": pretraining("attention_dropout_fwd"),
          "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("fwd_ms", drop_path),
          "plain_ms": per_forward("plain_fwd_ms", drop_path),
@@ -3255,6 +3537,7 @@ def main() -> int:
          "trainer_launches": trainer_launches["attention_dropout_bwd"],
          "vqacp_launches": vqacp("attention_dropout_bwd"),
          "generator_launches": generators("attention_dropout_bwd"),
+         "pretrain_launches": pretraining("attention_dropout_bwd"),
          "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("bwd_ms", drop_path),
          "plain_ms": per_forward("plain_bwd_ms", drop_path),

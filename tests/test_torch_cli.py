@@ -1,6 +1,7 @@
 """The port's GQA-OOD CLI: its flags against the JAX CLI's, an end-to-end
 run on the CPU with jax and h5py blocked, and the flags of paths not ported
-yet.
+yet; and `cli.export` then `cli.serve` over HTTP for both tasks (the
+counterpart of tests/test_serving.py::test_http_server_end_to_end).
 
 The end-to-end run is in-process in a subprocess that blocks `jax`, `flax`
 and `h5py` (as tests/test_torch_imports.py does) and swaps in a tiny
@@ -13,8 +14,12 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
+import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -155,3 +160,115 @@ def test_unported_flags_raise(tmp_path):
                                   "--data_root", str(tmp_path / "d"),
                                   "--output", str(tmp_path / "out")])
         assert not os.listdir(tmp_path), flags
+
+
+EXPORT = r"""
+import functools, os, sys
+for name in ("jax", "jaxlib", "flax", "h5py", "ml_dtypes"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+import xggm_tpu_torch.cli.common as common
+from xggm_tpu_torch.config import BertConfig
+common.BertConfig = functools.partial(
+    BertConfig, vocab_size=128, hidden_size=64, num_attention_heads=4,
+    intermediate_size=128, max_position_embeddings=64)
+from xggm_tpu_torch.cli import export
+
+root = sys.argv[1]
+for task in ("gqa", "vqa"):
+    export.main(["--synthetic", "--xpack", "--device", "cpu", "--task", task,
+                 "--data_root", os.path.join(root, task), "--valid", "val",
+                 "--output", os.path.join(root, task, "snap"),
+                 "--llayers", "1", "--xlayers", "1", "--rlayers", "1",
+                 "--artifact", os.path.join(root, task, "art"),
+                 "--serve_bs", "4"])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in ("jax", "flax", "h5py", "xggm_tpu"))
+print("LEAKED", leaked)
+"""
+
+# h5py stays: the served features are read from H5, as in the JAX CLI
+SERVE = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "ml_dtypes"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from xggm_tpu_torch.cli import serve
+serve.main(sys.argv[1:])
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(url, body: bytes, timeout=120):
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    return json.load(urllib.request.urlopen(req, timeout=timeout))
+
+
+def test_export_then_serve_over_http(tmp_path):
+    """For --task gqa and vqa: `cli.export --synthetic` (jax, flax and h5py
+    blocked), then `cli.serve --synthetic` on a free port (jax and flax
+    blocked): /healthz, 6 queries past the exported batch of 4 answered
+    from the artifact's vocabulary, a 400 with an error on `{}`, and the
+    server still healthy after it."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", EXPORT, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout.splitlines()
+    prefix = {"gqa": "synth_val", "vqa": "coco_val"}
+    servers = {}
+    try:
+        for task in prefix:
+            port = _free_port()
+            root = tmp_path / task
+            servers[task] = (port, subprocess.Popen(
+                [sys.executable, "-c", SERVE, "--artifact",
+                 str(root / "art"), "--task", task, "--data_root",
+                 str(root), "--split", "val", "--device", "cpu",
+                 "--synthetic", "--port", str(port)],
+                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE))
+        for task, (port, server) in servers.items():
+            base = f"http://127.0.0.1:{port}"
+            health = None
+            for _ in range(240):
+                if server.poll() is not None:
+                    raise AssertionError(f"{task} server died: "
+                                         f"{server.stderr.read()[-2000:]}")
+                try:
+                    health = json.load(urllib.request.urlopen(
+                        base + "/healthz", timeout=5))
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            assert health and health["status"] == "ok" and \
+                health["batch_size"] == 4, (task, health)
+            with open(tmp_path / task / "art" / "meta.json") as f:
+                vocab = set(json.load(f)["label2ans"])
+            queries = [{"img_id": f"{prefix[task]}_{i % 3}",
+                        "sent": f"what color is the object {i} ?"}
+                       for i in range(6)]
+            resp = _post(base + "/predict",
+                         json.dumps({"queries": queries}).encode())
+            assert len(resp["answers"]) == 6, (task, resp)
+            assert all(a in vocab for a in resp["answers"]), task
+            assert resp["latency_ms"] > 0
+            with pytest.raises(urllib.error.HTTPError) as bad:
+                _post(base + "/predict", b"{}")
+            assert bad.value.code == 400 and "error" in json.load(bad.value)
+            health = json.load(urllib.request.urlopen(base + "/healthz",
+                                                      timeout=30))
+            assert health["status"] == "ok", task
+    finally:
+        for _, server in servers.values():
+            server.terminate()
+            server.wait(timeout=30)

@@ -86,23 +86,30 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
-    from xggm_tpu_torch.cli import export, gqa_ood, vqacpv2, vqacpv2_baseline
+    from xggm_tpu_torch.cli import (
+        export, gqa_ood, pretrain, vqacpv2, vqacpv2_baseline)
     from xggm_tpu_torch.config import tiny_test_config
     from xggm_tpu_torch.data.feeder import Feeder
     from xggm_tpu_torch.models.lxmert import LxmertModel
+    from xggm_tpu_torch.models.pretrain_model import PretrainModel
     from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.training.pretrainer import LxmertPretrainer
     from xggm_tpu_torch.training.trainer import XGGMTrainer
 
     cfg = tiny_test_config()
     for make in (lambda: XGGMModel(cfg.lxmert, cfg.num_answers),
                  lambda: XGGMModel(cfg.lxmert, cfg.num_answers, cfg.ggm),
                  lambda: LxmertModel(cfg.lxmert),
+                 lambda: PretrainModel(cfg.lxmert),
                  lambda: XGGMTrainer(cfg.replace(output=str(tmp_path))),
+                 lambda: LxmertPretrainer(cfg.replace(output=str(tmp_path)),
+                                          train_feat=None),
                  lambda: Feeder([], 8),
                  *(lambda cli=cli: cli.main(
                      ["--synthetic", "--data_root", str(tmp_path / "data"),
                       "--output", str(tmp_path / "out")])
-                   for cli in (gqa_ood, vqacpv2, vqacpv2_baseline)),
+                   for cli in (gqa_ood, vqacpv2, vqacpv2_baseline,
+                               pretrain)),
                  lambda: export.main(
                      ["--synthetic", "--data_root", str(tmp_path / "data"),
                       "--output", str(tmp_path / "out"), "--artifact",

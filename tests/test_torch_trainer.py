@@ -27,6 +27,7 @@ import os
 import re
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -36,12 +37,14 @@ import xggm_tpu_torch.config as port_config
 from xggm_tpu.checkpoint.manager import CheckpointManager as JaxCheckpoints
 from xggm_tpu.data.synthetic import make_synthetic_gqa, write_vocab
 from xggm_tpu.evals import gqa_eval as jax_gqa_eval
+from xggm_tpu.models.task_model import XGGMModel as JaxXGGM
 from xggm_tpu.serving.artifact import _flatten
 from xggm_tpu.training.metrics import MetricsLogger as JaxMetricsLogger
 from xggm_tpu.training.trainer import XGGMTrainer as JaxTrainer
 from xggm_tpu_torch.checkpoint.jax_params import from_jax_params, port_name
 from xggm_tpu_torch.evals import gqa_eval
 from xggm_tpu_torch.training.trainer import XGGMTrainer
+from test_torch_train_step import _numpy_params
 
 EPOCHS, BS, N_TRAIN, N_VAL = 2, 8, 32, 12
 BATCHES = N_TRAIN // BS
@@ -99,7 +102,13 @@ def env(tmp_path_factory):
                        feat_dim=32, seed=1)
     write_vocab(os.path.join(root, "vocab.txt"))
     jax_out = str(tmp_path_factory.mktemp("jax_base"))
-    jtr = JaxTrainer(_cfg(jax_config, root, jax_out))
+    # the JAX trainer's initial parameters drawn with numpy on its own tree
+    init = JaxXGGM.init
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxXGGM, "init", lambda self, rngs, *args, **kw:
+                   _numpy_params(jax.eval_shape(
+                       lambda r: init(self, r, *args, **kw), rngs)))
+        jtr = JaxTrainer(_cfg(jax_config, root, jax_out))
     flat0 = {k: np.array(v) for k, v in _flatten(jtr.params).items()}
     jtr.train_baseline()
     jax_base = dict(

@@ -13,7 +13,12 @@ artifact's `kernel_scale_int8` becomes `weight_scale`. GIN's `eps` and
 GAT's `attn` [2F, 1] keep their names and shapes.
 
 `to_jax_params` is the inverse: a port model's parameters under the JAX
-package's flat names, in the order `jax.tree_util` flattens them.
+package's flat names, in the order `jax.tree_util` flattens them. The
+pretraining model's tree maps the same way: `lxrt/...`,
+`lm_head/transform/...` and `lm_head/bias` (the decoder is tied to the
+word table, so it has no weight of its own), `seq_relationship`,
+`obj_head/transform/...`, `obj_head/decoder_{obj,attr,feat}` and
+`answer_head/{fc1,ln,fc2}`.
 """
 from __future__ import annotations
 

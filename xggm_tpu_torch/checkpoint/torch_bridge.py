@@ -14,6 +14,9 @@ snapshot alike:
   `qkv` projection, the cross-attention's k/v into one `kv`, since the port
   keeps the JAX package's parameter tree.
 
+`convert_pretrain_model` does the same for a reference pretraining model
+(`LXRTPretraining`: the encoder and the four pretraining heads).
+
 `merge_into` then puts such a flat dict onto a port model: the names and
 transposes of `checkpoint/jax_params.py`, the model's other parameters left
 as they are. The answer-head surgery of `--loadLXMERTQA` is in
@@ -248,6 +251,37 @@ def convert_task_model(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
             _map_gin(m, t, o, n_convs=1)
         else:
             _map_gat(m, t, o, gat_heads)
+    return m.out
+
+
+def convert_pretrain_model(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
+                           visual_losses: Tuple[str, ...] = ("obj", "attr",
+                                                             "feat")
+                           ) -> Dict[str, np.ndarray]:
+    """A reference LXRTPretraining state dict (`bert.*`, `cls.predictions.*`,
+    `cls.seq_relationship.*`, `obj_predict_head.*`, `answer_head.*`) as the
+    PretrainModel's flat JAX names. The masked-LM decoder is tied to the
+    word-embedding table, so of `cls.predictions` only the transform and
+    the bias convert; `cls.predictions.decoder.weight` is left unread."""
+    sd = strip_prefixes(sd)
+    _, m = convert_lxrt_bert(sd, cfg, torch_prefix="bert.",
+                             our_prefix="lxrt")
+    m.linear("cls.predictions.transform.dense", "lm_head/transform/dense")
+    m.layernorm("cls.predictions.transform.LayerNorm",
+                "lm_head/transform/LayerNorm")
+    bias = m._take("cls.predictions.bias")
+    if bias is not None:
+        m.out["lm_head/bias"] = bias
+    m.linear("cls.seq_relationship", "seq_relationship")
+    m.linear("answer_head.logit_fc.0", "answer_head/fc1")
+    m.layernorm("answer_head.logit_fc.2", "answer_head/ln")
+    m.linear("answer_head.logit_fc.3", "answer_head/fc2")
+    m.linear("obj_predict_head.transform.dense", "obj_head/transform/dense")
+    m.layernorm("obj_predict_head.transform.LayerNorm",
+                "obj_head/transform/LayerNorm")
+    for key in visual_losses:
+        m.linear(f"obj_predict_head.decoder_dict.{key}",
+                 f"obj_head/decoder_{key}")
     return m.out
 
 

@@ -138,7 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_const", default=False, const=True,
                    help=f"not ported: {ITEM_7}")
     p.add_argument("--accum_steps", default=1, type=int,
-                   help="pretraining gradient accumulation (not read here)")
+                   help="pretraining (cli.pretrain): one update on the mean "
+                        "gradient of this many microbatches of --bs; the "
+                        "task recipes do not read it")
     p.add_argument("--shard_opt_state", action="store_const", default=False,
                    const=True, help=f"not ported: {ITEM_7}")
     p.add_argument("--prng", default="rbg", choices=["rbg", "threefry2x32"],
@@ -191,7 +193,8 @@ def to_config(args: argparse.Namespace, task: str) -> XGGMConfig:
                           lr=args.lr, epochs=args.epochs,
                           dropout=args.dropout, seed=args.seed,
                           clean_phase_first=clean_first,
-                          rel_d_mult=rel_d_mult),
+                          rel_d_mult=rel_d_mult,
+                          accum_steps=args.accum_steps),
         data=DataConfig(train=args.train or "",
                         valid=args.valid or "",
                         test=args.test, tiny=args.tiny, fast=args.fast,

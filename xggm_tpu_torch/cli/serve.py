@@ -29,10 +29,8 @@ def main(argv=None):
     p.add_argument("--port", default=8000, type=int)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--synthetic", action="store_true",
-                   help="generate a synthetic GQA corpus first")
+                   help="generate a synthetic corpus of --task first")
     args = p.parse_args(argv)
-    if args.synthetic and args.task != "gqa":
-        p.error("--synthetic makes a GQA corpus only")
 
     from xggm_tpu_torch.data.datasets import H5FeatureStore
     from xggm_tpu_torch.data.tokenizer import BertTokenizer
@@ -41,8 +39,10 @@ def main(argv=None):
 
     model = ServingModel.load(args.artifact, device=args.device)
     if args.synthetic:
-        from xggm_tpu_torch.data.synthetic import make_synthetic_gqa, write_vocab
-        make_synthetic_gqa(args.data_root, args.split)
+        from xggm_tpu_torch.data.synthetic import (
+            make_synthetic_gqa, make_synthetic_vqacp, write_vocab)
+        make = make_synthetic_gqa if args.task == "gqa" else make_synthetic_vqacp
+        make(args.data_root, args.split)
         write_vocab(os.path.join(args.data_root, "vocab.txt"))
 
     sub = "gqa_imgfeat" if args.task == "gqa" else "mscoco_imgfeat"

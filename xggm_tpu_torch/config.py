@@ -51,6 +51,9 @@ class VisualConfig:
     r_layers: int = 5
     visual_feat_dim: int = VISUAL_FEAT_DIM
     visual_pos_dim: int = VISUAL_POS_DIM
+    # pretraining's visual targets: object classes and attributes
+    obj_id_num: int = 1600
+    attr_id_num: int = 400
 
 
 @dataclass(frozen=True)
@@ -113,6 +116,9 @@ class TrainConfig:
     rep_sm_mult: float = 1.1
     # VQA-CP runs the clean phase before the GGM phase; GQA the reverse.
     clean_phase_first: bool = False
+    # Pretraining: one BertAdam update on the mean gradient of this many
+    # consecutive microbatches of batch_size (t_total counts the updates).
+    accum_steps: int = 1
 
 
 @dataclass(frozen=True)

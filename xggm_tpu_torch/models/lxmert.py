@@ -21,7 +21,7 @@ At probability 0 the dropout is skipped and attention takes `mha`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -327,3 +327,67 @@ class AnswerHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.ln(gelu(self.fc1(x)))).float()
+
+
+class PredictionHeadTransform(nn.Module):
+    """dense -> GeLU -> LayerNorm(layer_norm_eps), the shared front of the
+    pretraining heads."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.dense = _dense(c, c.hidden_size, c.hidden_size, dtype, device)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                   device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(gelu(self.dense(x)))
+
+
+def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x [..., D] against every row of `table` [V, D]: float32 logits
+    [..., V] from operands rounded to x's dtype, as the JAX package's einsum
+    with preferred_element_type=float32. The rounded operands are multiplied
+    in float32, so the products are exact and the sums float32."""
+    t = table.to(x.dtype)
+    if x.dtype != torch.float32:
+        x, t = x.float(), t.float()
+    return torch.matmul(x, t.t())
+
+
+class LMPredictionHead(nn.Module):
+    """Masked-LM head: transform, then the decoder tied to the encoder's
+    word-embedding table (passed at call time; its gradient from here
+    reaches every row, row 0 included), plus `bias` [vocab]."""
+
+    def __init__(self, c: BertConfig, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.transform = PredictionHeadTransform(c, dtype, device=device)
+        self.bias = nn.Parameter(torch.empty(c.vocab_size, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor,
+                word_embedding: torch.Tensor) -> torch.Tensor:
+        return tied_logits(self.transform(x), word_embedding) + self.bias
+
+
+class VisualObjHead(nn.Module):
+    """One decoder per visual loss (`decoder_obj`, `decoder_attr`,
+    `decoder_feat`) over a shared transform; float32 outputs by loss
+    name."""
+
+    def __init__(self, c: BertConfig, visual_losses: Sequence[str],
+                 loss_dims: Sequence[int], dtype: torch.dtype, *,
+                 device=None):
+        super().__init__()
+        self.visual_losses = tuple(visual_losses)
+        self.transform = PredictionHeadTransform(c, dtype, device=device)
+        for key, dim in zip(self.visual_losses, loss_dims):
+            setattr(self, f"decoder_{key}",
+                    Dense(c.hidden_size, dim, dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.transform(x)
+        return {key: getattr(self, f"decoder_{key}")(x).float()
+                for key in self.visual_losses}

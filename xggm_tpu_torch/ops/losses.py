@@ -1,6 +1,6 @@
-"""Losses of the GGM train step, in float32 (counterpart of
-`bce_with_logits`, `symmetric_kl` and `score_matching_loss` in
-`xggm_tpu/ops/losses.py`)."""
+"""Losses of the GGM train step and of pretraining, in float32 (counterpart
+of `bce_with_logits`, `symmetric_kl`, `score_matching_loss`,
+`cross_entropy` and `smooth_l1` in `xggm_tpu/ops/losses.py`)."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +32,27 @@ def score_matching_loss(score: torch.Tensor, grad_log_q_noise: torch.Tensor,
     per_example = diff.square().sum(dim=(-1, -2))
     denom = score.shape[-1] * score.shape[-2]
     return 0.5 * (sigma ** 2) * per_example.mean() / denom
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -1,
+                  reduction: str = "mean") -> torch.Tensor:
+    """Softmax cross-entropy over the last axis in float32 (torch
+    CrossEntropyLoss). A row whose label is `ignore_index` contributes 0;
+    "mean" divides by the number of the other rows, at least 1, so a batch
+    with every row ignored gives 0. "none" returns the per-row values."""
+    valid = labels != ignore_index
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])
+    nll = torch.where(valid, nll[..., 0], 0.0)
+    if reduction == "none":
+        return nll
+    return nll.sum() / valid.float().sum().clamp_min(1.0)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              beta: float = 1.0) -> torch.Tensor:
+    """Elementwise SmoothL1 in float32 (torch SmoothL1Loss,
+    reduction='none')."""
+    d = (pred.float() - target.float()).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)

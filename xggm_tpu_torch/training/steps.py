@@ -76,7 +76,13 @@ def _update(opt: BertAdam, state: TrainState, loss: torch.Tensor,
     """Clip, update and apply: through `fused_step` (kernel 7) for a fused
     BertAdam, as the JAX package's `_clip_update_apply` takes a transform's
     `fused_step`; else clip the gradients in place, then `step`."""
-    grads = _grads(loss, state)
+    apply_grads(opt, state, _grads(loss, state), clip)
+
+
+def apply_grads(opt: BertAdam, state: TrainState, grads: Grads,
+                clip: float) -> None:
+    """`_update` from gradients already taken (None: outside the graph);
+    clips them in place on the tree path."""
     if opt.fused:
         opt.fused_step(state.params, grads, state.opt_state, clip)
     else:
