@@ -210,13 +210,37 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             too, row 0 included), with no update, through the kernels and
             through the plain attention, within phase 8's limits; ms per
             step on a resident batch and pairs/s, the featurizer's host ms
-            per batch, peak memory, one profiled step by category (the
+            per batch (and for one rank's half of it, as each of two ranks
+            builds), peak memory, one profiled step by category (the
             tied decoder's fp32 GEMMs apart) and the tied decoder's own
             forward and backward time.
-15. summary the kernels line (all seven kernels; kernels 1 to 3 with their
-            trainer-phase, VQA-CP, served-artifact, GIN/GAT and
-            pretraining launches too), the card's name and power limit,
-            and last {"ok": true, "device": {...}}.
+15. scale-  (a) `cli/gqa_ood.py` for an epoch of 4 batches of 96 at full
+    out     width (no validation), as it is and with --multiGPU
+            --shard_opt_state: a world of one over NCCL, ZeRO-1 on; losses,
+            parameters and BertAdam counters bit for bit those of the
+            first run, kernels 2 and 3 launched 68 and 66 times a batch.
+            (b) two ranks in processes of their own on the one card over
+            gloo (NCCL takes one rank per device), batch 48 each of the
+            global 96, dropout off and the GGM noise replayed: for the
+            tree and the fused BertAdam, with and without ZeRO-1, the
+            2-step trajectory against one rank at 96 (rank 0 runs it):
+            the phases' losses (ggm_loss, clean_loss) within 1e-4
+            relative, their terms printed, each parameter's update within
+            phase 8's gradient gates, BertAdam's counters and flags
+            exactly, kernels 1, 3 and 7 launched as derived; ms per global
+            batch (no gain to claim: the ranks share the card). Then once
+            in fp32 (tree BertAdam, ZeRO-1): every loss term within 1e-4
+            relative, the same update gates, counters and launches. (c) the
+            training model at 96, dropout on, with and without remat: a
+            relation phase's loss within 1e-6 relative, its gradients
+            within relative L2 1e-3; kernel 2 launched twice per
+            attention under remat (136 a batch), kernel 3 66; ms per batch
+            and peak memory each way, in turns.
+16. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+            trainer-phase, VQA-CP, served-artifact, GIN/GAT, pretraining
+            and scale-out launches too, kernel 7 with its scale-out
+            ones), the card's name and power limit, and last
+            {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -232,6 +256,7 @@ import os
 import random
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -1306,10 +1331,11 @@ def grad_agreement(torch, names, kernels, plain, apart=(),
 
 
 def train_setup(torch, fused: bool, gnn: str = "GCN",
-                dtype: str = "bfloat16"):
+                dtype: str = "bfloat16", dropout: bool = True):
     """The full-width training model with the generator `gnn`, computing in
     `dtype`, BertAdam (`fused`: kernel 7), its state, the two branch steps
-    and one synthetic batch of 96."""
+    and one synthetic batch of 96; `dropout` False sets the hidden,
+    attention and generator dropout to 0."""
     from dataclasses import replace
     from types import SimpleNamespace
 
@@ -1322,6 +1348,12 @@ def train_setup(torch, fused: bool, gnn: str = "GCN",
 
     cfg = gqa_ood_config()
     cfg = cfg.replace(ggm=replace(cfg.ggm, gnn=gnn))
+    if not dropout:
+        cfg = cfg.replace(
+            lxmert=cfg.lxmert.replace(bert=replace(
+                cfg.lxmert.bert, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0)),
+            ggm=replace(cfg.ggm, dropout=0.0))
     lx, tc = cfg.lxmert.replace(dtype=dtype), cfg.train
     train_b = tc.batch_size
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3184,6 +3216,14 @@ def phase_pretrain(torch, attn, philox, card: str, t_start: float) -> dict:
             host = trainer.train_feat.featurize(
                 list(range(i * PRETRAIN_BS, (i + 1) * PRETRAIN_BS)))[0]
         featurize_ms = (time.perf_counter() - t0) / 2 * 1e3
+        # one rank's half of a batch, as each of two ranks builds it: the
+        # draws of every row, the arrays of its own
+        t0 = time.perf_counter()
+        for i in range(2):
+            trainer.train_feat.featurize(
+                list(range(i * PRETRAIN_BS, (i + 1) * PRETRAIN_BS)),
+                range(PRETRAIN_BS // 2, PRETRAIN_BS))
+        featurize_half_ms = (time.perf_counter() - t0) / 2 * 1e3
         t0 = time.perf_counter()
         trainer.put(host)
         torch.cuda.synchronize()
@@ -3208,6 +3248,7 @@ def phase_pretrain(torch, attn, philox, card: str, t_start: float) -> dict:
              ms_per_step=step_s * 1e3, pairs_per_s=PRETRAIN_BS / step_s,
              steps=PRETRAIN_TIMED_STEPS, final_loss=final,
              featurize_host_ms_per_batch=featurize_ms,
+             featurize_host_ms_per_batch_one_of_two_ranks=featurize_half_ms,
              put_host_ms_per_batch=put_ms,
              max_memory_allocated_bytes=peak,
              profile=dict(prof, timed_ms_per_step=step_s * 1e3,
@@ -3222,6 +3263,438 @@ def phase_pretrain(torch, attn, philox, card: str, t_start: float) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# The scale-out phase: a world of one over NCCL through the CLI (bit for
+# bit against the run without the flags), two ranks on the one card over
+# gloo (NCCL takes one rank per device) against one rank at the global
+# batch (in bf16, and once in fp32 as the witness of the bf16 gate), and
+# remat against the plain encoder.
+SCALE_OUT_RANKS = 2
+SCALE_OUT_PLAN = ("relation", "representation")
+SCALE_OUT_RANK_TIMEOUT = 400
+# two ranks of 48 rows against one rank of 96 (dropout off, the GGM noise
+# replayed): only summation orders differ, in bf16 GEMMs. Gated: the two
+# phases' losses, whose gradients the updates take. Their terms are
+# printed beside them: the representation branch's d_loss, a symmetric KL
+# of two nearly equal distributions times 1842, read 6.8e-4 relative apart
+# on an H100 80GB HBM3 (700 W), its cancellation amplifying the bf16
+# rounding of GEMMs over 48 rows against 96 (step 1's terms 1e-6 apart).
+# In fp32 the same run gates every term at DP_LOSS_RTOL.
+DP_LOSS_RTOL = 1e-4
+DP_GATED_LOSSES = ("ggm_loss", "clean_loss")
+# (dtype, BertAdam fused, ZeRO-1) of each two-rank run
+SCALE_OUT_RUNS = (("bfloat16", False, False), ("bfloat16", False, True),
+                  ("bfloat16", True, False), ("bfloat16", True, True),
+                  ("float32", False, True))
+# remat against the plain encoder from the same seeds: the recompute runs
+# the same kernels on the same inputs
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL = 1e-6, 1e-3
+REMAT_TIMED_BATCHES = 3
+# the recompute runs every checkpointed layer's forward again in the
+# backward, its attentions included: each phase's 34 kernel-2 launches
+# twice, the clean phase's last-layer visual ones too (their backward
+# still does not run)
+REMAT_FWD_LAUNCHES_PER_BATCH = 2 * FWD_LAUNCHES_PER_BATCH
+# BertAdam's t_total in (b). At phase 8's 10,000 the first updates
+# (lr 2e-8 to 6e-8) move a LayerNorm scale by about one fp32 ulp, so their
+# rounding, not the update, would decide the comparison of the updates; at
+# 200 (lr 1e-6 to 3e-6) an update moves it by some 170 ulps.
+SCALE_OUT_T_TOTAL = 200
+
+
+def scale_out_batches(torch, t) -> dict:
+    """Phase 8's batch of 96 for each branch with its GGM noise drawn once
+    for the global batch (`noise_override`), so that each rank replays its
+    rows of the single-rank draw."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    b, hid = t.train_b, t.cfg.lxmert.bert.hidden_size
+    upper = torch.randn(b, 36, 36, device="cuda", generator=gen).triu(1)
+    return {"relation": {**t.batch,
+                         "noise_override": upper + upper.transpose(1, 2)},
+            "representation": {**t.batch, "noise_override": torch.randn(
+                b, 36, hid, device="cuda", generator=gen)}}
+
+
+def scale_out_counters(attn, fa) -> dict:
+    return {"attention_fwd": attn.fused_attention,
+            "attention_dropout_fwd": attn.attention_dropout_fwd,
+            "attention_dropout_bwd": attn.attention_dropout_bwd,
+            "bert_adam": fa.fused_adam}
+
+
+def scale_out_trajectory(torch, t, batches, counters, rows=None) -> dict:
+    """The 2-step trajectory (relation, representation) of `t` on `rows`
+    (a slice; all rows by default): each step's scalar losses (the
+    group's mean) and ms, the counts of `counters` over it, and the
+    BertAdam counters and flags after it."""
+    for c in counters.values():
+        c.launches = 0
+    state, record = t.state, []
+    for i, br in enumerate(SCALE_OUT_PLAN):
+        batch = {k: v if rows is None else v[rows]
+                 for k, v in batches[br].items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = t.steps[br](state, batch, i)
+        torch.cuda.synchronize()
+        record.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                           losses={k: float(v) for k, v in m.items()
+                                   if v.dim() == 0}))
+    return dict(record=record,
+                launches={k: c.launches for k, c in counters.items()},
+                leaf_count=state.opt_state.leaf_counts(),
+                active=state.opt_state.active_flags(),
+                count=state.opt_state.count)
+
+
+def scale_out_rank(coordinator: str, rank: int, workdir: str) -> int:
+    """One of the two ranks of phase 15 (b), on the one card over gloo:
+    for each run of SCALE_OUT_RUNS, the trajectory on this rank's 48 rows
+    from the seeded initial parameters and a fresh BertAdam state; rank 0
+    first runs each (dtype, optimizer)'s single-rank trajectory at 96 and
+    holds the two ranks' to it, gating the losses of DP_GATED_LOSSES in
+    bf16 and every loss term in fp32. Writes {workdir}/rank{rank}.json."""
+    import torch
+
+    from xggm_tpu_torch.ops import attention as attn
+    from xggm_tpu_torch.ops import fused_adam as fa
+    from xggm_tpu_torch.parallel import (
+        gathered_opt_state, host_barrier, init_distributed, make_mesh,
+        maybe_zero_shard_state, shutdown_distributed)
+    from xggm_tpu_torch.training.steps import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(coordinator, SCALE_OUT_RANKS, rank, backend="gloo",
+                     device="cuda:0", timeout_s=SCALE_OUT_RANK_TIMEOUT)
+    try:
+        mesh = make_mesh(device="cuda:0")
+        counters = scale_out_counters(attn, fa)
+        out = dict(rank=rank, backend=mesh.backend, runs=[])
+        t = refs = built = None
+        for dtype, fused, zero in SCALE_OUT_RUNS:
+            if dtype != built:
+                built = dtype
+                del t
+                gc.collect()
+                torch.cuda.empty_cache()
+                t = train_setup(torch, fused=False, dtype=dtype,
+                                dropout=False)
+                t.opt.t_total = SCALE_OUT_T_TOTAL
+                batches = scale_out_batches(torch, t)
+                init = [p.detach().clone() for p in t.state.params.values()]
+                rows_per_rank = t.train_b // SCALE_OUT_RANKS
+                rows = slice(rank * rows_per_rank, (rank + 1) * rows_per_rank)
+                refs = {}
+
+            def fresh(mesh_or_none, zero_or_not: bool) -> None:
+                """The initial parameters and a new BertAdam state."""
+                with torch.no_grad():
+                    torch._foreach_copy_(list(t.state.params.values()), init)
+                t.opt.fused = fused
+                t.state = TrainState.create(t.model, t.opt, mesh_or_none)
+                maybe_zero_shard_state(t.state, mesh_or_none, zero_or_not)
+
+            if rank == 0 and fused not in refs:
+                fresh(None, False)
+                refs[fused] = scale_out_trajectory(torch, t, batches,
+                                                   counters)
+                refs[fused]["params"] = [p.detach().clone()
+                                         for p in t.state.params.values()]
+            ref = refs.get(fused)
+            fresh(mesh, zero)
+            sharded = len(t.state.opt_state.shards or {})
+            host_barrier(f"run_{dtype}_{fused}_{zero}")
+            got = scale_out_trajectory(torch, t, batches, counters, rows)
+            whole = gathered_opt_state(t.state.opt_state, mesh)
+            row = dict(dtype=dtype, fused=fused, zero=zero,
+                       rows=rows_per_rank, sharded_leaves=sharded,
+                       ms_per_global_batch=[r["ms"] for r in got["record"]],
+                       launches=got["launches"], count=got["count"])
+            if ref is not None:
+                deltas = [p.detach() - p0 for p, p0 in
+                          zip(t.state.params.values(), init)]
+                want = [p - p0 for p, p0 in zip(ref["params"], init)]
+                rel = [{k: abs(g["losses"][k] - v) / max(abs(v), 1e-12)
+                        for k, v in w["losses"].items()}
+                       for g, w in zip(got["record"], ref["record"])]
+                gated = (DP_GATED_LOSSES if dtype == "bfloat16"
+                         else tuple(ref["record"][0]["losses"]))
+                loss_rel = max(r[k] for r in rel for k in gated
+                               if k in r)
+                row.update(
+                    reference_ms_per_batch=[r["ms"] for r in ref["record"]],
+                    reference_launches=ref["launches"],
+                    losses=[r["losses"] for r in got["record"]],
+                    reference_losses=[r["losses"] for r in ref["record"]],
+                    gated_losses=gated, loss_rel_diffs=rel,
+                    loss_rel_diff=loss_rel,
+                    counters_flags_equal=(
+                        got["leaf_count"] == ref["leaf_count"]
+                        and got["active"] == ref["active"]
+                        and got["count"] == ref["count"]),
+                    moments_whole=all(
+                        whole.m[n].shape == p.shape
+                        for n, p in t.state.params.items()),
+                    update_agreement=grad_agreement(
+                        torch, t.names, deltas, want))
+                del deltas, want
+            out["runs"].append(row)
+            del whole
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def scale_out_two_ranks(torch) -> dict:
+    """Phase 15 (b): the two ranks in processes of their own, each
+    stopped at its time limit; their rows checked here."""
+    workdir = tempfile.mkdtemp(prefix="xggm_scale_out_")
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        coordinator = f"127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--scale-out-rank",
+             coordinator, str(r), workdir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(SCALE_OUT_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=SCALE_OUT_RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0,
+                  f"scale-out rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        ranks = [json.load(open(os.path.join(workdir, f"rank{r}.json")))
+                 for r in range(SCALE_OUT_RANKS)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rows = ranks[0]["runs"]
+    emit("scale_out_two_ranks", backend=ranks[0]["backend"],
+         wall_seconds=wall, runs=rows,
+         rank1_launches=[r["launches"] for r in ranks[1]["runs"]],
+         loss_rtol=DP_LOSS_RTOL, grad_rtol=GRAD_RTOL,
+         param_grad_rtol=PARAM_GRAD_RTOL,
+         note="two ranks share one card: ms per global batch is no gain "
+              "to claim; dropout off, the GGM noise replayed")
+    per_batch = {"attention_fwd": FWD_LAUNCHES_PER_BATCH,
+                 "attention_dropout_fwd": 0,
+                 "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH}
+    for row, other in zip(rows, ranks[1]["runs"]):
+        agree = row["update_agreement"]
+        want = {k: n * len(SCALE_OUT_PLAN) for k, n in per_batch.items()}
+        want["bert_adam"] = (UPDATES_PER_BATCH * len(SCALE_OUT_PLAN)
+                             if row["fused"] else 0)
+        check(ranks[0]["backend"] == ranks[1]["backend"] == "gloo",
+              f"backend {ranks[0]['backend']}")
+        check(row["launches"] == other["launches"] == want
+              == row["reference_launches"],
+              f"two-rank launches {row['launches']}, {other['launches']}, "
+              f"expected {want} (reference {row['reference_launches']})")
+        check(row["loss_rel_diff"] <= DP_LOSS_RTOL,
+              f"two ranks against one, {row['dtype']} losses "
+              f"{row['gated_losses']}: {row}")
+        check(row["counters_flags_equal"] and row["moments_whole"],
+              f"two ranks against one, counters and flags: {row}")
+        check(agree["same_graph"] and agree["grad_rel_l2"] <= GRAD_RTOL
+              and agree["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL,
+              f"two ranks against one, parameter updates: {agree}")
+        check((row["sharded_leaves"] > 0) == row["zero"],
+              f"ZeRO layout: {row['sharded_leaves']} split leaves")
+    return {k: sum(r["launches"][k] + o["launches"][k]
+                   for r, o in zip(rows, ranks[1]["runs"]))
+            for k in rows[0]["launches"]}
+
+
+def scale_out_world_of_one(torch, attn, fa, tmp: str) -> dict:
+    """Phase 15 (a): `cli/gqa_ood.py` for an epoch of 4 batches of 96 (no
+    validation), once as it is and once with --multiGPU
+    --shard_opt_state: a world of one over NCCL, whose group averages and
+    gathers nothing, so the losses, the parameters and the BertAdam
+    counters are those of the first run bit for bit."""
+    from xggm_tpu_torch.cli import gqa_ood
+    from xggm_tpu_torch.config import gqa_ood_config
+    from xggm_tpu_torch.data.synthetic import (
+        ANSWERS, make_synthetic_gqa, write_vocab)
+
+    cfg = gqa_ood_config()
+    bs, feat_dim = cfg.train.batch_size, cfg.lxmert.visual.visual_feat_dim
+    root = os.path.join(tmp, "data")
+    make_synthetic_gqa(root, "train", feat_dim=feat_dim, pack=True,
+                       **TRAINER_TRAIN)
+    write_vocab(os.path.join(root, "vocab.txt"))
+    write_answer_tables(root, ANSWERS + [
+        f"answer_{i}" for i in range(len(ANSWERS), cfg.num_answers)])
+    argv = ["--train", "train", "--valid", "", "--data_root", root, "--bs",
+            str(bs), "--epochs", "1", "--lr", str(cfg.train.lr), "--seed",
+            str(TRAINER_SEED), "--device", "cuda", "--xpack", "--dtype",
+            "bfloat16"]
+    counters = scale_out_counters(attn, fa)
+    runs = {}
+    for name, extra in (("single", []),
+                        ("world_of_one", ["--multiGPU",
+                                          "--shard_opt_state"])):
+        out = os.path.join(tmp, name)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = gqa_ood.main(argv + ["--output", out] + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        recs = [json.loads(ln) for ln in
+                open(os.path.join(out, "metrics.jsonl"))]
+        runs[name] = dict(
+            seconds=seconds,
+            launches={k: c.launches for k, c in counters.items()},
+            losses=[{k: v for k, v in r.items() if k not in ("step", "ts")}
+                    for r in recs if "branch" in r],
+            mesh=None if trainer.mesh is None else dict(
+                size=trainer.mesh.size, backend=trainer.mesh.backend),
+            sharded_leaves=len(trainer.state.opt_state.shards or {}),
+            counts=trainer.state.opt_state.leaf_counts(),
+            count=trainer.state.opt_state.count,
+            params={n: p.detach().clone()
+                    for n, p in trainer.model.named_parameters()})
+        del trainer
+        gc.collect()
+    single, one = runs["single"], runs["world_of_one"]
+    same_params = all(torch.equal(one["params"][n], p)
+                      for n, p in single["params"].items())
+    n_batches = TRAINER_TRAIN["n_questions"] // bs
+    want = {"attention_fwd": 0,
+            "attention_dropout_fwd": FWD_LAUNCHES_PER_BATCH * n_batches,
+            "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * n_batches,
+            "bert_adam": 0}
+    emit("scale_out_world_of_one", mesh=one["mesh"],
+         sharded_leaves=one["sharded_leaves"],
+         seconds={k: r["seconds"] for k, r in runs.items()},
+         launches={k: r["launches"] for k, r in runs.items()},
+         expected_launches=want, losses=one["losses"],
+         losses_equal=one["losses"] == single["losses"],
+         params_equal=same_params,
+         counters_equal=(one["counts"] == single["counts"]
+                         and one["count"] == single["count"]))
+    check(one["mesh"] == {"size": 1, "backend": "nccl"},
+          f"world of one: {one['mesh']}")
+    check(one["sharded_leaves"] > 0, "world of one: no ZeRO layout")
+    check(len(one["losses"]) == n_batches and one["losses"]
+          == single["losses"], f"world of one, losses: {one['losses']} "
+                               f"against {single['losses']}")
+    check(same_params and one["counts"] == single["counts"]
+          and one["count"] == single["count"] == UPDATES_PER_BATCH
+          * n_batches, "world of one: parameters or counters differ")
+    check(one["launches"] == single["launches"] == want,
+          f"world of one, launches {one['launches']}, single "
+          f"{single['launches']}, expected {want}")
+    return one["launches"]
+
+
+def scale_out_remat(torch, attn, fa) -> tuple:
+    """Phase 15 (c): the training model at batch 96, dropout on, with
+    and without remat (`encoder.remat`, one model): one relation GGM
+    phase's loss and gradients, the launches of the plan's two batches
+    under remat, and ms per batch and peak memory each way in turns.
+    Returns the remat launches."""
+    from xggm_tpu_torch.training.steps import make_ggm_loss, phase_seeds
+
+    t = train_setup(torch, fused=False)
+    enc = t.model.lxrt.encoder
+    params = [t.state.params[n] for n in t.names]
+    ggm_dropout, ggm_noise, _ = phase_seeds(300)
+    loss_fn = make_ggm_loss(t.model, t.tc, "relation")
+    got = {}
+    for remat in (False, True):
+        enc.remat = remat
+        loss = loss_fn(t.batch, ggm_dropout, ggm_noise)[0]
+        got[remat] = (float(loss.detach()), torch.autograd.grad(
+            loss, params, allow_unused=True))
+        del loss
+    (loss_p, grads_p), (loss_r, grads_r) = got[False], got[True]
+    agree = grad_agreement(torch, t.names, grads_r, grads_p)
+    del got, grads_p, grads_r
+
+    counters = scale_out_counters(attn, fa)
+    enc.remat = True
+    for c in counters.values():
+        c.launches = 0
+    state = t.state
+    for i, br in enumerate(SCALE_OUT_PLAN):
+        state, m = t.steps[br](state, t.batch, i)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    n = len(SCALE_OUT_PLAN)
+    want = {"attention_fwd": 0,
+            "attention_dropout_fwd": REMAT_FWD_LAUNCHES_PER_BATCH * n,
+            "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * n,
+            "bert_adam": 0}
+
+    turns = []
+    for remat in (False, True, True, False):
+        enc.remat = remat
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(REMAT_TIMED_BATCHES):
+            br = SCALE_OUT_PLAN[i % 2]
+            state, m = t.steps[br](state, t.batch, 2000 + i)
+        final = float(m["clean_loss"])
+        torch.cuda.synchronize()
+        turns.append(dict(
+            remat=remat, ms_per_batch=(time.perf_counter() - t0) * 1e3
+            / REMAT_TIMED_BATCHES,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            final_clean_loss=final))
+    enc.remat = False
+    loss_rel = abs(loss_r - loss_p) / abs(loss_p)
+    emit("scale_out_remat", loss=loss_r, plain_loss=loss_p,
+         loss_rel_diff=loss_rel, loss_rtol=REMAT_LOSS_RTOL,
+         grad_rtol=REMAT_GRAD_RTOL, grads=agree, launches=launches,
+         expected_launches=want, turns=turns)
+    check(loss_rel <= REMAT_LOSS_RTOL, f"remat loss {loss_r} against "
+                                       f"{loss_p}")
+    check(agree["same_graph"] and agree["grad_rel_l2"] <= REMAT_GRAD_RTOL,
+          f"remat gradients: {agree}")
+    check(launches == want, f"remat launches {launches}, expected {want}")
+    check(all(math.isfinite(x["final_clean_loss"]) for x in turns),
+          f"non-finite loss in the remat turns: {turns}")
+    del t, state
+    return launches
+
+
+def phase_scale_out(torch, attn, fa, t_start: float) -> dict:
+    """Phase 15: (a) to (c) above. Returns each part's kernel launches."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="xggm_world_of_one_")
+    try:
+        world_of_one = scale_out_world_of_one(torch, attn, fa, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_ranks = scale_out_two_ranks(torch)
+    remat = scale_out_remat(torch, attn, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("scale_out", seconds=time.perf_counter() - t0,
+         seconds_so_far=time.perf_counter() - t_start)
+    return {"world_of_one": world_of_one, "two_ranks": two_ranks,
+            "remat": remat}
 
 
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
@@ -3454,6 +3927,11 @@ def main() -> int:
 
     # 14. LXMERT pretraining through its CLI, batch 256 and accumulated
     pretrain_launches = phase_pretrain(torch, attn, philox, card, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. scale-out: a world of one, two ranks, remat
+    scale_out = phase_scale_out(torch, attn, fa, t_start)
 
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
@@ -3466,7 +3944,10 @@ def main() -> int:
         return {run: counts[kernel]
                 for run, counts in pretrain_launches.items()}
 
-    # 15. summary: one entry per kernel. Kernel 1 over one forward's
+    def scaled_out(kernel):
+        return {part: counts[kernel] for part, counts in scale_out.items()}
+
+    # 16. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -3492,6 +3973,7 @@ def main() -> int:
         "vqacp_launches": vqacp("attention_fwd"),
         "served_artifact_launches": served_launches,
         "pretrain_launches": pretraining("attention_fwd"),
+        "scale_out_launches": scaled_out("attention_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
@@ -3519,6 +4001,7 @@ def main() -> int:
          "vqacp_launches": vqacp("attention_dropout_fwd"),
          "generator_launches": generators("attention_dropout_fwd"),
          "pretrain_launches": pretraining("attention_dropout_fwd"),
+         "scale_out_launches": scaled_out("attention_dropout_fwd"),
          "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("fwd_ms", drop_path),
          "plain_ms": per_forward("plain_fwd_ms", drop_path),
@@ -3538,6 +4021,7 @@ def main() -> int:
          "vqacp_launches": vqacp("attention_dropout_bwd"),
          "generator_launches": generators("attention_dropout_bwd"),
          "pretrain_launches": pretraining("attention_dropout_bwd"),
+         "scale_out_launches": scaled_out("attention_dropout_bwd"),
          "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("bwd_ms", drop_path),
          "plain_ms": per_forward("plain_bwd_ms", drop_path),
@@ -3603,6 +4087,7 @@ def main() -> int:
          "source": "xggm_tpu_torch/csrc/bert_adam.cu",
          "replaces": "xggm_tpu/ops/pallas_optim.py:38",
          "launches": fused_launches["bert_adam"],
+         "scale_out_launches": scaled_out("bert_adam"),
          "max_abs_err": adam["max_abs_err"], "ms": adam["ms"],
          "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
          "bound_by": adam["bound_by"], "library_ms": None,
@@ -3623,4 +4108,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--forward-device":
         sys.exit(forward_device_of(sys.argv[2]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--scale-out-rank":
+        sys.exit(scale_out_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -143,23 +143,66 @@ def test_cli_end_to_end_without_jax_or_h5py(tmp_path):
     assert size < 10e6
 
 
-UNPORTED = [
-    ["--multiGPU"], ["--pp", "2"], ["--model_parallel", "2"],
-    ["--shard_opt_state"], ["--remat"],
-    ["--coordinator", "localhost:1234"], ["--num_hosts", "2"],
-    ["--host_id", "1"]]
+UNPORTED = [["--pp", "2"], ["--model_parallel", "2"]]
+# scale-out flags that need a partner: a mesh for ZeRO-1, and the whole
+# multi-host triple
+INCOMPLETE = [
+    ["--shard_opt_state"], ["--coordinator", "localhost:1234"],
+    ["--num_hosts", "2"], ["--host_id", "1"],
+    ["--coordinator", "localhost:1234", "--num_hosts", "2"]]
 
 
 def test_unported_flags_raise(tmp_path):
-    """Each raises NotImplementedError naming its ROADMAP.md item, before
-    anything is written."""
-    for flags in UNPORTED:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md section 1, item \d"):
+    """The flags of tensor and pipeline parallelism raise
+    NotImplementedError naming their ROADMAP.md item, and the scale-out
+    flags without their partners raise ValueError, before anything is
+    written."""
+    for flags, error, match in (
+            [(f, NotImplementedError, r"ROADMAP\.md section 1, item 7")
+             for f in UNPORTED]
+            + [(f, ValueError, r"--multiGPU or --coordinator|go together")
+               for f in INCOMPLETE]):
+        with pytest.raises(error, match=match):
             gqa_ood.main(flags + ["--device", "cpu", "--synthetic",
                                   "--data_root", str(tmp_path / "d"),
                                   "--output", str(tmp_path / "out")])
         assert not os.listdir(tmp_path), flags
+
+
+def test_one_rank_per_card(monkeypatch):
+    """A rank on the card drives the card of its index among its host's
+    ranks, and a host whose ranks do not match its visible cards one for
+    one raises ValueError and leaves the group. The rendezvous and the
+    cards are stubbed: (ranks on the host, this rank's index, cards)."""
+    import torch
+
+    import xggm_tpu_torch.cli.common as common
+
+    left, placed = [], []
+    monkeypatch.setattr(common, "init_distributed", lambda *a, **k: None)
+    monkeypatch.setattr(common, "shutdown_distributed",
+                        lambda: left.append(True))
+    monkeypatch.setattr(common, "make_mesh", lambda mp, device: device)
+    monkeypatch.setattr(torch.cuda, "set_device", placed.append)
+    multi_host = ["--coordinator", "127.0.0.1:1", "--num_hosts", "4",
+                  "--host_id", "3"]
+    for flags, on_host, index, cards, card in (
+            (multi_host, 2, 1, 2, 1), (["--multiGPU"], 1, 0, 1, 0),
+            (multi_host, 1, 0, 8, None), (multi_host, 2, 1, 1, None)):
+        left.clear()
+        placed.clear()
+        monkeypatch.setattr(common, "host_ranks",
+                            lambda i=index, n=on_host: (i, n))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=cards: c)
+        args = build_parser().parse_args(flags)
+        if card is None:
+            with pytest.raises(ValueError, match="one rank per card"):
+                common.make_mesh_if_requested(args, torch.device("cuda"))
+            assert left == [True] and placed == []
+        else:
+            got = common.make_mesh_if_requested(args, torch.device("cuda"))
+            assert got == torch.device("cuda", card) and placed == [got]
+            assert left == []
 
 
 EXPORT = r"""

@@ -33,6 +33,9 @@ for name in ("jax", "jaxlib", "flax", "h5py", "ml_dtypes", "matplotlib"):
 import xggm_tpu_torch
 for m in pkgutil.walk_packages(xggm_tpu_torch.__path__, "xggm_tpu_torch."):
     importlib.import_module(m.name)
+import xggm_tpu_torch.parallel
+assert {"xggm_tpu_torch.parallel.distributed",
+        "xggm_tpu_torch.parallel.mesh"} <= set(sys.modules)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m == "xggm_tpu" or m.startswith("xggm_tpu."))
@@ -93,6 +96,7 @@ def test_entry_points_default_to_the_card(tmp_path):
     from xggm_tpu_torch.models.lxmert import LxmertModel
     from xggm_tpu_torch.models.pretrain_model import PretrainModel
     from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.parallel import make_mesh
     from xggm_tpu_torch.training.pretrainer import LxmertPretrainer
     from xggm_tpu_torch.training.trainer import XGGMTrainer
 
@@ -105,11 +109,15 @@ def test_entry_points_default_to_the_card(tmp_path):
                  lambda: LxmertPretrainer(cfg.replace(output=str(tmp_path)),
                                           train_feat=None),
                  lambda: Feeder([], 8),
-                 *(lambda cli=cli: cli.main(
+                 make_mesh,
+                 *(lambda cli=cli, flags=flags: cli.main(
                      ["--synthetic", "--data_root", str(tmp_path / "data"),
-                      "--output", str(tmp_path / "out")])
+                      "--output", str(tmp_path / "out"), *flags])
                    for cli in (gqa_ood, vqacpv2, vqacpv2_baseline,
-                               pretrain)),
+                               pretrain)
+                   for flags in ([], ["--multiGPU", "--shard_opt_state"],
+                                 ["--coordinator", "127.0.0.1:1",
+                                  "--num_hosts", "2", "--host_id", "0"])),
                  lambda: export.main(
                      ["--synthetic", "--data_root", str(tmp_path / "data"),
                       "--output", str(tmp_path / "out"), "--artifact",

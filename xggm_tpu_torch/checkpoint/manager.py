@@ -13,6 +13,16 @@ under the commit) and commits on a background thread: into a temporary
 directory, then moved into place with `os.replace`, so that a crash never
 leaves a partial checkpoint under the name. One commit runs at a time;
 `wait` is the barrier and re-raises a failed commit's error.
+
+In a data group of more than one rank (`mesh`) every rank calls the same
+methods at the same points: the caller has gathered a ZeRO-1 state into
+whole leaves first (`parallel/mesh.py::gathered_opt_state`), so the file
+has the single-rank format; rank 0 alone commits and removes, and `wait`
+ends at a barrier of every rank (`host_barrier`), so no rank reads or
+leaves before rank 0's commit is on disk. What a rank finds on disk is
+rank 0's answer (`exists`, `latest_epoch` and `load` read on rank 0 and
+broadcast, `parallel/mesh.py::from_rank0`), so every rank resumes the same
+checkpoint even where a host's disk lacks rank 0's commits.
 """
 from __future__ import annotations
 
@@ -24,6 +34,9 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from xggm_tpu_torch.parallel.distributed import host_barrier
+from xggm_tpu_torch.parallel.mesh import from_rank0
 
 STATE_FILE = "state.pt"
 
@@ -39,8 +52,11 @@ def _host_copy(x):
 
 
 class CheckpointManager:
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, mesh=None):
         self.output_dir = os.path.abspath(output_dir)
+        self._mesh = mesh
+        self._ranks = 1 if mesh is None else mesh.size
+        self.primary = mesh is None or mesh.rank == 0
         os.makedirs(self.output_dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -52,8 +68,11 @@ class CheckpointManager:
 
     def save(self, name: str, state: Dict[str, Any]) -> None:
         """Save `state` under `name`. Returns once it is copied to the
-        host; the disk commit runs in the background (`wait` joins it)."""
+        host; the disk commit runs in the background (`wait` joins it).
+        Only rank 0 saves."""
         self.wait()  # one commit at a time
+        if not self.primary:
+            return
         t0 = time.perf_counter()
         snapshot = _host_copy(state)
         snapshot_s = time.perf_counter() - t0
@@ -85,35 +104,45 @@ class CheckpointManager:
             self._error = e
 
     def wait(self) -> None:
-        """Barrier for the background commit; raises if it failed."""
+        """Barrier for the background commit, and for every rank; raises if
+        the commit failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint commit failed") from err
+        if self._ranks > 1:
+            host_barrier("checkpoint")
 
     def load(self, name: str) -> Dict[str, Any]:
         """The state saved under `name`, with its tensors on the CPU."""
         self.wait()
-        return torch.load(os.path.join(self._path(name), STATE_FILE),
-                          map_location="cpu", weights_only=True)
+        return from_rank0(
+            lambda: torch.load(os.path.join(self._path(name), STATE_FILE),
+                               map_location="cpu", weights_only=True),
+            self._mesh)
 
     def exists(self, name: str) -> bool:
         self.wait()
-        return os.path.isdir(self._path(name))
+        return from_rank0(lambda: os.path.isdir(self._path(name)), self._mesh)
 
     def remove(self, name: str) -> None:
-        """Delete a checkpoint if present."""
+        """Delete a checkpoint if present (rank 0 deletes)."""
         self.wait()
         path = self._path(name)
-        if os.path.isdir(path):
+        if self.primary and os.path.isdir(path):
             shutil.rmtree(path)
+        if self._ranks > 1:
+            host_barrier("checkpoint_remove")
 
     def latest_epoch(self) -> Optional[int]:
         """The newest BEST_{epoch} checkpoint's epoch, None if there is
         none."""
         self.wait()
+        return from_rank0(self._latest_epoch_here, self._mesh)
+
+    def _latest_epoch_here(self) -> Optional[int]:
         best = -1
         for d in os.listdir(self.output_dir):
             if d.startswith("BEST_"):

@@ -7,8 +7,17 @@ The differences:
   * `--pallas_attention` and `--prng` are accepted and have no effect: the
     port always runs its attention kernels, and its dropout masks come from
     the Philox generator of `ops/philox.py`;
-  * the flags of paths not ported yet raise NotImplementedError, naming
-    their ROADMAP.md item, when set (`reject_unported`).
+  * a rank is one process driving one card, where a JAX process drives
+    every device of its host: `--multiGPU` joins the world that torchrun's
+    environment describes, or forms a world of one without it;
+    `--coordinator H:P --num_hosts N --host_id I` joins a world of N ranks
+    through a TCP rendezvous at H:P, N counting the ranks of every host,
+    one per card (`make_mesh_if_requested`). A host must run as many ranks
+    as it has visible cards. NCCL is the backend on the card, gloo on the
+    CPU;
+  * the flags of paths not ported yet (`--model_parallel` other than 1,
+    `--pp`) raise NotImplementedError, naming their ROADMAP.md item, when
+    set (`reject_unported`).
 As in the JAX CLI, `--optim`, `--fast` and `--numWorkers` reach the config
 and nothing reads them (the reference scripts pass `--optim bert`, the only
 optimizer there is).
@@ -19,20 +28,25 @@ that the JAX CLIs repeat in each entry point.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
+import socket
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
 
 from xggm_tpu_torch.config import (
-    BertConfig, DataConfig, GGMConfig, LxmertConfig, TrainConfig,
+    BertConfig, DataConfig, GGMConfig, LxmertConfig, MeshConfig, TrainConfig,
     VisualConfig, XGGMConfig)
+from xggm_tpu_torch.parallel.distributed import (
+    host_barrier, host_ranks, init_distributed, init_from_env,
+    shutdown_distributed, torchrun_environment)
+from xggm_tpu_torch.parallel.mesh import ITEM_7, Mesh, make_mesh
 from xggm_tpu_torch.utils.preempt import PREEMPTED_EXIT_CODE, Preempted
-
-ITEM_7 = "ROADMAP.md section 1, item 7 (scale-out)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                    type=float)
     # training configuration
     p.add_argument("--multiGPU", action="store_const", default=False,
-                   const=True, help=f"not ported: {ITEM_7}")
+                   const=True, help="data parallelism: one rank per card in "
+                                    "the world torchrun's environment "
+                                    "describes, else a world of one")
     p.add_argument("--numWorkers", dest="num_workers", default=0, type=int)
     # OOD config
     p.add_argument("--tmode", default="OOD", type=str)
@@ -109,7 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
     # a dead flag of the reference scripts, accepted so that they parse
     p.add_argument("--eg", dest="edge_gnn", default=None)
     p.add_argument("--coordinator", default=None, type=str,
-                   help=f"not ported: {ITEM_7}")
+                   help="host:port of rank 0 for a multi-host run (with "
+                        "--num_hosts and --host_id)")
     p.add_argument("--num_hosts", default=None, type=int)
     p.add_argument("--host_id", default=None, type=int)
     p.add_argument("--data_root", default="data", type=str)
@@ -136,13 +153,16 @@ def build_parser() -> argparse.ArgumentParser:
                    const=True, help="no effect: the port always runs its "
                                     "attention kernels")
     p.add_argument("--remat", action="store_const", default=False, const=True,
-                   help=f"not ported: {ITEM_7}")
+                   help="recompute each encoder layer's activations in the "
+                        "backward (torch.utils.checkpoint)")
     p.add_argument("--accum_steps", default=1, type=int,
                    help="pretraining (cli.pretrain): one update on the mean "
                         "gradient of this many microbatches of --bs; the "
                         "task recipes do not read it")
     p.add_argument("--shard_opt_state", action="store_const", default=False,
-                   const=True, help=f"not ported: {ITEM_7}")
+                   const=True, help="ZeRO-1: BertAdam's m and v split over "
+                                    "the data group (requires --multiGPU or "
+                                    "--coordinator)")
     p.add_argument("--prng", default="rbg", choices=["rbg", "threefry2x32"],
                    help="no effect: dropout masks come from the Philox "
                         "generator of ops/philox.py")
@@ -154,18 +174,76 @@ def build_parser() -> argparse.ArgumentParser:
 def reject_unported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError for a flag whose path is not ported."""
     unported = [
-        ("--multiGPU", args.multiGPU, ITEM_7),
         ("--pp", args.pp_stages > 0, ITEM_7),
         ("--model_parallel", args.model_parallel != 1, ITEM_7),
-        ("--shard_opt_state", args.shard_opt_state, ITEM_7),
-        ("--remat", args.remat, ITEM_7),
-        ("--coordinator/--num_hosts/--host_id",
-         args.coordinator is not None or args.num_hosts is not None
-         or args.host_id is not None, ITEM_7),
     ]
     for flag, is_set, item in unported:
         if is_set:
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def make_mesh_if_requested(args: argparse.Namespace,
+                           device: torch.device) -> Optional[Mesh]:
+    """The data group the flags ask for, this process joined to it, or None
+    (counterpart of the JAX CLI's `make_mesh_if_requested`):
+    `--coordinator H:P --num_hosts N --host_id I` joins N ranks at H:P;
+    `--multiGPU` joins torchrun's world, or forms a world of one. A rank on
+    the card drives the card of its index among its host's ranks
+    (`host_ranks`), and a host must run one rank per visible card: a host
+    with more cards than ranks would leave cards idle, one with fewer would
+    put two ranks on a card, and either raises ValueError. So do
+    `--shard_opt_state` without a world, as in the JAX package, and an
+    incomplete multi-host triple."""
+    hosts = (args.coordinator, args.num_hosts, args.host_id)
+    if any(x is not None for x in hosts):
+        if any(x is None for x in hosts):
+            raise ValueError("--coordinator, --num_hosts and --host_id go "
+                             "together")
+        init_distributed(args.coordinator, args.num_hosts, args.host_id,
+                         device=device)
+    elif args.multiGPU:
+        if torchrun_environment():
+            init_from_env(device=device)
+        else:
+            init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                             device=device)
+    else:
+        if args.shard_opt_state:
+            raise ValueError("shard_opt_state requires a device mesh "
+                             "(--multiGPU or --coordinator)")
+        return None
+    if device.type == "cuda":
+        index, on_host = host_ranks()
+        cards = torch.cuda.device_count()
+        if on_host != cards:
+            shutdown_distributed()
+            raise ValueError(
+                f"{on_host} rank(s) on host {socket.gethostname()}, which "
+                f"has {cards} visible card(s): run one rank per card "
+                f"(torchrun --nproc_per_node {cards}, or as many "
+                f"--coordinator ranks, --num_hosts counting them all), or "
+                f"limit CUDA_VISIBLE_DEVICES to the cards to use")
+        device = torch.device("cuda", index)
+        torch.cuda.set_device(device)
+    return make_mesh(args.model_parallel, device)
+
+
+@contextlib.contextmanager
+def mesh_if_requested(args: argparse.Namespace, device: torch.device):
+    """`make_mesh_if_requested` for the body of a run; the process leaves
+    the group when the body ends, however it ends."""
+    mesh = make_mesh_if_requested(args, device)
+    try:
+        yield mesh
+    finally:
+        if mesh is not None:
+            shutdown_distributed()
 
 
 def to_config(args: argparse.Namespace, task: str) -> XGGMConfig:
@@ -186,6 +264,7 @@ def to_config(args: argparse.Namespace, task: str) -> XGGMConfig:
             visual=VisualConfig(l_layers=args.llayers, x_layers=args.xlayers,
                                 r_layers=args.rlayers),
             dtype=args.dtype,
+            remat=args.remat,
         ),
         ggm=GGMConfig(gnn=args.gnn, num_layers=args.num_layer,
                       sigma=args.sigma, delta=args.delta),
@@ -194,13 +273,15 @@ def to_config(args: argparse.Namespace, task: str) -> XGGMConfig:
                           dropout=args.dropout, seed=args.seed,
                           clean_phase_first=clean_first,
                           rel_d_mult=rel_d_mult,
-                          accum_steps=args.accum_steps),
+                          accum_steps=args.accum_steps,
+                          shard_opt_state=args.shard_opt_state),
         data=DataConfig(train=args.train or "",
                         valid=args.valid or "",
                         test=args.test, tiny=args.tiny, fast=args.fast,
                         num_workers=args.num_workers,
                         data_root=args.data_root,
                         vocab_path=args.vocab),
+        mesh=MeshConfig(model_parallel=args.model_parallel),
         output=args.output,
         tmode=args.tmode,
     )
@@ -213,15 +294,31 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def generate_synthetic_once(generate, data_root: str) -> None:
-    """Write the synthetic corpus under `data_root`: one process writes it
-    (the JAX CLI's multi-host coordination has no counterpart here)."""
-    generate()
+def generate_synthetic_once(generate, data_root: str,
+                            mesh: Optional[Mesh] = None) -> None:
+    """Write the synthetic corpus under `data_root` once: rank 0 writes it
+    and a completion mark, every rank waits at a barrier, and a rank that
+    then sees no mark (a host with a filesystem of its own) writes its own
+    seeded copy. Two ranks racing the same writes would corrupt them."""
+    if mesh is None or mesh.size == 1:
+        generate()
+        return
+    mark = os.path.join(data_root, ".synthetic_done")
+    if mesh.rank == 0:
+        generate()
+        with open(mark, "w") as f:
+            f.write("ok\n")
+    host_barrier("synthetic_corpus")
+    if mesh.rank != 0 and not os.path.exists(mark):
+        generate()
 
 
-def dump_args(args: argparse.Namespace, output: str) -> None:
-    """The run's flags as {output}/args.json."""
+def dump_args(args: argparse.Namespace, output: str,
+              mesh: Optional[Mesh] = None) -> None:
+    """The run's flags as {output}/args.json (rank 0 writes it)."""
     os.makedirs(output, exist_ok=True)
+    if mesh is not None and mesh.rank != 0:
+        return
     with open(os.path.join(output, "args.json"), "w") as f:
         json.dump(vars(args), f, indent=2, default=str)
 

@@ -11,7 +11,12 @@ is none. `--load NAME` reads the checkpoint NAME (a path's last part) from
 `--output`, or a reference task model from a `.pth` file; `--loadLXMERT`
 and `--loadLXMERTQA` read an LXMERT snapshot. `--resume` continues from
 `PREEMPT` or the newest `BEST_{epoch}`; a SIGTERM during training saves
-`PREEMPT` and exits with code 75.
+`PREEMPT` and exits with code 75. On several cards:
+
+    torchrun --nproc_per_node 8 -m xggm_tpu_torch.cli.gqa_ood --multiGPU \
+        [--shard_opt_state] ...    # --bs stays the global batch
+    python -m xggm_tpu_torch.cli.gqa_ood --coordinator HOST:PORT \
+        --num_hosts N --host_id I ...   # one process per host
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import os
 
 from xggm_tpu_torch.cli.common import (
     build_parser, dump_args, generate_synthetic_once, load_weights,
-    seed_everything, to_config, train_or_exit)
+    mesh_if_requested, seed_everything, to_config, train_or_exit)
 from xggm_tpu_torch.utils.device import resolve_device
 
 
@@ -30,7 +35,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     seed_everything(args.seed)
     cfg = to_config(args, task="gqa")
+    with mesh_if_requested(args, device) as mesh:
+        return _run(args, cfg, device, mesh)
 
+
+def _run(args, cfg, device, mesh):
     if args.synthetic:
         from xggm_tpu_torch.data.synthetic import make_synthetic_gqa, write_vocab
 
@@ -40,7 +49,7 @@ def main(argv=None):
                 make_synthetic_gqa(args.data_root, split, seed=i,
                                    pack=args.xpack)
             write_vocab(os.path.join(args.data_root, "vocab.txt"))
-        generate_synthetic_once(_gen, args.data_root)
+        generate_synthetic_once(_gen, args.data_root, mesh)
 
     from xggm_tpu_torch.data.datasets import (
         GQADataset, GQAEvaluator, GraphBatchDataset)
@@ -51,9 +60,9 @@ def main(argv=None):
         cfg = cfg.replace(
             data=dataclasses.replace(cfg.data, tiny=False, fast=False))
 
-    trainer = XGGMTrainer(cfg, task="gqa", use_xpack=args.xpack,
+    trainer = XGGMTrainer(cfg, task="gqa", mesh=mesh, use_xpack=args.xpack,
                           profile_steps=args.profile, device=device)
-    dump_args(args, args.output)
+    dump_args(args, args.output, mesh)
 
     load_weights(trainer, args)
 

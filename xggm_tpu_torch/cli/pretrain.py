@@ -14,15 +14,18 @@ first (it needs h5py; `data/synthetic_pretrain.py` writes TSV features with
 `--bs`. `--load NAME` reads the parameters and BertAdam state of a
 checkpoint from `--output`; a SIGTERM saves `PREEMPT` at the next update
 boundary and exits 75, and `--resume` continues from it. It runs on the
-card unless `--device cpu` is given.
+card unless `--device cpu` is given; `--multiGPU` (under torchrun) or
+`--coordinator/--num_hosts/--host_id` pretrain data-parallel with `--bs`
+the global batch, `--shard_opt_state` splits BertAdam's moments over the
+ranks and `--remat` recomputes the encoder's activations in the backward.
 """
 from __future__ import annotations
 
 import os
 
 from xggm_tpu_torch.cli.common import (
-    build_parser, generate_synthetic_once, seed_everything, to_config,
-    train_or_exit)
+    build_parser, generate_synthetic_once, mesh_if_requested,
+    seed_everything, to_config, train_or_exit)
 from xggm_tpu_torch.utils.device import resolve_device
 
 
@@ -62,11 +65,17 @@ def main(argv=None):
     device = resolve_device(args.device)
     seed_everything(args.seed)
     cfg = to_config(args, task="gqa")
+    with mesh_if_requested(args, device) as mesh:
+        return _run(args, cfg, device, mesh)
+
+
+def _run(args, cfg, device, mesh):
     if args.synthetic:
         from xggm_tpu_torch.data.synthetic_pretrain import (
             make_synthetic_pretrain)
         generate_synthetic_once(
-            lambda: make_synthetic_pretrain(args.data_root), args.data_root)
+            lambda: make_synthetic_pretrain(args.data_root), args.data_root,
+            mesh)
 
     from xggm_tpu_torch.data.tokenizer import BertTokenizer
     from xggm_tpu_torch.training.pretrainer import LxmertPretrainer
@@ -80,7 +89,8 @@ def main(argv=None):
         cfg, train_feat, valid_feat,
         task_mask_lm=args.task_mask_lm, task_matched=args.task_matched,
         task_obj_predict=args.task_obj_predict, task_qa=args.task_qa,
-        visual_losses=tuple(args.visual_losses.split(",")), device=device)
+        visual_losses=tuple(args.visual_losses.split(",")), mesh=mesh,
+        device=device)
     if args.load:
         trainer.load(args.load)
     best = train_or_exit(trainer, args.resume)

@@ -20,12 +20,13 @@ import os
 
 from xggm_tpu_torch.cli.common import (
     build_parser, dump_args, generate_synthetic_once, load_weights,
-    seed_everything, to_config, train_or_exit)
+    mesh_if_requested, seed_everything, to_config, train_or_exit)
 from xggm_tpu_torch.utils.device import resolve_device
 
 
-def write_synthetic(args) -> None:
-    """--synthetic: a VQA-CP corpus for every split named, and a vocab."""
+def write_synthetic(args, mesh=None) -> None:
+    """--synthetic: a VQA-CP corpus for every split named, and a vocab
+    (written once in a data group)."""
     from xggm_tpu_torch.data.synthetic import make_synthetic_vqacp, write_vocab
 
     def _gen():
@@ -34,7 +35,7 @@ def write_synthetic(args) -> None:
             make_synthetic_vqacp(args.data_root, split, seed=i,
                                  pack=args.xpack)
         write_vocab(os.path.join(args.data_root, "vocab.txt"))
-    generate_synthetic_once(_gen, args.data_root)
+    generate_synthetic_once(_gen, args.data_root, mesh)
 
 
 def predict_split(trainer, cfg) -> None:
@@ -61,14 +62,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     seed_everything(args.seed)
     cfg = to_config(args, task="vqa")
+    with mesh_if_requested(args, device) as mesh:
+        return _run(args, cfg, device, mesh)
+
+
+def _run(args, cfg, device, mesh):
     if args.synthetic:
-        write_synthetic(args)
+        write_synthetic(args, mesh)
 
     from xggm_tpu_torch.training.trainer import XGGMTrainer
 
-    trainer = XGGMTrainer(cfg, task="vqa", use_xpack=args.xpack,
+    trainer = XGGMTrainer(cfg, task="vqa", mesh=mesh, use_xpack=args.xpack,
                           profile_steps=args.profile, device=device)
-    dump_args(args, args.output)
+    dump_args(args, args.output, mesh)
     load_weights(trainer, args)
 
     if args.test is not None:

@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 from xggm_tpu_torch.cli.common import (
-    build_parser, dump_args, load_weights, seed_everything, to_config)
+    build_parser, dump_args, load_weights, mesh_if_requested,
+    seed_everything, to_config)
 from xggm_tpu_torch.cli.vqacpv2 import predict_split, write_synthetic
 from xggm_tpu_torch.utils.device import resolve_device
 
@@ -35,14 +36,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     seed_everything(args.seed)
     cfg = to_baseline_config(args)
+    with mesh_if_requested(args, device) as mesh:
+        return _run(args, cfg, device, mesh)
+
+
+def _run(args, cfg, device, mesh):
     if args.synthetic:
-        write_synthetic(args)
+        write_synthetic(args, mesh)
 
     from xggm_tpu_torch.training.trainer import XGGMTrainer
 
-    trainer = XGGMTrainer(cfg, task="vqa", use_xpack=args.xpack,
+    trainer = XGGMTrainer(cfg, task="vqa", mesh=mesh, use_xpack=args.xpack,
                           device=device)
-    dump_args(args, args.output)
+    dump_args(args, args.output, mesh)
     load_weights(trainer, args)
 
     if args.test is not None:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,9 +61,11 @@ class LxmertConfig:
     """Encoder config: BERT core + visual streams + compute dtype.
 
     Parameters stay float32; matmul inputs are cast to `compute_dtype`;
-    LayerNorm and softmax run in float32. `stacked_layers`, `remat` and
-    `pp_stages` exist so that a JAX config carries over field for field, but
-    this port runs only the per-layer path and raises if any is set.
+    LayerNorm and softmax run in float32. `remat` recomputes each encoder
+    layer's activations in the backward (`torch.utils.checkpoint`).
+    `stacked_layers` and `pp_stages` exist so that a JAX config carries over
+    field for field, but this port runs only the per-layer path and raises
+    if either is set.
     """
 
     bert: BertConfig = field(default_factory=BertConfig)
@@ -119,6 +121,9 @@ class TrainConfig:
     # Pretraining: one BertAdam update on the mean gradient of this many
     # consecutive microbatches of batch_size (t_total counts the updates).
     accum_steps: int = 1
+    # ZeRO-1: BertAdam's m and v split over the data group
+    # (parallel/mesh.py::maybe_zero_shard_state); requires a mesh.
+    shard_opt_state: bool = False
 
 
 @dataclass(frozen=True)
@@ -137,14 +142,32 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The parallel layout: the batch split over the data group, and the
+    size of a tensor-parallel model axis (1: data parallelism only, the one
+    the port runs)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
+
+    def mesh_shape(self, n_devices: int) -> Tuple[int, int]:
+        if n_devices % self.model_parallel:
+            raise ValueError(f"{n_devices} devices not divisible by "
+                             f"model_parallel={self.model_parallel}")
+        return (n_devices // self.model_parallel, self.model_parallel)
+
+
+@dataclass(frozen=True)
 class XGGMConfig:
-    """Top-level bundle: encoder, GGM, training and data configs, answer
-    vocabulary size and the output directory."""
+    """Top-level bundle: encoder, GGM, training, data and mesh configs,
+    answer vocabulary size and the output directory."""
 
     lxmert: LxmertConfig = field(default_factory=LxmertConfig)
     ggm: GGMConfig = field(default_factory=GGMConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     num_answers: int = 1842  # GQA-OOD trainval answer vocabulary size
     output: str = "snap/debug"
     tmode: str = "OOD"  # 'OOD' | 'ID'

@@ -1,5 +1,5 @@
 """Feeders: background batch assembly and host-to-device copies
-(counterpart of `xggm_tpu/data/feeder.py`, for one process).
+(counterpart of `xggm_tpu/data/feeder.py`).
 
 A producer thread assembles each batch with `GraphBatchDataset.get_batch`,
 pads the last partial one to the batch size (with a validity mask), fills
@@ -9,6 +9,14 @@ the copy of batch N+1 overlaps the step of batch N. On the CPU it yields
 plain CPU tensors. Token ids, masks and segment ids are int64; the features
 are cast on the host to `feats_dtype` (bf16 when the model computes in bf16,
 halving the bytes copied); the rest is float32.
+
+Under data parallelism (`process_count` > 1) `batch_size` stays the global
+batch: every rank draws the same index batches from the same shuffled order
+and assembles only its `process_slice` of each. The last eval batch is
+padded in its index list (the last row repeated, masked out) to the global
+size before the slice, so every rank gets as many rows. The question ids
+and the mask stay global; `parallel/distributed.py::to_host` gathers the
+ranks' predictions in the same order.
 
 `MultiEpochsFeeder` keeps one producer across epochs, and `Prefetcher`
 gives any of them a pull API; nothing in the trainer uses either.
@@ -23,36 +31,29 @@ import numpy as np
 import torch
 
 from xggm_tpu_torch.data.datasets import GraphBatchDataset
+from xggm_tpu_torch.parallel.distributed import process_slice
+from xggm_tpu_torch.parallel.mesh import pad_batch_to
 from xggm_tpu_torch.utils.device import resolve_device
 
 _INT_KEYS = ("input_ids", "input_mask", "segment_ids")
 
 
-def pad_batch_to(batch: Dict[str, np.ndarray], size: int
-                 ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
-    """Pad every array's leading dim to `size` with zeros at the end;
-    returns (padded, valid_mask)."""
-    n = next(iter(batch.values())).shape[0]
-    if n > size:
-        raise ValueError(f"batch of {n} exceeds the padded size {size}")
-    if n == size:
-        return batch, np.ones((n,), np.bool_)
-    mask = np.zeros((size,), np.bool_)
-    mask[:n] = True
-    padded = {k: np.pad(x, [(0, size - n)] + [(0, 0)] * (x.ndim - 1))
-              for k, x in batch.items()}
-    return padded, mask
-
-
 class Feeder:
     """Iterates a `GraphBatchDataset` in batches of `batch_size`: yields
-    (question_ids, batch of tensors on `device`, valid_mask)."""
+    (question_ids, batch of tensors on `device`, valid_mask); under data
+    parallelism the tensors hold this rank's rows only."""
 
     def __init__(self, dataset: GraphBatchDataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
                  seed: int = 9595, prefetch_depth: int = 2,
                  feats_dtype: Optional[torch.dtype] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"process_count {process_count}")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -100,12 +101,21 @@ class Feeder:
         return out
 
     def _assemble(self, idx: np.ndarray, copy_stream) -> tuple:
-        """Batch `idx`, padded: (question ids, tensors, valid mask, event).
+        """Batch `idx`, padded (this rank's rows of it): (question ids,
+        tensors, valid mask, event).
         With a copy stream (a CUDA device), the tensors are the device
         copies started on it and the event follows them."""
         qids = self.dataset.question_ids(idx)
-        batch, mask = pad_batch_to(self.dataset.get_batch(idx),
-                                   self.batch_size)
+        if self.process_count > 1:
+            mask = np.zeros((self.batch_size,), np.bool_)
+            mask[:len(idx)] = True
+            padded = np.concatenate(
+                [idx, np.repeat(idx[-1:], self.batch_size - len(idx))])
+            batch = self.dataset.get_batch(process_slice(
+                padded, self.process_index, self.process_count))
+        else:
+            batch, mask = pad_batch_to(self.dataset.get_batch(idx),
+                                       self.batch_size)
         host = self._host_tensors(batch)
         if copy_stream is None:
             return qids, host, mask, None

@@ -210,11 +210,17 @@ class PretrainFeaturizer:
         info = self.ds.img_data[ex.img_id]
         return info["features"][self.rng.randint(info["num_boxes"])]
 
-    def featurize(self, indices: Sequence[int]) -> Tuple[Dict[str, np.ndarray],
-                                                         List[str]]:
-        n = len(indices)
+    def featurize(self, indices: Sequence[int], rows: Optional[range] = None
+                  ) -> Tuple[Dict[str, np.ndarray], List[str]]:
+        """The batch of the examples `indices` and their uids. With `rows`
+        (a range of positions in `indices`: a rank's `process_slice`) the
+        arrays hold those rows only, while every row's draws are made in
+        order, so that the RandomState moves as it does for the whole batch
+        and the rows are those of the whole batch; the uids stay every
+        row's."""
+        keep = range(len(indices)) if rows is None else rows
+        n = len(keep)
         L = self.max_seq_length
-        out = {k: None for k in ()}
         input_ids = np.zeros((n, L), np.int32)
         input_mask = np.zeros((n, L), np.int32)
         segment_ids = np.zeros((n, L), np.int32)
@@ -234,10 +240,12 @@ class PretrainFeaturizer:
         feat_target = np.zeros((n, n_obj, feat_dim), np.float32)
         feat_mask = np.zeros((n, n_obj), np.float32)
 
-        for k, idx in enumerate(indices):
+        for row, idx in enumerate(indices):
             ex = self.examples[idx]
             uids.append(ex.uid)
             info = self.ds.img_data[ex.img_id]
+            build = row in keep
+            k = row - keep.start
 
             # matched-pair sampling (reference lxmert_data.py:174-183)
             sent = ex.sent
@@ -249,7 +257,6 @@ class PretrainFeaturizer:
                     if other.img_id != ex.img_id:
                         break
                 sent = other.sent
-            matched[k] = is_matched
 
             # word masking 80/10/10 (reference lxmert_pretrain.py:76-112)
             tokens = self.tok.tokenize(sent.strip())[: L - 2]
@@ -266,46 +273,54 @@ class PretrainFeaturizer:
                         masked[i] = int(self.vocab_ids[
                             self.rng.randint(len(self.vocab_ids))])
                     labels[i] = tid
-            seq = [self.tok.vocab["[CLS]"]] + masked + [self.tok.vocab["[SEP]"]]
-            lm = [-1] + labels + [-1]
-            input_ids[k, : len(seq)] = seq
-            input_mask[k, : len(seq)] = 1
-            lm_labels[k, : len(lm)] = lm
+            if build:
+                matched[k] = is_matched
+                seq = ([self.tok.vocab["[CLS]"]] + masked
+                       + [self.tok.vocab["[SEP]"]])
+                lm = [-1] + labels + [-1]
+                input_ids[k, : len(seq)] = seq
+                input_mask[k, : len(seq)] = 1
+                lm_labels[k, : len(lm)] = lm
 
-            # visual side with box normalization
-            b = info["boxes"].copy().astype(np.float32)
-            b[:, (0, 2)] /= info["img_w"]
-            b[:, (1, 3)] /= info["img_h"]
-            boxes[k] = b
-            f = info["features"].astype(np.float32)
-            feat_target[k] = f
-            obj_labels[k] = info["objects_id"]
-            obj_conf[k] = info["objects_conf"]
-            attr_labels[k] = info["attrs_id"]
-            attr_conf[k] = info["attrs_conf"]
+                # visual side with box normalization
+                b = info["boxes"].copy().astype(np.float32)
+                b[:, (0, 2)] /= info["img_w"]
+                b[:, (1, 3)] /= info["img_h"]
+                boxes[k] = b
+                feat_target[k] = info["features"]
+                feats[k] = info["features"]
+                obj_labels[k] = info["objects_id"]
+                obj_conf[k] = info["objects_conf"]
+                attr_labels[k] = info["attrs_id"]
+                attr_conf[k] = info["attrs_conf"]
 
             # object-feature masking 80/10/10 (lxmert_pretrain.py:115-136)
-            mf = f.copy()
             for i in range(n_obj):
                 p = self.rng.rand()
                 if p < self.obj_mask_rate:
                     p /= self.obj_mask_rate
                     if p < 0.8:
-                        mf[i, :] = 0.0
+                        mf = 0.0
                     elif p < 0.9:
-                        mf[i, :] = self._random_feat()
-                    feat_mask[k, i] = 1.0
-            feats[k] = mf
+                        mf = self._random_feat()
+                    else:
+                        mf = None
+                    if build:
+                        if mf is not None:
+                            feats[k, i, :] = mf
+                        feat_mask[k, i] = 1.0
 
             # QA answer sampling by score (lxmert_pretrain.py:187-199)
             if ex.label and is_matched == 1:
                 keys = list(ex.label.keys())
                 values = np.asarray(list(ex.label.values()), np.float64)
                 if len(keys) == 1:
-                    ans[k] = keys[0]
+                    pick = keys[0]
                 else:
                     probs = values / values.sum()
-                    ans[k] = keys[int(self.rng.multinomial(1, probs).argmax())]
+                    pick = keys[int(self.rng.multinomial(1, probs).argmax())]
+                if build:
+                    ans[k] = pick
 
         batch = {
             "input_ids": input_ids, "input_mask": input_mask,

@@ -18,18 +18,29 @@ AttOutput, Mlp, VisualFeatEncoder) draws from the rng's device generator,
 and every attention goes through `ops.attention.mha_dropout` (kernels 2 and
 3) with a fresh 31-bit seed per call, as the JAX package draws one per call.
 At probability 0 the dropout is skipped and attention takes `mha`.
+
+With `LxmertConfig.remat` each language, relational and cross layer runs
+under `torch.utils.checkpoint` (non-reentrant), as the JAX package wraps
+`BertLayer` and `XLayer` in `nn.remat`: the backward recomputes the layer's
+activations from its inputs. The recompute must draw the forward's masks
+and kernel seeds again, and `checkpoint` restores only the global RNGs, not
+a `DropoutRng`'s explicit generators: `_remat` saves their state at the
+layer's start and puts it back before the recompute (the attention kernels
+redraw their masks from the same seeds).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xggm_tpu_torch.config import BertConfig, LxmertConfig
 from xggm_tpu_torch.ops.attention import mha, mha_dropout
 from xggm_tpu_torch.ops.basic import (
     Dense, DropoutRng, Embedding, LayerNorm, gelu, maybe_dropout)
+from xggm_tpu_torch.parallel.mesh import ITEM_7
 from xggm_tpu_torch.utils.device import resolve_device
 
 NEG_INF_MASK = -10000.0
@@ -250,16 +261,35 @@ class Pooler(nn.Module):
         return torch.tanh(self.dense(hidden[:, 0]))
 
 
+def _remat(layer: Callable, rng: Optional[DropoutRng], *args):
+    """`layer(*args, rng)`, its activations recomputed in the backward; the
+    recompute replays `rng`'s draws from the state it had here."""
+    if not torch.is_grad_enabled():
+        return layer(*args, rng)
+    if rng is None:
+        return checkpoint(layer, *args, None, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = rng.get_state()
+
+    def run(*inputs):
+        rng.set_state(start)
+        return layer(*inputs, rng)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class LxmertEncoder(nn.Module):
     """Visual embedding -> language layers -> relational (visual) layers ->
-    cross-modality layers."""
+    cross-modality layers; each layer rematerialised with `cfg.remat`."""
 
     def __init__(self, cfg: LxmertConfig, *, device=None):
         super().__init__()
-        if cfg.stacked_layers or cfg.remat or cfg.pp_stages > 1:
+        if cfg.stacked_layers or cfg.pp_stages > 1:
             raise NotImplementedError(
-                "stacked_layers, remat and pp_stages are not ported; the "
-                "port runs the per-layer encoder (see ROADMAP.md)")
+                "stacked_layers and pp_stages are not ported yet; the port "
+                f"runs the per-layer encoder: {ITEM_7}")
+        self.remat = cfg.remat
         c, v, dt = cfg.bert, cfg.visual, cfg.compute_dtype
         self.visn_fc = VisualFeatEncoder(cfg, device=device)
         self.layer = nn.ModuleList(
@@ -275,12 +305,18 @@ class LxmertEncoder(nn.Module):
                 rng: Optional[DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         visn = self.visn_fc(feats, boxes, rng)
+
+        def run(layer, *args):
+            if self.remat:
+                return _remat(layer, rng, *args)
+            return layer(*args, rng)
+
         for layer in self.layer:
-            lang = layer(lang, lang_bias, rng)
+            lang = run(layer, lang, lang_bias)
         for layer in self.r_layers:
-            visn = layer(visn, visn_bias, rng)
+            visn = run(layer, visn, visn_bias)
         for layer in self.x_layers:
-            lang, visn = layer(lang, lang_bias, visn, visn_bias, rng)
+            lang, visn = run(layer, lang, lang_bias, visn, visn_bias)
         return lang, visn
 
 

@@ -80,11 +80,18 @@ class PretrainModel(nn.Module):
         return lm_logits, matched_logits, visn_preds, ans_logits
 
     def compute_losses(self, batch: Batch,
-                       rng: Optional[DropoutRng] = None
+                       rng: Optional[DropoutRng] = None,
+                       denominators: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                   torch.Tensor]:
         """(total loss, the losses by `LOSSES_NAME` name, answer logits) of
-        a featurized batch (`data/pretrain_data.py::PretrainFeaturizer`)."""
+        a featurized batch (`data/pretrain_data.py::PretrainFeaturizer`).
+        `denominators` replaces the count of labelled rows that the
+        Mask_LM, Matched and QA means divide by (a data-parallel rank passes
+        the global count over the group's size, so that the ranks' mean
+        loss and gradient are the global batch's); the visual losses are
+        plain means, alike over equal shards."""
+        den = denominators or {}
         lm_logits, matched_logits, visn_preds, ans_logits = self(
             batch["input_ids"], batch["input_mask"], batch["segment_ids"],
             batch["feats"], batch["boxes"], rng=rng)
@@ -92,10 +99,12 @@ class PretrainModel(nn.Module):
         if self.task_mask_lm:
             losses["Mask_LM"] = cross_entropy(
                 lm_logits.reshape(-1, lm_logits.shape[-1]),
-                batch["lm_labels"].reshape(-1))
+                batch["lm_labels"].reshape(-1),
+                denominator=den.get("Mask_LM"))
         if self.task_matched:
-            losses["Matched"] = cross_entropy(matched_logits,
-                                              batch["matched_labels"])
+            losses["Matched"] = cross_entropy(
+                matched_logits, batch["matched_labels"],
+                denominator=den.get("Matched"))
         if self.task_obj_predict:
             for key in self.visual_losses:
                 pred = visn_preds[key]
@@ -110,6 +119,7 @@ class PretrainModel(nn.Module):
                 losses[key.capitalize()] = ((per * conf).mean()
                                             * VISUAL_LOSS_WEIGHT)
         if self.task_qa:
-            losses["QA"] = cross_entropy(ans_logits, batch["ans"])
+            losses["QA"] = cross_entropy(ans_logits, batch["ans"],
+                                         denominator=den.get("QA"))
         total = sum(losses.values(), torch.zeros((), device=ans_logits.device))
         return total, losses, ans_logits

@@ -11,7 +11,7 @@ weights to its compute dtype at use, as flax `nn.Dense(dtype=...)` does.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -148,6 +148,17 @@ class DropoutRng:
     def seed31(self) -> int:
         """A fresh seed in [0, 2^31) for one attention call."""
         return int(torch.randint(0, 2 ** 31, (), generator=self.host_generator))
+
+    def get_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both generators' states (host tensors; no device sync)."""
+        return (self.device_generator.get_state(),
+                self.host_generator.get_state())
+
+    def set_state(self, state: Tuple[torch.Tensor, torch.Tensor]) -> None:
+        """Put both generators back to a `get_state`: the draws that
+        followed it are drawn again."""
+        self.device_generator.set_state(state[0])
+        self.host_generator.set_state(state[1])
 
 
 def maybe_dropout(x: torch.Tensor, p: float,

@@ -3,6 +3,8 @@ of `bce_with_logits`, `symmetric_kl`, `score_matching_loss`,
 `cross_entropy` and `smooth_l1` in `xggm_tpu/ops/losses.py`)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -35,19 +37,24 @@ def score_matching_loss(score: torch.Tensor, grad_log_q_noise: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -1,
-                  reduction: str = "mean") -> torch.Tensor:
+                  ignore_index: int = -1, reduction: str = "mean",
+                  denominator: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Softmax cross-entropy over the last axis in float32 (torch
     CrossEntropyLoss). A row whose label is `ignore_index` contributes 0;
     "mean" divides by the number of the other rows, at least 1, so a batch
-    with every row ignored gives 0. "none" returns the per-row values."""
+    with every row ignored gives 0, or by `denominator` when one is given
+    (a data-parallel rank's share of the global batch's count). "none"
+    returns the per-row values."""
     valid = labels != ignore_index
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])
     nll = torch.where(valid, nll[..., 0], 0.0)
     if reduction == "none":
         return nll
-    return nll.sum() / valid.float().sum().clamp_min(1.0)
+    if denominator is None:
+        denominator = valid.float().sum().clamp_min(1.0)
+    return nll.sum() / denominator
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor,

@@ -1,0 +1,269 @@
+"""The data-parallel group and the ZeRO-1 layout of the BertAdam state
+(counterpart of `xggm_tpu/parallel/mesh.py`).
+
+The JAX package shards a batch over a ('data', 'model') device mesh and lets
+XLA insert the gradient all-reduce. Here a `Mesh` is the process group of
+the ranks: each rank feeds its `process_slice` of every global batch and
+the train steps average the gradients over the group before the clip
+(`training/steps.py::apply_grads`). Every collective below is one that both
+NCCL and gloo implement for CPU and CUDA tensors (all-reduce and the list
+form of all-gather), so the CPU tests run the path the card runs.
+
+ZeRO-1 (`maybe_zero_shard_state`): each BertAdam m and v is split along its
+first dimension that the group's size divides (`_with_data_axis`), each
+rank keeping its slice; a leaf with no such dimension stays whole on every
+rank. The port keeps no bf16 shadow, so the fp32 masters, which the forward
+reads, stay whole, as the JAX package keeps the masters its forward reads.
+After the all-reduce every rank holds the whole averaged gradient, so each
+computes the same global norm and activation flags as data parallelism
+does, updates its slice of every sharded parameter, and the slices are
+all-gathered (`gather_params_`): the update is the data-parallel one, bit
+for bit. Tensor parallelism (`model_parallel > 1`) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, \
+    TypeVar, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from xggm_tpu_torch.parallel.distributed import world
+from xggm_tpu_torch.utils.device import resolve_device
+
+T = TypeVar("T")
+
+ITEM_7 = ("ROADMAP.md section 1, item 7 (tensor parallelism, --pp and "
+          "stacked_layers)")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The data group, which is the default process group (or this process
+    alone outside one): this process's rank, the group's size, the device
+    the rank computes on and the group's backend (None outside a process
+    group)."""
+
+    rank: int
+    size: int
+    device: torch.device
+    backend: Optional[str] = None
+
+
+def make_mesh(model_parallel: int = 1,
+              device: Union[str, torch.device] = "cuda") -> Mesh:
+    """The data group of every rank of the process group this process has
+    joined (`parallel/distributed.py`), or a group of this process alone
+    when it has joined none; its rank computes on `device`."""
+    if model_parallel != 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: tensor parallelism is not "
+            f"ported yet: {ITEM_7}")
+    rank, size = world()
+    return Mesh(rank=rank, size=size, device=resolve_device(device),
+                backend=dist.get_backend() if dist.is_initialized() else None)
+
+
+def pad_batch_to(batch: Dict[str, np.ndarray], size: int
+                 ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Pad every array's leading dim to `size` with zeros at the end;
+    returns (padded, valid_mask)."""
+    n = next(iter(batch.values())).shape[0]
+    if n > size:
+        raise ValueError(f"batch of {n} exceeds the padded size {size}")
+    if n == size:
+        return batch, np.ones((n,), np.bool_)
+    mask = np.zeros((size,), np.bool_)
+    mask[:n] = True
+    padded = {k: np.pad(x, [(0, size - n)] + [(0, 0)] * (x.ndim - 1))
+              for k, x in batch.items()}
+    return padded, mask
+
+
+# ---------------------------------------------------------------- collectives
+
+def _split_into(flat: torch.Tensor, outs: Sequence[torch.Tensor]) -> None:
+    """Copy consecutive chunks of `flat` into `outs` (any strides)."""
+    chunks = flat.split([o.numel() for o in outs])
+    torch._foreach_copy_(list(outs), [c.view(o.shape)
+                                      for c, o in zip(chunks, outs)])
+
+
+def all_reduce_mean_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Average `tensors` over the group in place, in one all-reduce of
+    their concatenation. Every rank passes the same shapes in the same
+    order."""
+    if mesh.size == 1 or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat.div_(mesh.size)
+    _split_into(flat, tensors)
+
+
+def mean_scalars(metrics: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+                 ) -> Dict[str, torch.Tensor]:
+    """The 0-d entries of `metrics` averaged over the group (a step's losses
+    over the global batch), the others as they are."""
+    if mesh is None or mesh.size == 1:
+        return metrics
+    keys = [k for k, v in metrics.items() if v.dim() == 0]
+    if not keys:
+        return metrics
+    vals = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(vals)
+    vals.div_(mesh.size)
+    return {**metrics, **dict(zip(keys, vals.unbind()))}
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The sum of `x` over the group (a copy; `x` itself with no group)."""
+    if mesh is None or mesh.size == 1:
+        return x
+    out = x.clone()
+    dist.all_reduce(out)
+    return out
+
+
+def any_rank(flag: bool, mesh: Optional[Mesh]) -> bool:
+    """Whether `flag` is set on any rank (a one-int MAX all-reduce); every
+    rank gets the same answer at the same call."""
+    if mesh is None or mesh.size == 1:
+        return flag
+    x = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return bool(x.item())
+
+
+def from_rank0(read: Callable[[], T], mesh: Optional[Mesh]) -> T:
+    """`read()` evaluated on rank 0 alone and its value (picklable; tensors
+    come back on the CPU) given to every rank in one broadcast, so that
+    every rank acts on rank 0's answer (a checkpoint only rank 0's disk
+    holds). An error on rank 0 is raised on every rank."""
+    if mesh is None or mesh.size == 1:
+        return read()
+    box: List[object] = [None]
+    error = None
+    if mesh.rank == 0:
+        try:
+            box[0] = (True, read())
+        except Exception as e:  # noqa: BLE001 - raised below, on every rank
+            error, box[0] = e, (False, f"{type(e).__name__}: {e}")
+    dist.broadcast_object_list(
+        box, src=0, device=mesh.device if mesh.backend == "nccl" else None)
+    ok, value = box[0]
+    if error is not None:
+        raise error
+    if not ok:
+        raise RuntimeError(f"on rank 0: {value}")
+    return value
+
+
+def _gather_slices(fulls: List[torch.Tensor], slices: List[Tuple[int, int,
+                   int]], mesh: Mesh) -> None:
+    """Every rank holds its slice (dim, start, length; start = rank x
+    length) of each tensor of `fulls`: fill in the other ranks' slices, in
+    one all-gather."""
+    if mesh.size == 1 or not fulls:
+        return
+    mine = torch.cat([f.narrow(*s).reshape(-1) for f, s in zip(fulls, slices)])
+    parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+    dist.all_gather(parts, mine)
+    for r, part in enumerate(parts):
+        if r == mesh.rank:
+            continue
+        _split_into(part, [f.narrow(d, r * n, n)
+                           for f, (d, _, n) in zip(fulls, slices)])
+
+
+# ------------------------------------------------------------- ZeRO-1 layout
+
+def _with_data_axis(shape: Sequence[int], data_size: int) -> Optional[int]:
+    """The first dimension that `data_size` divides (and does not exceed),
+    or None: the dimension a moment is split along."""
+    for d, n in enumerate(shape):
+        if n >= data_size and n % data_size == 0:
+            return d
+    return None
+
+
+def zero_state_shardings(state, mesh: Mesh) -> Dict[str, Optional[int]]:
+    """The ZeRO-1 layout of a TrainState: {parameter name: the dimension its
+    m and v are split along over the group, None for a whole leaf}. The
+    masters, counters and flags stay whole."""
+    return {n: _with_data_axis(tuple(m.shape), mesh.size)
+            for n, m in state.opt_state.m.items()}
+
+
+def maybe_zero_shard_state(state, mesh: Optional[Mesh], enabled: bool):
+    """Validate and apply the ZeRO-1 layout when `enabled`: each rank keeps
+    its slice of every split m and v (`BertAdamState.shards` records
+    them). The one entry point both trainers call on init, --resume and
+    --load. Returns (state, layout or None); `state` is changed in place."""
+    if not enabled:
+        return state, None
+    if mesh is None:
+        raise ValueError("shard_opt_state requires a device mesh "
+                         "(--multiGPU or --coordinator)")
+    dims = zero_state_shardings(state, mesh)
+    opt = state.opt_state
+    if opt.shards is not None:
+        raise ValueError("the optimizer state is sharded already")
+    shards = {}
+    for n, d in dims.items():
+        if d is not None:
+            length = opt.m[n].shape[d] // mesh.size
+            shards[n] = (d, mesh.rank * length, length)
+
+    def local(moments):
+        return {n: x.narrow(*shards[n]).clone() if n in shards else x
+                for n, x in moments.items()}
+
+    state.opt_state = dataclasses.replace(opt, m=local(opt.m),
+                                          v=local(opt.v), shards=shards)
+    return state, dims
+
+
+def axis_sharded_leaves(opt_state) -> List[str]:
+    """The names whose m and v are split over the group (the counterpart
+    of JAX's spec inspection for ZeRO assertions)."""
+    return sorted(opt_state.shards or {})
+
+
+def gathered_opt_state(opt_state, mesh: Optional[Mesh]):
+    """A whole (single-rank layout) copy of a ZeRO-sharded BertAdam state,
+    its split moments all-gathered; an unsharded state as it is. Every rank
+    calls it."""
+    if not opt_state.shards:
+        return opt_state
+    m, v = dict(opt_state.m), dict(opt_state.v)
+    names = list(opt_state.shards)
+    slices = [opt_state.shards[n] for n in names]
+    fulls = []
+    for moments in (m, v):
+        for n, (d, _, length) in zip(names, slices):
+            shape = list(moments[n].shape)
+            shape[d] = length * (mesh.size if mesh is not None else 1)
+            full = moments[n].new_empty(shape)
+            full.narrow(*opt_state.shards[n]).copy_(moments[n])
+            moments[n] = full
+            fulls.append(full)
+    if mesh is not None:
+        _gather_slices(fulls, slices * 2, mesh)
+    return dataclasses.replace(opt_state, m=m, v=v, shards=None)
+
+
+def gather_params_(params: Dict[str, torch.Tensor], opt_state,
+                   mesh: Optional[Mesh]) -> None:
+    """After a ZeRO-1 update, in which each rank updated its slice of every
+    sharded parameter: fill in the other ranks' slices."""
+    shards = opt_state.shards
+    if not shards or mesh is None or mesh.size == 1:
+        return
+    names = list(shards)
+    with torch.no_grad():
+        _gather_slices([params[n].data for n in names],
+                       [shards[n] for n in names], mesh)

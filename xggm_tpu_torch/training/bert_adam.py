@@ -20,6 +20,14 @@ clips first). `fused_step`, the counterpart of `make_fused_bert_adam_step`,
 clips, updates and applies in one traversal: the global norm in
 `torch._foreach_norm`, then one launch of kernel 7 (`ops/fused_adam.py`)
 over every parameter. `BertAdam(fused=True)` makes the train steps take it.
+The JAX package's `jnp_fused` and `flat` variants are not ported: nothing
+selects them there but a probe script, and on the H100 they were no faster
+than the tree path and slower than kernel 7 (ROADMAP.md, item 5).
+
+Under ZeRO-1 (`parallel/mesh.py::maybe_zero_shard_state`) a state's m and v
+hold this rank's shard of each parameter that `shards` names; `step` and
+`fused_step` then update that shard of the parameter only, from the whole
+gradient, and the caller gathers the parameters (`training/steps.py`).
 """
 from __future__ import annotations
 
@@ -64,8 +72,9 @@ SCHEDULES = {
 class BertAdamState:
     """Moments per parameter; per-parameter lr scales, counters and
     activation flags as vectors in `names` order; the global update count;
-    and the names that have had a gradient (the others are certainly
-    inactive and are skipped)."""
+    the names that have had a gradient (the others are certainly inactive
+    and are skipped); and, under ZeRO-1, {name: (dim, start, length)} of the
+    slice of each sharded parameter that this rank's m and v hold."""
 
     names: list
     m: Dict[str, torch.Tensor]
@@ -75,6 +84,13 @@ class BertAdamState:
     active: torch.Tensor  # bool [n]
     count: int = 0
     touched: Set[str] = field(default_factory=set)
+    shards: Optional[Dict[str, Tuple[int, int, int]]] = None
+
+    def local(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole-parameter tensor `x` (all of it
+        for a parameter that is not sharded)."""
+        s = self.shards.get(name) if self.shards else None
+        return x if s is None else x.narrow(*s)
 
     def leaf_counts(self) -> Dict[str, int]:
         return dict(zip(self.names, self.leaf_count.tolist()))
@@ -83,7 +99,12 @@ class BertAdamState:
         return dict(zip(self.names, self.active.tolist()))
 
     def state_dict(self) -> Dict[str, object]:
-        """Every field, as tensors, lists and numbers (`touched` sorted)."""
+        """Every field but `shards`, as tensors, lists and numbers
+        (`touched` sorted); a sharded state is gathered first
+        (`parallel/mesh.py::gathered_opt_state`)."""
+        if self.shards:
+            raise ValueError("a ZeRO-sharded BertAdam state has no "
+                             "single-rank state dict: gather it first")
         return dict(names=list(self.names), m=dict(self.m), v=dict(self.v),
                     lr_scale=self.lr_scale, leaf_count=self.leaf_count,
                     active=self.active, count=self.count,
@@ -185,13 +206,14 @@ class BertAdam:
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, Optional[torch.Tensor]],
              state: BertAdamState) -> None:
-        """One update of `params` in place from `grads` (None: zero)."""
+        """One update of `params` in place from `grads` (None: zero), which
+        the caller has clipped; under ZeRO-1, of this rank's slices."""
         b1, b2 = self.b1, self.b2
         with_grad, no_grad, index = self._activate(grads, state)
         live = with_grad + no_grad
 
         if with_grad:
-            gs = [grads[n] for n in with_grad]
+            gs = [state.local(n, grads[n]) for n in with_grad]
             ms = [state.m[n] for n in with_grad]
             vs = [state.v[n] for n in with_grad]
             torch._foreach_mul_(ms, b1)
@@ -204,7 +226,7 @@ class BertAdam:
             torch._foreach_mul_([state.v[n] for n in no_grad], b2)
 
         if live:
-            ps = [params[n] for n in live]
+            ps = [state.local(n, params[n]) for n in live]
             denom = torch._foreach_sqrt([state.v[n] for n in live])
             torch._foreach_add_(denom, self.eps)
             upd = torch._foreach_div([state.m[n] for n in live], denom)
@@ -234,16 +256,28 @@ class BertAdam:
         if live:
             norm = norm.to(state.active.device)
             scale = torch.clamp(clip / (norm + 1e-6), max=1.0)
-            lr_eff = torch.where(state.active, self._rates(state), 0.0)
-            fused_adam([grads.get(n) for n in live],
-                       [state.m[n] for n in live],
-                       [state.v[n] for n in live],
-                       [params[n] for n in live],
-                       [index[n] for n in live], scale, lr_eff,
-                       b1=self.b1, b2=self.b2, eps=self.eps,
-                       wd=self.weight_decay)
+            self._kernel_update(params, grads, state, live, index, scale)
         self._advance(state)
         return norm
+
+    def _kernel_update(self, params, grads, state: BertAdamState, live,
+                       index, scale: torch.Tensor) -> None:
+        """Kernel 7 over this rank's slice of every live parameter. The
+        kernel takes contiguous tensors: a slice across a later dimension
+        is updated in a contiguous copy and written back."""
+        lr_eff = torch.where(state.active, self._rates(state), 0.0)
+        ps = [state.local(n, params[n]) for n in live]
+        work = [p if p.is_contiguous() else p.contiguous() for p in ps]
+        gs = [None if grads.get(n) is None
+              else state.local(n, grads[n]).contiguous() for n in live]
+        fused_adam(gs, [state.m[n] for n in live],
+                   [state.v[n] for n in live], work,
+                   [index[n] for n in live], scale, lr_eff,
+                   b1=self.b1, b2=self.b2, eps=self.eps,
+                   wd=self.weight_decay)
+        for p, w in zip(ps, work):
+            if w is not p:
+                p.copy_(w)
 
 
 def lr_scale_tree(names: Iterable[str], predicate: Callable[[str], bool],

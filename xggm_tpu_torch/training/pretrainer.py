@@ -1,6 +1,5 @@
 """LXMERT pretraining trainer (counterpart of
-`xggm_tpu/training/pretrainer.py::LxmertPretrainer`, for one card and one
-process).
+`xggm_tpu/training/pretrainer.py::LxmertPretrainer`).
 
 The same observable behaviour as the JAX trainer:
   * BertAdam with warmup 0.05 over t_total = batches // accum_steps x
@@ -17,6 +16,17 @@ The same observable behaviour as the JAX trainer:
 The hidden and attention dropout of a microbatch draws from a seed made of
 `cfg.train.seed` and the microbatch's index, so it differs from the JAX
 package's draws.
+
+With a `mesh` every rank draws the same global batch (one RandomState
+stream on every rank) and builds only its `process_slice` of the rows
+(`PretrainFeaturizer.featurize(rows=)`), as the JAX trainer feeds its
+processes; a JAX process featurizes the whole global batch for every
+device of its host, a rank its own rows for its one card. The masked-LM, matched and QA losses
+divide by the global batch's count of labelled rows (summed over the
+group), so that the ranks' averaged gradient is the global batch's; the
+logged losses are the ranks' mean, the answers are gathered in rank order,
+and rank 0 alone writes files. `accum_steps` and preemption behave as in a
+single-rank run (one gradient all-reduce per update).
 
 `train` saves `PREEMPT` at the first update boundary after a SIGTERM and
 raises `Preempted`; `resume` continues from it: the parameters, the BertAdam
@@ -38,9 +48,13 @@ from xggm_tpu_torch.data.pretrain_data import (
     LxmertPretrainEvaluator, PretrainFeaturizer)
 from xggm_tpu_torch.models.pretrain_model import LOSSES_NAME, PretrainModel
 from xggm_tpu_torch.ops.basic import DropoutRng, init_weights
+from xggm_tpu_torch.parallel.distributed import process_slice, to_host
+from xggm_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_sum, gathered_opt_state, maybe_zero_shard_state,
+    mean_scalars)
 from xggm_tpu_torch.training.bert_adam import BertAdam, BertAdamState
-from xggm_tpu_torch.training.steps import TrainState, _grads, apply_grads
-from xggm_tpu_torch.training.trainer import ITEM_7
+from xggm_tpu_torch.training.steps import (
+    TrainState, _grads, apply_grads, fold_rank)
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
 from xggm_tpu_torch.utils.preempt import (
@@ -54,17 +68,20 @@ Batch = Dict[str, torch.Tensor]
 
 class LxmertPretrainer:
     """Pretrains `PretrainModel` on `device` (the card unless the caller
-    passes "cpu")."""
+    passes "cpu"), or on the mesh's device as one rank of its data
+    group."""
 
     def __init__(self, cfg: XGGMConfig, train_feat: PretrainFeaturizer,
                  valid_feat: Optional[PretrainFeaturizer] = None,
                  task_mask_lm: bool = True, task_matched: bool = True,
                  task_obj_predict: bool = True, task_qa: bool = True,
                  visual_losses: Sequence[str] = ("obj", "attr", "feat"),
-                 mesh=None, device: Union[str, torch.device] = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(f"device meshes: {ITEM_7}")
-        self.device = resolve_device(device)
+                 mesh: Optional[Mesh] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.cfg = cfg
         self.train_feat = train_feat
         self.valid_feat = valid_feat
@@ -91,7 +108,9 @@ class LxmertPretrainer:
         self.opt = BertAdam(lr=cfg.train.lr, warmup=WARMUP,
                             t_total=self.t_total,
                             weight_decay=cfg.train.weight_decay)
-        self.state = TrainState.create(self.model, self.opt)
+        self.state, _ = maybe_zero_shard_state(
+            TrainState.create(self.model, self.opt, mesh), mesh,
+            cfg.train.shard_opt_state)
         self._acc: Optional[Dict[str, Optional[torch.Tensor]]] = None
 
         self.task_qa = task_qa
@@ -101,7 +120,7 @@ class LxmertPretrainer:
             LxmertPretrainEvaluator(valid_feat.ds)
             if task_qa and valid_feat is not None else None)
 
-        self.ckpt = CheckpointManager(self.output)
+        self.ckpt = CheckpointManager(self.output, mesh)
         # installed by `train` when the caller has set none, so that making
         # a trainer never touches the process's signal handlers
         self.preempt: Optional[PreemptionGuard] = None
@@ -117,12 +136,29 @@ class LxmertPretrainer:
                 for k, v in batch.items()}
 
     def _step_seed(self, train_iter: int) -> int:
-        """The dropout seed of microbatch `train_iter` of the run."""
-        return self.cfg.train.seed * 2 ** 32 + train_iter
+        """The dropout seed of microbatch `train_iter` of the run, on this
+        rank."""
+        return fold_rank(self.cfg.train.seed * 2 ** 32 + train_iter,
+                         self.mesh)
+
+    def _denominators(self, batch: Batch
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+        """In a group of more than one rank: the global batch's count of
+        labelled rows of each cross-entropy loss (at least 1) over the
+        group's size; None (the local counts) otherwise."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return None
+        keys = {"Mask_LM": "lm_labels", "Matched": "matched_labels",
+                "QA": "ans"}
+        counts = torch.stack([(batch[k] != -1).sum() for k in keys.values()])
+        counts = all_reduce_sum(counts, mesh).float().clamp_min(1.0)
+        return dict(zip(keys, (counts / mesh.size).unbind()))
 
     def _losses(self, batch: Batch, seed: int):
         return self.model.compute_losses(batch,
-                                         DropoutRng(seed, self.device))
+                                         DropoutRng(seed, self.device),
+                                         self._denominators(batch))
 
     def train_step(self, batch: Batch, seed: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
@@ -130,7 +166,18 @@ class LxmertPretrainer:
         """One batch and one update: (total, losses, predicted answers)."""
         total, losses, ans_logits = self._losses(batch, seed)
         apply_grads(self.opt, self.state, _grads(total, self.state), CLIP)
-        return total.detach(), _detached(losses), ans_logits.argmax(-1)
+        return self._global(total, losses, ans_logits)
+
+    def _global(self, total: torch.Tensor, losses: Dict[str, torch.Tensor],
+                ans_logits: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                           torch.Tensor]:
+        """(total, losses) averaged over the group, and every rank's
+        predicted answers in rank order (numpy)."""
+        out = mean_scalars({"loss": total.detach(), **_detached(losses)},
+                           self.mesh)
+        preds = to_host(ans_logits.argmax(-1), self.mesh)
+        return out.pop("loss"), out, preds
 
     def grad_step(self, batch: Batch, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
@@ -146,7 +193,7 @@ class LxmertPretrainer:
             for n, g in grads.items():
                 if g is not None:
                     self._acc[n].add_(g.float())
-        return total.detach(), _detached(losses), ans_logits.argmax(-1)
+        return self._global(total, losses, ans_logits)
 
     def apply_step(self) -> None:
         """The update from the mean of the accumulated gradients."""
@@ -155,20 +202,23 @@ class LxmertPretrainer:
         self._acc = None
         apply_grads(self.opt, self.state, grads, CLIP)
 
-    @staticmethod
-    def _batches(feat: PretrainFeaturizer, bs: int, shuffle: bool,
+    def _batches(self, feat: PretrainFeaturizer, bs: int, shuffle: bool,
                  rng: np.random.RandomState, skip: int = 0):
-        """The epoch's batches (the last partial one dropped); the first
-        `skip` are not featurized, so that a resumed featurizer's
-        RandomState stays where it was saved."""
+        """The epoch's batches (the last partial one dropped), this rank's
+        rows of each, with every row's uids; the first `skip` are not
+        featurized, so that a resumed featurizer's RandomState stays where
+        it was saved."""
         order = np.arange(len(feat))
         if shuffle:
             rng.shuffle(order)
+        mesh = self.mesh
+        rows = (None if mesh is None or mesh.size == 1
+                else process_slice(range(bs), mesh.rank, mesh.size))
         stop = (len(feat) // bs) * bs
         for j, s in enumerate(range(0, stop, bs)):
             if j < skip:
                 continue
-            yield feat.featurize(order[s: s + bs].tolist())
+            yield feat.featurize(order[s: s + bs].tolist(), rows)
 
     def train(self, start_epoch: int = 0) -> float:
         """Pretrain from `start_epoch` (after the batches a `resume` found
@@ -179,7 +229,7 @@ class LxmertPretrainer:
         bs = cfg.train.batch_size
         own_guard = self.preempt is None
         if own_guard:
-            self.preempt = PreemptionGuard()
+            self.preempt = PreemptionGuard(mesh=self.mesh)
         cursor = self._resume_cursor or {}
         self._resume_cursor = None
         opt_steps = int(cursor.get("opt_steps", 0))
@@ -245,8 +295,10 @@ class LxmertPretrainer:
                              + "".join(f" {d}: {a:.4f}"
                                        for d, a in sorted(dset_acc.items())))
                 print(line)
-                with open(os.path.join(self.output, "log.log"), "a") as f:
-                    f.write(line + "\n")
+                if self.primary:
+                    with open(os.path.join(self.output, "log.log"),
+                              "a") as f:
+                        f.write(line + "\n")
 
                 if self.valid_feat is not None:
                     eval_loss = self.evaluate_epoch()
@@ -272,10 +324,12 @@ class LxmertPretrainer:
         uid2ans = {}
         for batch, uids in self._batches(self.valid_feat, bs, False,
                                          np.random.RandomState(0)):
-            loss, _, ans_logits = self.model.compute_losses(self.put(batch))
+            batch = self.put(batch)
+            loss, _, preds = self._global(*self.model.compute_losses(
+                batch, denominators=self._denominators(batch)))
             total += float(loss)
             if self.valid_evaluator is not None:
-                for uid, p in zip(uids, ans_logits.argmax(-1).tolist()):
+                for uid, p in zip(uids, preds.tolist()):
                     uid2ans[uid] = self.answer_table.id2ans(int(p))
             n += 1
         avg = total / max(n, 1)
@@ -290,12 +344,19 @@ class LxmertPretrainer:
 
     # ------------------------------------------------------------------
 
+    def _opt_state_dict(self) -> Dict[str, object]:
+        """The BertAdam state in the single-rank format (every rank calls
+        this: a ZeRO-1 state is all-gathered)."""
+        return gathered_opt_state(self.state.opt_state,
+                                  self.mesh).state_dict()
+
     def save(self, name: str) -> None:
         self.ckpt.save(name, {"model": self.model.state_dict(),
-                              "opt_state": self.state.opt_state.state_dict()})
+                              "opt_state": self._opt_state_dict()})
 
     def _restore(self, restored: Dict[str, object], name: str) -> None:
-        """The model and BertAdam state of a checkpoint of this format."""
+        """The model and BertAdam state of a checkpoint of this format,
+        re-sharded under `shard_opt_state`."""
         self.model.load_state_dict(restored["model"])
         opt_state = BertAdamState.from_state_dict(restored["opt_state"],
                                                   self.device)
@@ -303,6 +364,8 @@ class LxmertPretrainer:
             raise ValueError(f"{name}: the optimizer state's parameters are "
                              "not this model's")
         self.state.opt_state = opt_state
+        self.state, _ = maybe_zero_shard_state(
+            self.state, self.mesh, self.cfg.train.shard_opt_state)
 
     def load(self, name_or_path: str) -> None:
         """--load: the parameters and BertAdam state of a checkpoint by name
@@ -320,7 +383,7 @@ class LxmertPretrainer:
         the featurizer's as of now."""
         self.ckpt.save("PREEMPT", {
             "model": self.model.state_dict(),
-            "opt_state": self.state.opt_state.state_dict(),
+            "opt_state": self._opt_state_dict(),
             "epoch": epoch, "batches_done": batches_done,
             "opt_steps": opt_steps, "train_iter": train_iter,
             "best_eval_loss": best_eval_loss,

@@ -8,6 +8,16 @@ each (hence t_total = 2 x the batch count):
 GQA runs GGM then clean; VQA-CP (`clean_phase_first`) clean then GGM. With
 `BertAdam(fused=True)` the clip and the update are one `fused_step`.
 
+Under data parallelism (a `TrainState.mesh` of more than one rank) each rank
+runs the steps on its rows of the global batch: `apply_grads` averages the
+gradients over the group before the clip, so every rank computes the same
+norm and the same update, and the step's scalar metrics are averaged over
+the group (the global batch's losses). A ZeRO-1 state updates this rank's
+slice of each sharded parameter and gathers the rest
+(`parallel/mesh.py`). The rank is folded into the step's dropout and noise
+seeds, so ranks draw different masks for their rows (rank 0 draws those of
+a single-process run).
+
 The model's float32 parameters are the masters; the forward casts them to
 the compute dtype at use (bf16 on the card), which takes the place of the
 JAX package's bf16 parameter shadow. A batch is a dict of tensors on the
@@ -27,6 +37,8 @@ from xggm_tpu_torch.models.task_model import XGGMModel
 from xggm_tpu_torch.ops.basic import DropoutRng
 from xggm_tpu_torch.ops.losses import (
     bce_with_logits, score_matching_loss, symmetric_kl)
+from xggm_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_mean_, gather_params_, mean_scalars)
 from xggm_tpu_torch.training.bert_adam import (
     BertAdam, BertAdamState, global_norm)
 
@@ -38,15 +50,18 @@ Grads = Dict[str, Optional[torch.Tensor]]
 @dataclass
 class TrainState:
     """The model's float32 parameters (the masters, updated in place) by
-    name, and the BertAdam state."""
+    name, the BertAdam state, and the data group the steps run in (None:
+    this process alone)."""
 
     params: Dict[str, torch.nn.Parameter]
     opt_state: BertAdamState
+    mesh: Optional[Mesh] = None
 
     @classmethod
-    def create(cls, model: torch.nn.Module, opt: BertAdam) -> "TrainState":
+    def create(cls, model: torch.nn.Module, opt: BertAdam,
+               mesh: Optional[Mesh] = None) -> "TrainState":
         params = dict(model.named_parameters())
-        return cls(params, opt.init(params))
+        return cls(params, opt.init(params), mesh)
 
 
 def _batch_args(batch: Batch) -> Tuple[torch.Tensor, ...]:
@@ -81,19 +96,34 @@ def _update(opt: BertAdam, state: TrainState, loss: torch.Tensor,
 
 def apply_grads(opt: BertAdam, state: TrainState, grads: Grads,
                 clip: float) -> None:
-    """`_update` from gradients already taken (None: outside the graph);
-    clips them in place on the tree path."""
+    """`_update` from gradients already taken (None: outside the graph; the
+    same parameters on every rank, since every rank takes the same branch).
+    In a data group of more than one rank the gradients are first averaged
+    over it, in place; on the tree path they are clipped in place. A
+    ZeRO-1 state's parameters are gathered after the update."""
+    mesh = state.mesh
+    if mesh is not None and mesh.size > 1:
+        all_reduce_mean_([g for g in grads.values() if g is not None], mesh)
     if opt.fused:
         opt.fused_step(state.params, grads, state.opt_state, clip)
     else:
         clip_by_global_norm(grads, clip)
         opt.step(state.params, grads, state.opt_state)
+    gather_params_(state.params, state.opt_state, mesh)
 
 
-def phase_seeds(seed: int) -> Tuple[int, int, int]:
-    """(GGM dropout, GGM noise, clean dropout) seeds of one batch's step."""
+def fold_rank(seed: int, mesh: Optional[Mesh]) -> int:
+    """`seed` for this rank's draws: rank 0's is `seed` itself."""
+    return seed + ((mesh.rank if mesh is not None else 0) << 48)
+
+
+def phase_seeds(seed: int, mesh: Optional[Mesh] = None
+                ) -> Tuple[int, int, int]:
+    """(GGM dropout, GGM noise, clean dropout) seeds of one batch's step,
+    on this rank of `mesh`."""
     g = torch.Generator().manual_seed(seed)
-    return tuple(int(s) for s in torch.randint(0, 2 ** 31, (3,), generator=g))
+    return tuple(fold_rank(int(s), mesh)
+                 for s in torch.randint(0, 2 ** 31, (3,), generator=g))
 
 
 def make_ggm_loss(model: XGGMModel, cfg: TrainConfig,
@@ -191,14 +221,14 @@ def make_ggm_train_step(model: XGGMModel, opt: BertAdam, cfg: TrainConfig,
 
     def step(state: TrainState, batch: Batch,
              seed: int) -> Tuple[TrainState, Metrics]:
-        ggm_dropout, ggm_noise, clean_dropout = phase_seeds(seed)
+        ggm_dropout, ggm_noise, clean_dropout = phase_seeds(seed, state.mesh)
         if cfg.clean_phase_first:
             m2 = clean_phase(state, batch, clean_dropout)
             m1 = ggm_phase(state, batch, ggm_dropout, ggm_noise)
         else:
             m1 = ggm_phase(state, batch, ggm_dropout, ggm_noise)
             m2 = clean_phase(state, batch, clean_dropout)
-        return state, {**m1, **m2}
+        return state, mean_scalars({**m1, **m2}, state.mesh)
 
     return step
 
@@ -211,7 +241,9 @@ def make_clean_train_step(model, opt: BertAdam, cfg: TrainConfig,
 
     def step(state: TrainState, batch: Batch,
              seed: int) -> Tuple[TrainState, Metrics]:
-        return state, clean_phase(state, batch, seed)
+        return state, mean_scalars(
+            clean_phase(state, batch, fold_rank(seed, state.mesh)),
+            state.mesh)
 
     return step
 

@@ -1,5 +1,4 @@
-"""Task trainer (counterpart of `xggm_tpu/training/trainer.py::XGGMTrainer`,
-for one card and one process).
+"""Task trainer (counterpart of `xggm_tpu/training/trainer.py::XGGMTrainer`).
 
 The same observable behaviour as the JAX trainer:
   * the branch of each batch is drawn on the host, `randint(1, 10) <= delta`
@@ -15,10 +14,18 @@ The same observable behaviour as the JAX trainer:
 The dropout and noise of a step come from a seed made of `cfg.train.seed`
 and the step's index, so they differ from the JAX package's draws.
 
+With a `mesh` (`parallel/mesh.py`) every rank runs this trainer on its own
+card: the feeder hands each rank its slice of every global batch of
+`batch_size`, the steps average the gradients over the group (ZeRO-1 with
+`cfg.train.shard_opt_state`), the branch draw is the same on every rank,
+predictions are gathered to every rank in order, and rank 0 alone writes
+the run's files (checkpoints gathered to the single-rank format, `log.log`,
+`metrics.jsonl`, predictions).
+
 `train` saves a `PREEMPT` checkpoint at the first step boundary after a
-SIGTERM and raises `Preempted`; `resume` continues from it, or from the
-newest `BEST_{epoch}`. The loaders read the reference's torch snapshots
-(`load_lxmert`, `load_lxmert_qa`, `load` of a `.pth`).
+SIGTERM (on any rank) and raises `Preempted`; `resume` continues from it, or
+from the newest `BEST_{epoch}`. The loaders read the reference's torch
+snapshots (`load_lxmert`, `load_lxmert_qa`, `load` of a `.pth`).
 """
 from __future__ import annotations
 
@@ -43,6 +50,9 @@ from xggm_tpu_torch.data.feeder import Feeder
 from xggm_tpu_torch.data.tokenizer import BertTokenizer
 from xggm_tpu_torch.models.task_model import XGGMModel
 from xggm_tpu_torch.ops.basic import init_weights
+from xggm_tpu_torch.parallel.distributed import to_host
+from xggm_tpu_torch.parallel.mesh import (
+    Mesh, gathered_opt_state, maybe_zero_shard_state)
 from xggm_tpu_torch.training.bert_adam import (
     BertAdam, BertAdamState, lr_scale_tree)
 from xggm_tpu_torch.training.metrics import MetricsLogger
@@ -52,8 +62,6 @@ from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
 from xggm_tpu_torch.utils.preempt import (
     Preempted, PreemptionGuard, pack_rng_state, unpack_rng_state)
-
-ITEM_7 = "ROADMAP.md section 1, item 7 (scale-out)"
 
 
 def host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -67,17 +75,20 @@ def host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 class XGGMTrainer:
     """Trains, predicts and evaluates one task ('gqa' or 'vqa') on `device`
-    (the card unless the caller passes "cpu")."""
+    (the card unless the caller passes "cpu"), or on the mesh's device as
+    one rank of its data group."""
 
     def __init__(self, cfg: XGGMConfig, task: str = "gqa",
-                 tokenizer: Optional[BertTokenizer] = None, mesh=None,
+                 tokenizer: Optional[BertTokenizer] = None,
+                 mesh: Optional[Mesh] = None,
                  use_xpack: bool = False, profile_steps: int = 0,
                  device: Union[str, torch.device] = "cuda"):
         if task not in ("gqa", "vqa"):
             raise ValueError(f"unknown task {task!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"device meshes: {ITEM_7}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.use_xpack = use_xpack
         self.profile_steps = profile_steps
         self.task = task
@@ -139,7 +150,7 @@ class XGGMTrainer:
             lr_scale=lr_scale_tree(
                 (n for n, _ in self.model.named_parameters()),
                 lambda n: not n.startswith("lxrt."), 1.0, 1.0 / mult))
-        self.state = TrainState.create(self.model, self.opt)
+        self._fresh_opt_state()
 
         self.rel_step = make_ggm_train_step(self.model, self.opt, cfg.train,
                                             "relation")
@@ -149,8 +160,8 @@ class XGGMTrainer:
                                                 cfg.train, num_answers)
         self.eval_step = make_eval_step(self.model)
 
-        self.ckpt = CheckpointManager(self.output)
-        self.logger = MetricsLogger(self.output)
+        self.ckpt = CheckpointManager(self.output, mesh)
+        self.logger = MetricsLogger(self.output if self.primary else None)
         self.host_rng = random.Random(cfg.train.seed)
         # installed by `train` when the caller has set none, so that making
         # a trainer never touches the process's signal handlers
@@ -177,21 +188,28 @@ class XGGMTrainer:
 
     def _feeder(self, dataset: GraphBatchDataset, batch_size: int,
                 train: bool) -> Feeder:
+        mesh = self.mesh
         return Feeder(dataset, batch_size, shuffle=train, drop_last=train,
                       seed=self.cfg.train.seed,
                       prefetch_depth=self.cfg.data.prefetch_depth,
-                      feats_dtype=self._feats_dtype, device=self.device)
+                      feats_dtype=self._feats_dtype, device=self.device,
+                      process_index=0 if mesh is None else mesh.rank,
+                      process_count=1 if mesh is None else mesh.size)
 
     def _step_seed(self, train_iter: int) -> int:
         """The seed of step `train_iter`'s dropout and noise."""
         return self.cfg.train.seed * 2 ** 32 + train_iter
 
     def _fresh_opt_state(self) -> None:
-        """A new BertAdam state for the parameters as they are now."""
-        self.state = TrainState.create(self.model, self.opt)
+        """A new BertAdam state for the parameters as they are now, in its
+        ZeRO-1 layout under `shard_opt_state`."""
+        self.state, _ = maybe_zero_shard_state(
+            TrainState.create(self.model, self.opt, self.mesh), self.mesh,
+            self.cfg.train.shard_opt_state)
 
     def _restore(self, restored: Dict[str, object], name: str) -> None:
-        """The model and BertAdam state of a checkpoint of this format."""
+        """The model and BertAdam state of a checkpoint of this format,
+        re-sharded under `shard_opt_state`."""
         self.model.load_state_dict(restored["model"])
         opt_state = BertAdamState.from_state_dict(restored["opt_state"],
                                                   self.device)
@@ -199,6 +217,14 @@ class XGGMTrainer:
             raise ValueError(f"{name}: the optimizer state's parameters are "
                              "not this model's")
         self.state.opt_state = opt_state
+        self.state, _ = maybe_zero_shard_state(
+            self.state, self.mesh, self.cfg.train.shard_opt_state)
+
+    def _opt_state_dict(self) -> Dict[str, object]:
+        """The BertAdam state in the single-rank format (every rank calls
+        this: a ZeRO-1 state is all-gathered)."""
+        return gathered_opt_state(self.state.opt_state,
+                                  self.mesh).state_dict()
 
     def load_lxmert(self, path: str) -> None:
         """--loadLXMERT: the encoder of a torch LXMERT snapshot
@@ -239,7 +265,7 @@ class XGGMTrainer:
 
     def save(self, name: str, epoch: int = -1) -> None:
         self.ckpt.save(name, {"model": self.model.state_dict(),
-                              "opt_state": self.state.opt_state.state_dict(),
+                              "opt_state": self._opt_state_dict(),
                               "epoch": epoch})
 
     def save_preempt(self, epoch: int, batches_done: int, train_iter: int,
@@ -253,7 +279,7 @@ class XGGMTrainer:
         their stream."""
         self.ckpt.save("PREEMPT", {
             "model": self.model.state_dict(),
-            "opt_state": self.state.opt_state.state_dict(),
+            "opt_state": self._opt_state_dict(),
             "epoch": epoch, "batches_done": batches_done,
             "train_iter": train_iter, "best_valid": best_valid,
             "host_rng": pack_rng_state(self.host_rng).tolist()})
@@ -308,8 +334,9 @@ class XGGMTrainer:
 
     def _record(self, qids, metrics, quesid2ans: Dict[object, str]
                 ) -> Dict[str, float]:
-        """Note the step's predictions; return its scalar metrics."""
-        preds = metrics["preds"].cpu()[: len(qids)].tolist()
+        """Note the step's predictions (every rank's); return its scalar
+        metrics."""
+        preds = to_host(metrics["preds"], self.mesh)[: len(qids)].tolist()
         for qid, p in zip(qids, preds):
             quesid2ans[qid] = self.label2ans[int(p)]
         return host_metrics(metrics)
@@ -332,8 +359,9 @@ class XGGMTrainer:
         if t_epoch is not None:
             log_line += f" ({time.time() - t_epoch:.1f}s)"
         print(log_line)
-        with open(os.path.join(self.output, "log.log"), "a") as f:
-            f.write(log_line + "\n")
+        if self.primary:
+            with open(os.path.join(self.output, "log.log"), "a") as f:
+                f.write(log_line + "\n")
         return best_valid
 
     def train(self, start_epoch: int = 0) -> float:
@@ -351,7 +379,7 @@ class XGGMTrainer:
         val_points = set(np.linspace(0, n_batches, 5, dtype=int)[1:-1].tolist())
         own_guard = self.preempt is None
         if own_guard:
-            self.preempt = PreemptionGuard()
+            self.preempt = PreemptionGuard(mesh=self.mesh)
         cursor = self._resume_cursor or {}
         self._resume_cursor = None
         start_batch = int(cursor.get("skip_batches", 0))
@@ -437,13 +465,13 @@ class XGGMTrainer:
                               False)
         quesid2ans: Dict[object, str] = {}
         for qids, batch, mask in feeder:
-            preds = self.eval_step(batch).cpu()
+            preds = to_host(self.eval_step(batch), self.mesh)
             # the feeder pads trailing rows; preds[:len(qids)] relies on that
             assert bool(np.all(mask[: len(qids)])) and not np.any(
                 mask[len(qids):]), "feeder mask must be trailing padding"
             for qid, p in zip(qids, preds[: len(qids)].tolist()):
                 quesid2ans[qid] = self.label2ans[int(p)]
-        if dump_path:
+        if dump_path and self.primary:
             self.ev_cls.dump_result(quesid2ans, dump_path)
         return quesid2ans
 

@@ -1,16 +1,18 @@
-"""Preemption-safe training (counterpart of `xggm_tpu/utils/preempt.py`, for
-one process): catch the scheduler's eviction notice, save a mid-epoch
-checkpoint, and resume where the run stopped.
+"""Preemption-safe training (counterpart of `xggm_tpu/utils/preempt.py`):
+catch the scheduler's eviction notice, save a mid-epoch checkpoint, and
+resume where the run stopped.
 
 A SIGTERM (or any signal given to `PreemptionGuard`) sets a flag; the
 trainer polls `should_save(step)` at each step boundary, saves `PREEMPT`
 and raises `Preempted`, and the CLI exits with `PREEMPTED_EXIT_CODE`, so a
 wrapper restarts it with `--resume`.
 
-The JAX package has a second regime for multi-host runs, where every host
-must stop at the same step (a coordination service agrees on it). The port
-runs one process, so it has only the local flag; the multi-host stop point
-comes with scale-out (ROADMAP.md section 1, item 7).
+In a data group of more than one rank every rank must stop at the same step
+boundary: a rank that stops while another enters the next step's
+all-reduce would hang it. The JAX package agrees on the step through its
+coordination service; here `should_save` all-reduces the local flag (a MAX
+of one int) at every step boundary, so a SIGTERM on any rank makes every
+rank save `PREEMPT` and exit at the same step.
 
 The `PREEMPT` checkpoint holds the host's `random.Random` as a fixed-shape
 array (`pack_rng_state`), as the JAX package stores it.
@@ -22,6 +24,8 @@ import threading
 from typing import Iterable
 
 import numpy as np
+
+from xggm_tpu_torch.parallel.mesh import any_rank
 
 # "transient failure, retry me" (BSD sysexits EX_TEMPFAIL): a scheduler or
 # wrapper restarts the run with --resume
@@ -36,8 +40,9 @@ class PreemptionGuard:
     """Signal-to-step-boundary bridge. Install once, poll every step."""
 
     def __init__(self, signals: Iterable[int] = (signal.SIGTERM,),
-                 install: bool = True):
+                 install: bool = True, mesh=None):
         self._flag = threading.Event()
+        self.mesh = mesh
         self._prev = {}
         if install and threading.current_thread() is threading.main_thread():
             for sig in signals:
@@ -60,10 +65,11 @@ class PreemptionGuard:
         return self._flag.is_set()
 
     def should_save(self, step_id: int) -> bool:
-        """True when this step boundary is the point to save and exit:
-        with one process, as soon as the flag is set. `step_id` is the
-        run's step count, kept for the multi-host regime's signature."""
-        return self._flag.is_set()
+        """True when this step boundary is the point to save and exit: as
+        soon as the flag is set on any rank, the same answer on every rank
+        (one all-reduce per call in a group of more than one). `step_id` is
+        the run's step count, kept for the JAX package's signature."""
+        return any_rank(self._flag.is_set(), self.mesh)
 
     def uninstall(self) -> None:
         for sig, prev in self._prev.items():
