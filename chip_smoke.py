@@ -236,11 +236,41 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             within relative L2 1e-3; kernel 2 launched twice per
             attention under remat (136 a batch), kernel 3 66; ms per batch
             and peak memory each way, in turns.
-16. summary the kernels line (all seven kernels; kernels 1 to 3 with their
-            trainer-phase, VQA-CP, served-artifact, GIN/GAT, pretraining
-            and scale-out launches too, kernel 7 with its scale-out
-            ones), the card's name and power limit, and last
-            {"ok": true, "device": {...}}.
+16. model-  the stacked layout, tensor and pipeline parallelism at full
+    para-   width, GCN, batch 96, dropout off, the GGM noise replayed, the
+    llel    2-step plan from phase 8's weights: two ranks in processes of
+            their own on the one card over gloo, rank 0 also running the
+            one-rank references. (a) the stacked layout (`stacked_layers`,
+            the weights stacked by `stack_encoder_flat`) against the
+            per-layer run, tree and fused BertAdam, bf16 and once fp32:
+            losses within 1e-5 relative, updates within phase 8's
+            gradient gates (1e-4 relative L2 in fp32), each stacked leaf's
+            counter and flag its layers', launches alike; ms per batch
+            each way in turns and one tree update's device events. (b)
+            TP (`model_parallel` 2, data group of 1; every fused qkv and
+            FFN intermediate split): the same gates against the per-layer
+            run (bf16: the phases' losses 1e-4; fp32: every loss term
+            1e-5), the replicated parameters and moments bit-identical on
+            both ranks, every rank launching what one rank launches, one
+            eval forward's answers equal to one rank's (fp32); bytes of
+            parameters and moments and the peak above them per rank. (c)
+            PP (`--pp 2`, 4 microbatches) against (a)'s stacked run: the
+            same gates, every parameter and moment bit-identical on both
+            stages, kernels 1 and 3 launched per stage as derived (80 and
+            80 a batch on stage 0, 192 and 184 on stage 1); with dropout
+            on, the pipelined relation loss with remat within 1e-6 of the
+            one without. (d) four ranks, TP 2 x PP 2 (`--composed-rank`),
+            fp32, against the one-rank stacked run: (b)'s fp32 gates, the
+            replicated state identical across each model group and all of
+            it across each pipe group, (c)'s launches per stage on every
+            model rank. Also whether gloo's send and recv take CUDA
+            tensors (a two-process probe). ms per global batch: no gain to
+            claim while the ranks share the card.
+17. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+            trainer-phase, VQA-CP, served-artifact, GIN/GAT, pretraining,
+            scale-out and model-parallel launches too, kernel 7 with its
+            scale-out and model-parallel ones), the card's name and power
+            limit, and last {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -3697,6 +3727,733 @@ def phase_scale_out(torch, attn, fa, t_start: float) -> dict:
             "remat": remat}
 
 
+# ---------------------------------------------------------------- phase 16
+
+# Phase 16: the stacked-layers layout, tensor parallelism (TP) and the GPipe
+# pipeline (PP), at full width, GCN, batch 96, dropout off and the GGM noise
+# replayed, the two-step plan of phase 15. Two ranks on the one card over
+# gloo (NCCL takes one rank per device), started as processes of their own
+# (`--model-parallel-rank`); rank 0 also runs the one-rank references.
+MP_RANKS = 2
+MP_COMPOSED_RANKS = 4
+MP_RANK_TIMEOUT = 600
+MP_MICROBATCHES = 4
+MP_TIMED_BATCHES = 3
+# (a) the stacked layout against the per-layer one: the same kernels on the
+# same values (a stacked leaf's slice is the layer's weight; each slice's
+# gradient lands in its own rows), so only the global norm's summation
+# order differs (its leaves are grouped otherwise).
+STACKED_LOSS_RTOL = 1e-5
+# (b), (c) in fp32: every loss term, and the parameter updates' relative L2
+# over all parameters together.
+MP_FP32_LOSS_RTOL = 1e-5
+MP_FP32_UPDATE_RTOL = 1e-4
+# Launches per two-phase batch of each pipeline stage (S = 2, M = 4),
+# dropout off (kernel 1 forward, kernel 3 at rate 0 backward): 9/5/5
+# layers pad to 20 virtual layers; stage 0 runs lang 0-8 and visn 0 (10
+# attentions a microbatch), stage 1 visn 1-4, x 0-4 (4 attentions each)
+# and one identity layer (24). The clean phase's loss reads no visual
+# output, so the last stage sends back no visual gradient for the last
+# x-layer and its two visual attentions run no backward (22).
+PP_ATTENTIONS = {0: 10, 1: 24}
+PP_FWD_PER_BATCH = {s: 2 * n * MP_MICROBATCHES
+                    for s, n in PP_ATTENTIONS.items()}
+PP_BWD_PER_BATCH = {0: 2 * 10 * MP_MICROBATCHES,
+                    1: (24 + 22) * MP_MICROBATCHES}
+
+
+def same_across(torch, tensors, group, size) -> bool:
+    """Whether `tensors` (fp32) are bit-identical on every rank of `group`:
+    two int64 digests of each one's bits (their sum, and their sum
+    weighted by the position mod 65521, plus one) gathered and compared."""
+    import torch.distributed as dist
+
+    if size == 1:
+        return True
+    digests = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        digests += [bits.sum(), (bits * weight).sum()]
+        del bits, weight
+    mine = torch.stack(digests)
+    parts = [torch.empty_like(mine) for _ in range(size)]
+    dist.all_gather(parts, mine, group=group)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def unstacked(params: dict) -> dict:
+    """A stacked model's parameters by the per-layer model's names: each
+    [L, ...] leaf's slice i under layer i's name."""
+    out = {}
+    for n, x in params.items():
+        m = re.match(r"^(.*\.encoder\.)(lang|r|x)_stack\.layer\.(.*)$", n)
+        if m is None:
+            out[n] = x
+            continue
+        group = {"lang": "layer", "r": "r_layers", "x": "x_layers"}[m[2]]
+        for i in range(x.shape[0]):
+            out[f"{m[1]}{group}.{i}.{m[3]}"] = x[i]
+    return out
+
+
+def stacked_state_dict(lx, model) -> dict:
+    """`model`'s (per-layer) parameters in the stacked layout of `lx`."""
+    from xggm_tpu_torch.checkpoint.jax_params import (
+        from_jax_params, to_jax_params)
+    from xggm_tpu_torch.checkpoint.torch_bridge import stack_encoder_flat
+    from xggm_tpu_torch.models.task_model import XGGMModel
+
+    flat = {k[len("params/"):]: v for k, v in to_jax_params(model).items()}
+    meta = XGGMModel(lx, model.num_answers, model.ggm, device="meta")
+    return from_jax_params(stack_encoder_flat(flat, lx), meta)
+
+
+def mp_model(torch, t, lx, state_dict, mesh=None, tp=False):
+    """A training model of `lx` from `state_dict` on the card, its wide
+    Dense layers split over `mesh`'s model group with `tp`."""
+    from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.parallel import param_shardings, shard_model_
+
+    model = XGGMModel(lx, t.cfg.num_answers, t.cfg.ggm, device="cuda")
+    model.load_state_dict(state_dict)
+    if tp:
+        shard_model_(model, mesh, param_shardings(model, mesh))
+    return model
+
+
+def mp_opt(t, model, fused: bool):
+    """Phase 8's BertAdam for `model`'s parameter names (`fused`: kernel
+    7), at phase 15's t_total."""
+    from xggm_tpu_torch.training.bert_adam import BertAdam, lr_scale_tree
+
+    tc = t.tc
+    mult = tc.downstream_lr_mult
+    return BertAdam(tc.lr * mult, warmup=tc.warmup,
+                    t_total=SCALE_OUT_T_TOTAL, weight_decay=tc.weight_decay,
+                    lr_scale=lr_scale_tree(
+                        (n for n, _ in model.named_parameters()),
+                        lambda n: not n.startswith("lxrt."), 1.0,
+                        1.0 / mult), fused=fused)
+
+
+def mp_trajectory(torch, model, opt, tc, batches, counters, mesh=None):
+    """The 2-step plan from a fresh BertAdam state: each step's losses and
+    ms, the launches, the counters and flags, the parameters after (whole,
+    gathered over a model group), and the memory: the bytes of the
+    parameters and moments this rank holds, and the peak allocated over
+    the run above what was allocated before it."""
+    from xggm_tpu_torch.parallel import gather_split, tp_split
+    from xggm_tpu_torch.training.steps import TrainState, make_ggm_train_step
+
+    state = TrainState.create(model, opt, mesh)
+    steps = {br: make_ggm_train_step(model, opt, tc, br)
+             for br in SCALE_OUT_PLAN}
+    state_bytes = 4 * sum(p.numel() + state.opt_state.m[n].numel()
+                          + state.opt_state.v[n].numel()
+                          for n, p in state.params.items())
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    record = []
+    for i, br in enumerate(SCALE_OUT_PLAN):
+        t0 = time.perf_counter()
+        state, m = steps[br](state, batches[br], i)
+        torch.cuda.synchronize()
+        record.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                           losses={k: float(v) for k, v in m.items()
+                                   if v.dim() == 0}))
+    peak = torch.cuda.max_memory_allocated() - before
+    params = gather_split({n: p.detach().clone()
+                           for n, p in state.params.items()},
+                          tp_split(model), mesh)
+    return dict(record=record,
+                launches={k: c.launches for k, c in counters.items()},
+                leaf_count=state.opt_state.leaf_counts(),
+                active=state.opt_state.active_flags(),
+                count=state.opt_state.count, state_bytes=state_bytes,
+                peak_step_bytes=peak, params=params, state=state,
+                steps=steps, batches=batches, opt=opt)
+
+
+def mp_compare(torch, got, ref, init, dtype: str) -> dict:
+    """`got` against the reference trajectory `ref` from the same initial
+    parameters `init`: the losses' relative differences (gated: the
+    phases' losses in bf16, every term in fp32), the updates' agreement,
+    and the counters and flags."""
+    names = list(ref["params"])
+    deltas = [got["params"][n] - init[n] for n in names]
+    want = [ref["params"][n] - init[n] for n in names]
+    rel = [{k: abs(g["losses"][k] - v) / max(abs(v), 1e-12)
+            for k, v in w["losses"].items()}
+           for g, w in zip(got["record"], ref["record"])]
+    gated = (DP_GATED_LOSSES if dtype == "bfloat16"
+             else tuple(ref["record"][0]["losses"]))
+    return dict(
+        losses=[r["losses"] for r in got["record"]],
+        reference_losses=[r["losses"] for r in ref["record"]],
+        ms_per_global_batch=[r["ms"] for r in got["record"]],
+        reference_ms_per_batch=[r["ms"] for r in ref["record"]],
+        gated_losses=list(gated), loss_rel_diffs=rel,
+        loss_rel_diff=max(r[k] for r in rel for k in gated if k in r),
+        counters_flags_equal=(got["leaf_count"] == ref["leaf_count"]
+                              and got["active"] == ref["active"]
+                              and got["count"] == ref["count"]),
+        update_agreement=grad_agreement(torch, names, deltas, want))
+
+
+def stacked_counts_as_derived(stacked: dict, layer: dict) -> bool:
+    """Each stacked leaf's counter (or flag) equals that of every layer of
+    its stack in the per-layer run, and every other leaf's its own."""
+    import re as _re
+
+    groups = {}
+    for n, v in layer.items():
+        key = _re.sub(r"\.encoder\.layer\.\d+\.", ".encoder.lang_stack.layer.",
+                      n)
+        key = _re.sub(r"\.encoder\.r_layers\.\d+\.",
+                      ".encoder.r_stack.layer.", key)
+        key = _re.sub(r"\.encoder\.x_layers\.\d+\.",
+                      ".encoder.x_stack.layer.", key)
+        groups.setdefault(key, set()).add(v)
+    return (set(groups) == set(stacked)
+            and all(groups[n] == {v} for n, v in stacked.items()))
+
+
+def update_launches(torch, t_opt, state, grads) -> dict:
+    """Device kernels of one tree update of `state` from `grads`
+    (torch.profiler), and its host ms."""
+    from xggm_tpu_torch.training.steps import apply_grads
+
+    prof = profile_call(torch, lambda: apply_grads(
+        t_opt, state, dict(grads), 5.0))
+    return dict(device_events=prof["device_events"],
+                device_busy_ms=prof["device_busy_ms"],
+                wall_ms=prof["wall_ms_profiled"])
+
+
+def model_parallel_rank(coordinator: str, rank: int, workdir: str) -> int:
+    """One of the two ranks of phase 16: for bf16 (tree and fused
+    BertAdam) and fp32 (tree), rank 0 runs the one-rank references, the
+    per-layer and the stacked trajectory at 96 ((a)); then both ranks run
+    the TP trajectory (model group of 2, data group of 1) and the PP
+    trajectory (pipe group of 2, M = 4) on the whole batch; in bf16 also
+    the PP relation GGM loss with dropout on, without and with remat.
+    Writes {workdir}/mp_rank{rank}.json."""
+    import torch
+
+    from xggm_tpu_torch.ops import attention as attn
+    from xggm_tpu_torch.ops import fused_adam as fa
+    from xggm_tpu_torch.parallel import (
+        clear_pipeline_mesh, host_barrier, init_distributed, make_mesh,
+        set_pipeline_mesh, shutdown_distributed, tp_split)
+    from xggm_tpu_torch.training.steps import make_eval_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(coordinator, MP_RANKS, rank, backend="gloo",
+                     device="cuda:0", timeout_s=MP_RANK_TIMEOUT)
+    try:
+        tp_mesh = make_mesh(MP_RANKS, device="cuda:0")
+        pp_mesh = make_mesh(device="cuda:0", pipeline_parallel=MP_RANKS)
+        counters = scale_out_counters(attn, fa)
+        out = dict(rank=rank, runs=[], tp_stage=tp_mesh.model_rank,
+                   pp_stage=pp_mesh.pipe_rank)
+        for dtype in ("bfloat16", "float32"):
+            t = train_setup(torch, fused=False, dtype=dtype, dropout=False)
+            t.opt.t_total = SCALE_OUT_T_TOTAL
+            tc, lx = t.tc, t.cfg.lxmert.replace(dtype=dtype)
+            batches = scale_out_batches(torch, t)
+            init = {n: p.detach().clone()
+                    for n, p in t.model.state_dict().items()}
+            lx_stacked = lx.replace(stacked_layers=True)
+            stacked_sd = stacked_state_dict(lx_stacked, t.model)
+            init_stacked = {n: x.to("cuda") for n, x in stacked_sd.items()}
+            del t.state
+            if dtype == "float32":
+                # one eval forward, TP against one rank
+                tp_model = mp_model(torch, t, lx, init, tp_mesh, tp=True)
+                out["eval_answers_equal"] = bool(torch.equal(
+                    make_eval_step(tp_model)(batches["relation"]),
+                    make_eval_step(t.model)(batches["relation"])))
+                del tp_model
+            for fused in ((False, True) if dtype == "bfloat16"
+                          else (False,)):
+                row = dict(dtype=dtype, fused=fused)
+                refs = {}
+                if rank == 0:
+                    with torch.no_grad():
+                        torch._foreach_copy_(
+                            list(t.model.state_dict().values()),
+                            list(init.values()))
+                    refs["layer"] = mp_trajectory(
+                        torch, t.model, mp_opt(t, t.model, fused), tc,
+                        batches, counters)
+                    stacked = mp_model(torch, t, lx_stacked, init_stacked)
+                    refs["stacked"] = mp_trajectory(
+                        torch, stacked, mp_opt(t, stacked, fused), tc,
+                        batches, counters)
+                    a = mp_compare(
+                        torch, dict(refs["stacked"], params=unstacked(
+                            refs["stacked"]["params"])), refs["layer"],
+                        init, dtype)
+                    a["counters_flags_equal"] = a[
+                        "stacked_counts_as_derived"] = (
+                        stacked_counts_as_derived(
+                            refs["stacked"]["leaf_count"],
+                            refs["layer"]["leaf_count"])
+                        and stacked_counts_as_derived(
+                            refs["stacked"]["active"],
+                            refs["layer"]["active"]))
+                    a["launches"] = {k: refs[k]["launches"]
+                                     for k in ("layer", "stacked")}
+                    a["leaves"] = {k: len(refs[k]["params"])
+                                   for k in ("layer", "stacked")}
+                    if dtype == "bfloat16" and not fused:
+                        a.update(stacked_timing(torch, refs))
+                    row["stacked"] = a
+                    del stacked
+                # (b) TP: both ranks on all 96 rows
+                host_barrier(f"tp_{dtype}_{fused}")
+                model = mp_model(torch, t, lx, init, tp_mesh, tp=True)
+                got = mp_trajectory(torch, model, mp_opt(t, model, fused),
+                                    tc, batches, counters, tp_mesh)
+                split = tp_split(model)
+                st = got["state"]
+                rep = [n for n in st.params if n not in split]
+                identical = same_across(
+                    torch, [st.params[n] for n in rep]
+                    + [st.opt_state.m[n] for n in rep]
+                    + [st.opt_state.v[n] for n in rep],
+                    tp_mesh.model_group, tp_mesh.model_size)
+                tp = dict(launches=got["launches"],
+                          split_leaves=len(split),
+                          split_params=sum(init[n].numel() for n in split
+                                           if n.endswith("weight")
+                                           or n.endswith("bias")),
+                          state_bytes=got["state_bytes"],
+                          peak_step_bytes=got["peak_step_bytes"],
+                          replicated_identical=identical,
+                          ms_per_global_batch=[r["ms"]
+                                               for r in got["record"]])
+                if rank == 0:
+                    tp.update(mp_compare(torch, got, refs["layer"], init,
+                                         dtype))
+                    tp["reference_state_bytes"] = refs["layer"][
+                        "state_bytes"]
+                    tp["reference_peak_step_bytes"] = refs["layer"][
+                        "peak_step_bytes"]
+                    tp["reference_launches"] = refs["layer"]["launches"]
+                row["tp"] = tp
+                del model, got, st
+                gc.collect()
+                torch.cuda.empty_cache()
+                # (c) PP: both ranks feed all 96 rows, stage s its layers
+                host_barrier(f"pp_{dtype}_{fused}")
+                set_pipeline_mesh(pp_mesh, MP_MICROBATCHES)
+                lx_pp = lx_stacked.replace(pp_stages=MP_RANKS,
+                                           pp_microbatches=MP_MICROBATCHES)
+                model = mp_model(torch, t, lx_pp, init_stacked)
+                got = mp_trajectory(torch, model, mp_opt(t, model, fused),
+                                    tc, batches, counters, pp_mesh)
+                st = got["state"]
+                names = list(st.params)
+                identical = same_across(
+                    torch, [st.params[n] for n in names]
+                    + [st.opt_state.m[n] for n in names]
+                    + [st.opt_state.v[n] for n in names],
+                    pp_mesh.pipe_group, pp_mesh.pipe_size)
+                pp = dict(launches=got["launches"], stage=pp_mesh.pipe_rank,
+                          state_bytes=got["state_bytes"],
+                          peak_step_bytes=got["peak_step_bytes"],
+                          replicated_identical=identical,
+                          ms_per_global_batch=[r["ms"]
+                                               for r in got["record"]])
+                if rank == 0:
+                    pp.update(mp_compare(torch, got, refs["stacked"],
+                                         init_stacked, dtype))
+                    pp["reference_peak_step_bytes"] = refs["stacked"][
+                        "peak_step_bytes"]
+                row["pp"] = pp
+                del model, got, st
+                if dtype == "bfloat16" and not fused:
+                    row["pp_remat"] = pp_remat_check(
+                        torch, t, lx_pp, init_stacked, batches, counters,
+                        pp_mesh)
+                clear_pipeline_mesh()
+                refs.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                out["runs"].append(row)
+            del t, init, init_stacked, stacked_sd
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(workdir, f"mp_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def stacked_timing(torch, refs) -> dict:
+    """(a): ms per batch of each layout over MP_TIMED_BATCHES batches, in
+    turns (layer, stacked, stacked, layer), and one tree update's device
+    kernels and host ms each way."""
+    turns = []
+    for name in ("layer", "stacked", "stacked", "layer"):
+        r = refs[name]
+        state = r["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MP_TIMED_BATCHES):
+            br = SCALE_OUT_PLAN[i % 2]
+            state, _ = r["steps"][br](state, r["batches"][br], 500 + i)
+        torch.cuda.synchronize()
+        turns.append(dict(layout=name, ms_per_batch=(time.perf_counter() - t0)
+                          * 1e3 / MP_TIMED_BATCHES))
+    update = {}
+    for name in ("layer", "stacked"):
+        state = refs[name]["state"]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        grads = {n: torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+                 for n, p in state.params.items()}
+        update[name] = update_launches(torch, refs[name]["opt"], state,
+                                       grads)
+    return dict(timing_turns=turns, update=update)
+
+
+def pp_remat_check(torch, t, lx_pp, init_stacked, batches, counters,
+                   mesh) -> dict:
+    """(c): the pipelined relation GGM loss and gradients with dropout on
+    (hidden and attention 0.1, the generator's 0.5), without and with
+    remat, from the same seeds: the loss (the last stage's), the norm of
+    the pipe-summed gradient and the launches each way."""
+    from dataclasses import replace
+
+    from xggm_tpu_torch.models.task_model import XGGMModel
+    from xggm_tpu_torch.parallel import from_last_stage
+    from xggm_tpu_torch.training.steps import (
+        TrainState, _grads, make_ggm_loss, on_last_stage, phase_seeds)
+
+    lx = lx_pp.replace(bert=replace(lx_pp.bert, hidden_dropout_prob=RATE,
+                                    attention_probs_dropout_prob=RATE))
+    model = XGGMModel(lx, t.cfg.num_answers, replace(t.cfg.ggm, dropout=0.5),
+                      device="cuda")
+    model.load_state_dict(init_stacked)
+    loss_fn = make_ggm_loss(model, t.tc, "relation")
+    state = TrainState(dict(model.named_parameters()), None, mesh)
+    batch = {k: v for k, v in batches["relation"].items()
+             if k != "noise_override"}
+    dropout_seed, noise_seed, _ = phase_seeds(300)
+    got = {}
+    for remat in (False, True):
+        model.lxrt.encoder.remat = remat
+        for c in counters.values():
+            c.launches = 0
+        res = on_last_stage(loss_fn, batch, dropout_seed, noise_seed)
+        grads = _grads(None if res is None else res[0], state)
+        torch.cuda.synchronize()
+        norm = torch.stack([g.float().norm() for g in grads.values()
+                            if g is not None]).norm()
+        got[remat] = dict(
+            loss=from_last_stage(None if res is None
+                                 else float(res[0].detach()), mesh),
+            grad_norm=float(norm),
+            launches={k: c.launches for k, c in counters.items()})
+        del res, grads
+    plain, remat = got[False], got[True]
+    return dict(loss=remat["loss"], plain_loss=plain["loss"],
+                loss_rel_diff=abs(remat["loss"] - plain["loss"])
+                / abs(plain["loss"]),
+                grad_norm=remat["grad_norm"],
+                plain_grad_norm=plain["grad_norm"],
+                launches=remat["launches"], plain_launches=plain["launches"])
+
+
+def gloo_p2p_probe(coordinator: str, rank: int) -> int:
+    """Whether gloo's send and recv take CUDA tensors: rank 0 sends one
+    on the card to rank 1. Prints GLOO_CUDA_P2P ok or the error."""
+    import torch
+    import torch.distributed as dist
+
+    from xggm_tpu_torch.parallel import init_distributed, shutdown_distributed
+
+    init_distributed(coordinator, 2, rank, backend="gloo", device="cuda:0",
+                     timeout_s=60)
+    try:
+        x = torch.full((4,), 7.0, device="cuda")
+        if rank == 0:
+            dist.send(x, 1)
+        else:
+            y = torch.zeros(4, device="cuda")
+            dist.recv(y, 0)
+            check(bool((y == 7.0).all()), f"received {y}")
+        print("GLOO_CUDA_P2P ok", flush=True)
+    except Exception as e:  # noqa: BLE001 - the probe's answer
+        print(f"GLOO_CUDA_P2P {type(e).__name__}: {e}"[:400], flush=True)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def probe_gloo_p2p() -> str:
+    """`gloo_p2p_probe` in two processes, stopped after 90 s."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-p2p-probe",
+         f"127.0.0.1:{port}", str(r)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    answers = []
+    try:
+        for p in procs:
+            text = p.communicate(timeout=90)[0]
+            answers += [ln for ln in text.splitlines()
+                        if ln.startswith("GLOO_CUDA_P2P")]
+    except subprocess.TimeoutExpired:
+        answers.append("GLOO_CUDA_P2P timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return "; ".join(answers) or "GLOO_CUDA_P2P no answer"
+
+
+def composed_rank(coordinator: str, rank: int, workdir: str) -> int:
+    """(d) One of four ranks: a model group of 2 by a pipe group of 2 (data
+    group of 1), fp32, tree BertAdam: the stacked model pipelined in 4
+    microbatches with its wide Dense layers split, the 2-step plan on the
+    whole batch; rank 0 first runs the one-rank stacked reference. Writes
+    {workdir}/composed_rank{rank}.json."""
+    import torch
+
+    from xggm_tpu_torch.ops import attention as attn
+    from xggm_tpu_torch.ops import fused_adam as fa
+    from xggm_tpu_torch.parallel import (
+        clear_pipeline_mesh, host_barrier, init_distributed, make_mesh,
+        set_pipeline_mesh, shutdown_distributed, tp_split)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(coordinator, MP_COMPOSED_RANKS, rank, backend="gloo",
+                     device="cuda:0", timeout_s=MP_RANK_TIMEOUT)
+    try:
+        mesh = make_mesh(2, device="cuda:0", pipeline_parallel=2)
+        counters = scale_out_counters(attn, fa)
+        t = train_setup(torch, fused=False, dtype="float32", dropout=False)
+        tc, lx = t.tc, t.cfg.lxmert.replace(dtype="float32",
+                                            stacked_layers=True)
+        batches = scale_out_batches(torch, t)
+        init = {n: x.to("cuda")
+                for n, x in stacked_state_dict(lx, t.model).items()}
+        del t.state, t.model, t.steps
+        gc.collect()
+        out = dict(rank=rank, model_rank=mesh.model_rank,
+                   stage=mesh.pipe_rank)
+        ref = None
+        if rank == 0:
+            stacked = mp_model(torch, t, lx, init)
+            ref = mp_trajectory(torch, stacked, mp_opt(t, stacked, False),
+                                tc, batches, counters)
+            del stacked
+        host_barrier("composed")
+        set_pipeline_mesh(mesh, MP_MICROBATCHES)
+        model = mp_model(torch, t, lx.replace(
+            pp_stages=2, pp_microbatches=MP_MICROBATCHES), init, mesh,
+            tp=True)
+        got = mp_trajectory(torch, model, mp_opt(t, model, False), tc,
+                            batches, counters, mesh)
+        clear_pipeline_mesh()
+        split, st = tp_split(model), got["state"]
+        names = list(st.params)
+        rep = [n for n in names if n not in split]
+        out.update(
+            launches=got["launches"], split_leaves=len(split),
+            state_bytes=got["state_bytes"],
+            peak_step_bytes=got["peak_step_bytes"],
+            ms_per_global_batch=[r["ms"] for r in got["record"]],
+            replicated_identical=same_across(
+                torch, [st.params[n] for n in rep]
+                + [st.opt_state.m[n] for n in rep]
+                + [st.opt_state.v[n] for n in rep],
+                mesh.model_group, mesh.model_size),
+            pipe_identical=same_across(
+                torch, [st.params[n] for n in names]
+                + [st.opt_state.m[n] for n in names]
+                + [st.opt_state.v[n] for n in names],
+                mesh.pipe_group, mesh.pipe_size))
+        if rank == 0:
+            out.update(mp_compare(torch, got, ref, init, "float32"))
+        with open(os.path.join(workdir, f"composed_rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def launch_ranks(flag: str, n: int, workdir: str, prefix: str) -> list:
+    """`n` ranks of this script (`flag COORDINATOR RANK WORKDIR`) in
+    processes of their own, each stopped at its time limit; returns what
+    each wrote to {workdir}/{prefix}{rank}.json."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag,
+         f"127.0.0.1:{port}", str(r), workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{flag} rank {r} exited "
+                                 f"{p.returncode}:\n{text[-4000:]}")
+    return [json.load(open(os.path.join(workdir, f"{prefix}{r}.json")))
+            for r in range(n)]
+
+
+def phase_model_parallel(torch, t_start: float) -> dict:
+    """Phase 16: the two ranks of `model_parallel_rank`, then the four of
+    `composed_rank`; their rows checked here. Returns the launches of
+    each part (bf16, tree BertAdam; kernel 7 from the fused runs; (d) in
+    fp32)."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="xggm_model_parallel_")
+    try:
+        ranks = launch_ranks("--model-parallel-rank", MP_RANKS, workdir,
+                             "mp_rank")
+        t_composed = time.perf_counter()
+        composed = launch_ranks("--composed-rank", MP_COMPOSED_RANKS,
+                                workdir, "composed_rank")
+        composed_seconds = time.perf_counter() - t_composed
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    rows, other = ranks[0]["runs"], ranks[1]["runs"]
+    emit("model_parallel_composed", seconds=composed_seconds,
+         ranks=composed)
+    emit("model_parallel", wall_seconds=wall, gloo_cuda_p2p=probe_gloo_p2p(),
+         seconds_so_far=time.perf_counter() - t_start, runs=rows,
+         rank1=[{k: r[k] for k in ("dtype", "fused", "tp", "pp")}
+                for r in other],
+         eval_answers_equal=[r.get("eval_answers_equal") for r in ranks],
+         pp_launches_per_batch_expected=dict(
+             attention_fwd=PP_FWD_PER_BATCH,
+             attention_dropout_bwd=PP_BWD_PER_BATCH),
+         note="two ranks share one card over gloo: ms per global batch is "
+              "no gain to claim; dropout off, the GGM noise replayed")
+    n = len(SCALE_OUT_PLAN)
+
+    def one_rank(fused):
+        return {"attention_fwd": FWD_LAUNCHES_PER_BATCH * n,
+                "attention_dropout_fwd": 0,
+                "attention_dropout_bwd": BWD_LAUNCHES_PER_BATCH * n,
+                "bert_adam": UPDATES_PER_BATCH * n if fused else 0}
+
+    def gates(part: dict, dtype: str, what: str, loss_rtol=None) -> None:
+        agree = part["update_agreement"]
+        if dtype == "bfloat16":
+            ok = (part["loss_rel_diff"] <= (loss_rtol or DP_LOSS_RTOL)
+                  and agree["grad_rel_l2"] <= GRAD_RTOL
+                  and agree["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL)
+        else:
+            ok = (part["loss_rel_diff"] <= MP_FP32_LOSS_RTOL
+                  and agree["grad_rel_l2"] <= MP_FP32_UPDATE_RTOL)
+        check(ok and agree["same_graph"] and part["counters_flags_equal"],
+              f"{what} {dtype}: losses {part['loss_rel_diffs']}, updates "
+              f"{agree}, counters and flags {part['counters_flags_equal']}")
+
+    for row, row1 in zip(rows, other):
+        dtype, fused = row["dtype"], row["fused"]
+        a = row["stacked"]
+        gates(a, dtype, "(a) stacked against per-layer", STACKED_LOSS_RTOL)
+        check(a["loss_rel_diff"] <= STACKED_LOSS_RTOL,
+              f"(a) stacked losses {a['loss_rel_diffs']}")
+        check(a["stacked_counts_as_derived"], "(a) stacked counters/flags")
+        check(a["launches"]["layer"] == a["launches"]["stacked"]
+              == one_rank(fused), f"(a) launches {a['launches']}")
+        for part, part1, what in ((row["tp"], row1["tp"], "(b) TP"),
+                                  (row["pp"], row1["pp"], "(c) PP")):
+            gates(part, dtype, what)
+            check(part["replicated_identical"]
+                  and part1["replicated_identical"],
+                  f"{what} {dtype}: replicated state differs across ranks")
+        check(row["tp"]["launches"] == row1["tp"]["launches"]
+              == one_rank(fused),
+              f"(b) TP launches {row['tp']['launches']}, "
+              f"{row1['tp']['launches']}, expected {one_rank(fused)}")
+        for part in (row["pp"], row1["pp"]):
+            s = part["stage"]
+            want = {"attention_fwd": PP_FWD_PER_BATCH[s] * n,
+                    "attention_dropout_fwd": 0,
+                    "attention_dropout_bwd": PP_BWD_PER_BATCH[s] * n,
+                    "bert_adam": UPDATES_PER_BATCH * n if fused else 0}
+            check(part["launches"] == want,
+                  f"(c) PP stage {s} launches {part['launches']}, "
+                  f"expected {want}")
+        if "pp_remat" in row:
+            rm = row["pp_remat"]
+            check(rm["loss_rel_diff"] <= REMAT_LOSS_RTOL,
+                  f"(c) PP remat loss {rm}")
+    check(all(r.get("eval_answers_equal") for r in ranks),
+          "(b) TP eval answers differ from one rank's")
+    # (d): (b)'s fp32 gates, the replicated state identical across each
+    # model group, every parameter and moment across each pipe group, and
+    # each stage's launches those of (c) on every model rank
+    d = composed[0]
+    gates(d, "float32", "(d) TP x PP")
+    for r in composed:
+        s = r["stage"]
+        want = {"attention_fwd": PP_FWD_PER_BATCH[s] * n,
+                "attention_dropout_fwd": 0,
+                "attention_dropout_bwd": PP_BWD_PER_BATCH[s] * n,
+                "bert_adam": 0}
+        check(r["replicated_identical"] and r["pipe_identical"],
+              f"(d) rank {r['rank']}: state differs across its groups")
+        check(r["launches"] == want and r["split_leaves"] > 0,
+              f"(d) rank {r['rank']} (stage {s}) launches "
+              f"{r['launches']}, expected {want}")
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    tree = next(r for r in bf16 if not r["fused"])
+    fused = next(r for r in bf16 if r["fused"])
+    tree1 = next(r for r in other if r["dtype"] == "bfloat16"
+                 and not r["fused"])
+    fused1 = next(r for r in other if r["dtype"] == "bfloat16"
+                  and r["fused"])
+    out = {}
+    for kernel in ("attention_fwd", "attention_dropout_fwd",
+                   "attention_dropout_bwd"):
+        out[kernel] = {
+            "stacked": tree["stacked"]["launches"]["stacked"][kernel],
+            "tp_per_rank": tree["tp"]["launches"][kernel],
+            "pp_stage0": tree["pp"]["launches"][kernel],
+            "pp_stage1": tree1["pp"]["launches"][kernel],
+            "pp_remat_stage0": tree["pp_remat"]["launches"][kernel],
+            "pp_remat_stage1": tree1["pp_remat"]["launches"][kernel]}
+    for kernel in out:
+        out[kernel]["tp_pp_stage0_fp32"], out[kernel]["tp_pp_stage1_fp32"] = (
+            next(r for r in composed if r["stage"] == s)["launches"][kernel]
+            for s in (0, 1))
+    out["bert_adam"] = {
+        "stacked": fused["stacked"]["launches"]["stacked"]["bert_adam"],
+        "tp_per_rank": fused["tp"]["launches"]["bert_adam"],
+        "pp_stage0": fused["pp"]["launches"]["bert_adam"],
+        "pp_stage1": fused1["pp"]["launches"]["bert_adam"]}
+    return out
+
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -3932,6 +4689,11 @@ def main() -> int:
 
     # 15. scale-out: a world of one, two ranks, remat
     scale_out = phase_scale_out(torch, attn, fa, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. the stacked layout, tensor and pipeline parallelism
+    model_parallel = phase_model_parallel(torch, t_start)
 
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
@@ -3947,7 +4709,7 @@ def main() -> int:
     def scaled_out(kernel):
         return {part: counts[kernel] for part, counts in scale_out.items()}
 
-    # 16. summary: one entry per kernel. Kernel 1 over one forward's
+    # 17. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -3974,6 +4736,7 @@ def main() -> int:
         "served_artifact_launches": served_launches,
         "pretrain_launches": pretraining("attention_fwd"),
         "scale_out_launches": scaled_out("attention_fwd"),
+        "model_parallel_launches": model_parallel["attention_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
@@ -4002,6 +4765,7 @@ def main() -> int:
          "generator_launches": generators("attention_dropout_fwd"),
          "pretrain_launches": pretraining("attention_dropout_fwd"),
          "scale_out_launches": scaled_out("attention_dropout_fwd"),
+         "model_parallel_launches": model_parallel["attention_dropout_fwd"],
          "max_abs_err": max(r["fwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("fwd_ms", drop_path),
          "plain_ms": per_forward("plain_fwd_ms", drop_path),
@@ -4022,6 +4786,7 @@ def main() -> int:
          "generator_launches": generators("attention_dropout_bwd"),
          "pretrain_launches": pretraining("attention_dropout_bwd"),
          "scale_out_launches": scaled_out("attention_dropout_bwd"),
+         "model_parallel_launches": model_parallel["attention_dropout_bwd"],
          "max_abs_err": max(r["bwd_max_abs_err"] for r in drop_rows),
          "ms": per_forward("bwd_ms", drop_path),
          "plain_ms": per_forward("plain_bwd_ms", drop_path),
@@ -4088,6 +4853,7 @@ def main() -> int:
          "replaces": "xggm_tpu/ops/pallas_optim.py:38",
          "launches": fused_launches["bert_adam"],
          "scale_out_launches": scaled_out("bert_adam"),
+         "model_parallel_launches": model_parallel["bert_adam"],
          "max_abs_err": adam["max_abs_err"], "ms": adam["ms"],
          "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
          "bound_by": adam["bound_by"], "library_ms": None,
@@ -4110,4 +4876,11 @@ if __name__ == "__main__":
         sys.exit(forward_device_of(sys.argv[2]))
     if len(sys.argv) == 5 and sys.argv[1] == "--scale-out-rank":
         sys.exit(scale_out_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--gloo-p2p-probe":
+        sys.exit(gloo_p2p_probe(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 5 and sys.argv[1] == "--composed-rank":
+        sys.exit(composed_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--model-parallel-rank":
+        sys.exit(model_parallel_rank(sys.argv[2], int(sys.argv[3]),
+                                     sys.argv[4]))
     sys.exit(main())

@@ -143,7 +143,10 @@ def test_cli_end_to_end_without_jax_or_h5py(tmp_path):
     assert size < 10e6
 
 
-UNPORTED = [["--pp", "2"], ["--model_parallel", "2"]]
+# pipeline stages need a single-host world, as in the JAX CLI
+PIPELINE = [["--pp", "2"],
+            ["--pp", "2", "--coordinator", "localhost:1234", "--num_hosts",
+             "2", "--host_id", "0"]]
 # scale-out flags that need a partner: a mesh for ZeRO-1, and the whole
 # multi-host triple
 INCOMPLETE = [
@@ -153,13 +156,12 @@ INCOMPLETE = [
 
 
 def test_unported_flags_raise(tmp_path):
-    """The flags of tensor and pipeline parallelism raise
-    NotImplementedError naming their ROADMAP.md item, and the scale-out
-    flags without their partners raise ValueError, before anything is
-    written."""
+    """`--pp` without `--multiGPU` or with `--coordinator` raises
+    ValueError, as the JAX CLI does, and so do the scale-out flags without
+    their partners, before anything is written."""
     for flags, error, match in (
-            [(f, NotImplementedError, r"ROADMAP\.md section 1, item 7")
-             for f in UNPORTED]
+            [(f, ValueError, r"--pp requires --multiGPU|multi-host pipeline")
+             for f in PIPELINE]
             + [(f, ValueError, r"--multiGPU or --coordinator|go together")
                for f in INCOMPLETE]):
         with pytest.raises(error, match=match):
@@ -182,7 +184,8 @@ def test_one_rank_per_card(monkeypatch):
     monkeypatch.setattr(common, "init_distributed", lambda *a, **k: None)
     monkeypatch.setattr(common, "shutdown_distributed",
                         lambda: left.append(True))
-    monkeypatch.setattr(common, "make_mesh", lambda mp, device: device)
+    monkeypatch.setattr(common, "make_mesh",
+                        lambda mp, device, pipeline_parallel=1: device)
     monkeypatch.setattr(torch.cuda, "set_device", placed.append)
     multi_host = ["--coordinator", "127.0.0.1:1", "--num_hosts", "4",
                   "--host_id", "3"]

@@ -3,7 +3,8 @@
 at `tiny_test_config()` sizes on the CPU, fp32.
 
 * The parameter tree is the same with and without remat;
-  `stacked_layers` and `pp_stages` still raise, naming ROADMAP item 7.
+  `stacked_layers` builds the stacked tree, and `pp_stages` without it
+  raises ValueError, as in the JAX package.
 * With dropout on (hidden and attention 0.1, the generator's 0.5), the
   loss and every gradient of each GGM branch and of the clean phase are
   those without remat from the same seeds, within rtol 1e-5 / atol 1e-7
@@ -87,11 +88,14 @@ def test_remat_keeps_the_parameter_tree_and_rejects_unported():
     assert [(n, p.shape) for n, p in plain.named_parameters()] == \
         [(n, p.shape) for n, p in remat.named_parameters()]
     assert remat.lxrt.encoder.remat and not plain.lxrt.encoder.remat
-    for field in (dict(stacked_layers=True), dict(pp_stages=2)):
-        cfg = _cfg(True).lxmert.replace(**field)
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md section 1, item 7"):
-            lxmert.LxmertEncoder(cfg, device="cpu")
+    stacked = lxmert.LxmertEncoder(
+        _cfg(True).lxmert.replace(stacked_layers=True), device="cpu")
+    assert stacked.remat and stacked.lang_stack.length == 2
+    assert tuple(stacked.x_stack.layer.lang_mlp.intermediate.weight.shape) \
+        == (1, 128, 64)
+    with pytest.raises(ValueError, match="requires stacked_layers"):
+        lxmert.LxmertEncoder(_cfg(True).lxmert.replace(pp_stages=2),
+                             device="cpu")
 
 
 def _phase_grads(model, phase: str, batch, monkeypatch):

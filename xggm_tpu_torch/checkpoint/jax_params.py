@@ -10,7 +10,11 @@ the per-layer lists `layer_i`, `r_layer_i`, `x_layer_i` become
 `head.i`, `merge.i`), a Dense `kernel` [in, out] becomes `weight` [out,
 in], LayerNorm `scale` and Embed `embedding` become `weight`, and an int8
 artifact's `kernel_scale_int8` becomes `weight_scale`. GIN's `eps` and
-GAT's `attn` [2F, 1] keep their names and shapes.
+GAT's `attn` [2F, 1] keep their names and shapes. The stacked encoder's
+`encoder/lang_stack/layer/...`, `r_stack/layer/...` and `x_stack/layer/...`
+(`stacked_layers`) become `encoder.lang_stack.layer....` and the like: a
+stacked kernel [L, in, out] becomes a stacked weight [L, out, in], and the
+stacked LayerNorm and bias leaves [L, n] keep their shape.
 
 `to_jax_params` is the inverse: a port model's parameters under the JAX
 package's flat names, in the order `jax.tree_util` flattens them. The
@@ -93,7 +97,7 @@ def from_jax_params(flat: Mapping[str, np.ndarray], model: nn.Module,
         if dtypes is not None and dtypes.get(key) == "bfloat16":
             arr = bf16_bits_to_float32(arr)
         if key.endswith("/kernel"):
-            arr = arr.T
+            arr = np.swapaxes(arr, -1, -2)
         if tuple(arr.shape) != tuple(expected[name].shape):
             raise ValueError(f"JAX parameter {key!r} {arr.shape} does not fit "
                              f"{name!r} {tuple(expected[name].shape)}")
@@ -123,12 +127,11 @@ def _jax_leaf(module: nn.Module, leaf: str) -> str:
     return leaf
 
 
-def to_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
-    """`model`'s state as `{'params/...' JAX path: numpy array}`, the keys,
-    shapes and order of `xggm_tpu/serving/artifact.py::_flatten` for the
-    same model (Dense kernels [in, out]; float32 parameters as float32)."""
+def jax_names(model: nn.Module) -> Dict[str, str]:
+    """{state-dict key of `model`: its JAX path `params/...`}; raises for a
+    key with no JAX name."""
     out = {}
-    for name, t in model.state_dict().items():
+    for name in model.state_dict():
         mod_path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         module = model.get_submodule(mod_path)
         parts = mod_path.split(".") if mod_path else []
@@ -141,11 +144,24 @@ def to_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
             else:
                 path.append(parts[i])
                 i += 1
-        jax_leaf = _jax_leaf(module, leaf)
-        key = "/".join(["params", *path, jax_leaf])
+        key = "/".join(["params", *path, _jax_leaf(module, leaf)])
         if port_name(key) != name:
             raise KeyError(f"{name!r} has no JAX name (got {key!r})")
+        out[name] = key
+    return out
+
+
+def to_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """`model`'s state as `{'params/...' JAX path: numpy array}`, the keys,
+    shapes and order of `xggm_tpu/serving/artifact.py::_flatten` for the
+    same model (Dense kernels [in, out], stacked ones [L, in, out]; float32
+    parameters as float32)."""
+    out = {}
+    names = jax_names(model)
+    for name, t in model.state_dict().items():
+        key = names[name]
         arr = t.detach().cpu().numpy()
-        out[key] = np.ascontiguousarray(arr.T if jax_leaf == "kernel" else arr)
+        out[key] = np.ascontiguousarray(
+            np.swapaxes(arr, -1, -2) if key.endswith("/kernel") else arr)
     # jax.tree_util flattens a dict in sorted key order, level by level
     return {k: out[k] for k in sorted(out, key=lambda k: k.split("/"))}

@@ -14,12 +14,14 @@ directory, then moved into place with `os.replace`, so that a crash never
 leaves a partial checkpoint under the name. One commit runs at a time;
 `wait` is the barrier and re-raises a failed commit's error.
 
-In a data group of more than one rank (`mesh`) every rank calls the same
-methods at the same points: the caller has gathered a ZeRO-1 state into
-whole leaves first (`parallel/mesh.py::gathered_opt_state`), so the file
-has the single-rank format; rank 0 alone commits and removes, and `wait`
-ends at a barrier of every rank (`host_barrier`), so no rank reads or
-leaves before rank 0's commit is on disk. What a rank finds on disk is
+In a world of more than one rank (`mesh`) every rank calls the same
+methods at the same points: the caller has gathered a ZeRO-1 state's slices
+within the data group and the tensor-parallel slices within the model
+group first (`training/steps.py::whole_snapshot`), so the file has the
+single-rank format, and restores re-slice it
+(`training/steps.py::restore_snapshot`); global rank 0 alone commits and
+removes, and `wait` ends at a barrier of every rank (`host_barrier`), so
+no rank reads or leaves before rank 0's commit is on disk. What a rank finds on disk is
 rank 0's answer (`exists`, `latest_epoch` and `load` read on rank 0 and
 broadcast, `parallel/mesh.py::from_rank0`), so every rank resumes the same
 checkpoint even where a host's disk lacks rank 0's commits.
@@ -55,8 +57,8 @@ class CheckpointManager:
     def __init__(self, output_dir: str, mesh=None):
         self.output_dir = os.path.abspath(output_dir)
         self._mesh = mesh
-        self._ranks = 1 if mesh is None else mesh.size
-        self.primary = mesh is None or mesh.rank == 0
+        self._ranks = 1 if mesh is None else mesh.world_size
+        self.primary = mesh is None or mesh.primary
         os.makedirs(self.output_dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None

@@ -15,15 +15,20 @@ snapshot alike:
   keeps the JAX package's parameter tree.
 
 `convert_pretrain_model` does the same for a reference pretraining model
-(`LXRTPretraining`: the encoder and the four pretraining heads).
+(`LXRTPretraining`: the encoder and the four pretraining heads). With
+`cfg.stacked_layers` the encoder's per-layer paths are stacked into the
+`lang_stack` / `r_stack` / `x_stack` [L, ...] layout (`stack_encoder_flat`;
+`unstack_encoder_flat` is its inverse), as the JAX package does.
 
 `merge_into` then puts such a flat dict onto a port model: the names and
 transposes of `checkpoint/jax_params.py`, the model's other parameters left
-as they are. The answer-head surgery of `--loadLXMERTQA` is in
+as they are; a tensor-parallel Dense (`parallel/tensor.py`) takes its
+rank's slice of the whole tensor. The answer-head surgery of `--loadLXMERTQA` is in
 `checkpoint/answer_table.py`.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch
 
 from xggm_tpu_torch.checkpoint.jax_params import port_name
 from xggm_tpu_torch.config import LxmertConfig
+from xggm_tpu_torch.parallel.tensor import local_slice
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -146,12 +152,70 @@ def _map_x_layer(m: _Mapper, t: str, o: str):
     m.layernorm(f"{t}.visn_output.LayerNorm", f"{o}/visn_mlp/LayerNorm")
 
 
+_STACK_GROUPS = (
+    # (per-layer path prefix, stacked path, layer-count attribute)
+    ("x_layer", "x_stack", "x_layers"),
+    ("r_layer", "r_stack", "r_layers"),
+    ("layer", "lang_stack", "l_layers"),
+)
+
+
+def stack_encoder_flat(flat: Dict[str, np.ndarray], cfg: LxmertConfig,
+                       our_prefix: str = "lxrt") -> Dict[str, np.ndarray]:
+    """Per-layer encoder paths -> the stacked layout: every
+    `{p}/encoder/layer_{i}/REST` (i = 0..L-1) becomes one
+    `{p}/encoder/lang_stack/layer/REST` array with a leading [L] axis (and
+    `r_layer` -> `r_stack`, `x_layer` -> `x_stack`). A group missing one
+    layer's tensor is dropped with its per-layer keys, so that loading
+    reports the stacked name unmatched rather than a ragged stack."""
+    pat = re.compile(rf"^{re.escape(our_prefix)}/encoder/"
+                     r"(x_layer|r_layer|layer)_(\d+)/(.*)$")
+    lengths = {p: getattr(cfg.visual, attr) for p, _, attr in _STACK_GROUPS}
+    stack_name = {p: s for p, s, _ in _STACK_GROUPS}
+    out: Dict[str, np.ndarray] = {}
+    per: Dict[Tuple[str, str], Dict[int, np.ndarray]] = {}
+    for k, v in flat.items():
+        mm = pat.match(k)
+        if not mm:
+            out[k] = v
+            continue
+        kind, idx, rest = mm.group(1), int(mm.group(2)), mm.group(3)
+        per.setdefault((kind, rest), {})[idx] = v
+    for (kind, rest), d in per.items():
+        n = lengths[kind]
+        if sorted(d) != list(range(n)):
+            continue
+        out[f"{our_prefix}/encoder/{stack_name[kind]}/layer/{rest}"] = \
+            np.stack([d[i] for i in range(n)])
+    return out
+
+
+def unstack_encoder_flat(flat: Dict[str, np.ndarray], cfg: LxmertConfig,
+                         our_prefix: str = "lxrt") -> Dict[str, np.ndarray]:
+    """The inverse of `stack_encoder_flat`: each stacked [L, ...] leaf split
+    into its per-layer `layer_{i}` paths."""
+    pat = re.compile(rf"^{re.escape(our_prefix)}/encoder/"
+                     r"(x_stack|r_stack|lang_stack)/layer/(.*)$")
+    layer_name = {s: p for p, s, _ in _STACK_GROUPS}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in flat.items():
+        mm = pat.match(k)
+        if not mm:
+            out[k] = v
+            continue
+        stack, rest = mm.group(1), mm.group(2)
+        for i in range(v.shape[0]):
+            out[f"{our_prefix}/encoder/{layer_name[stack]}_{i}/{rest}"] = v[i]
+    return out
+
+
 def convert_lxrt_bert(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
                       torch_prefix: str = "", our_prefix: str = "lxrt"
                       ) -> Tuple[Dict[str, np.ndarray], _Mapper]:
     """A torch LXRTModel state dict (`embeddings.*`, `encoder.*`, `pooler.*`
-    under `torch_prefix`) as the encoder's flat JAX names, per layer (the
-    port has no stacked layout)."""
+    under `torch_prefix`) as the encoder's flat JAX names; with
+    `cfg.stacked_layers` the per-layer tensors are stacked into the
+    [L, ...] layout."""
     m = _Mapper(sd)
     t = torch_prefix
     o = our_prefix
@@ -181,6 +245,8 @@ def convert_lxrt_bert(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
         _map_x_layer(m, f"{t}encoder.x_layers.{i}", f"{o}/encoder/x_layer_{i}")
 
     m.linear(f"{t}pooler.dense", f"{o}/pooler/dense")
+    if cfg.stacked_layers:
+        m.out = stack_encoder_flat(m.out, cfg, our_prefix=o)
     return m.out, m
 
 
@@ -291,7 +357,8 @@ def merge_into(model: torch.nn.Module, flat: Dict[str, np.ndarray]
     (`port_name`, Dense kernels transposed), in place and on the model's
     device. Returns the model's entries left as they were: those `flat`
     lacks and those whose shape differs (the JAX package's `merge_into`
-    keeps both). A name with no counterpart in `model` raises."""
+    keeps both). A name with no counterpart in `model` raises. A
+    tensor-parallel Dense takes its rank's slice of the whole tensor."""
     expected = model.state_dict()
     filled = set()
     mismatched = []
@@ -303,7 +370,8 @@ def merge_into(model: torch.nn.Module, flat: Dict[str, np.ndarray]
                                f"{type(model).__name__}")
             src = torch.from_numpy(np.asarray(arr))
             if key.endswith("/kernel"):
-                src = src.T
+                src = src.transpose(-1, -2)
+            src = local_slice(model, name, src)
             dst = expected[name]
             filled.add(name)
             if tuple(src.shape) != tuple(dst.shape):

@@ -15,9 +15,9 @@ The differences:
     one per card (`make_mesh_if_requested`). A host must run as many ranks
     as it has visible cards. NCCL is the backend on the card, gloo on the
     CPU;
-  * the flags of paths not ported yet (`--model_parallel` other than 1,
-    `--pp`) raise NotImplementedError, naming their ROADMAP.md item, when
-    set (`reject_unported`).
+  * `--model_parallel N` and `--pp S` lay the world out as a (data, model,
+    pipe) grid of ranks (`parallel/mesh.py::make_mesh`); `--pp` > 1 implies
+    the stacked-layers layout and needs `--multiGPU`, as in JAX.
 As in the JAX CLI, `--optim`, `--fast` and `--numWorkers` reach the config
 and nothing reads them (the reference scripts pass `--optim bert`, the only
 optimizer there is).
@@ -45,7 +45,8 @@ from xggm_tpu_torch.config import (
 from xggm_tpu_torch.parallel.distributed import (
     host_barrier, host_ranks, init_distributed, init_from_env,
     shutdown_distributed, torchrun_environment)
-from xggm_tpu_torch.parallel.mesh import ITEM_7, Mesh, make_mesh
+from xggm_tpu_torch.parallel.mesh import Mesh, make_mesh
+from xggm_tpu_torch.parallel.pipeline_lxmert import clear_pipeline_mesh
 from xggm_tpu_torch.utils.preempt import PREEMPTED_EXIT_CODE, Preempted
 
 
@@ -118,10 +119,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--model_parallel", default=1, type=int,
-                   help=f"1; tensor parallelism is not ported: {ITEM_7}")
+                   help="ranks of each tensor-parallel model group (the "
+                        "wide Dense layers split over them)")
     p.add_argument("--pp", dest="pp_stages", default=0, type=int,
-                   help=f"not ported: {ITEM_7}")
-    p.add_argument("--pp_microbatches", default=4, type=int)
+                   help="pipeline stages: run the encoder's layer sequence "
+                        "as a GPipe pipeline over this many ranks (implies "
+                        "the stacked-layers layout; needs --multiGPU)")
+    p.add_argument("--pp_microbatches", default=4, type=int,
+                   help="microbatches per pipelined batch")
     # a dead flag of the reference scripts, accepted so that they parse
     p.add_argument("--eg", dest="edge_gnn", default=None)
     p.add_argument("--coordinator", default=None, type=str,
@@ -171,17 +176,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def reject_unported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported."""
-    unported = [
-        ("--pp", args.pp_stages > 0, ITEM_7),
-        ("--model_parallel", args.model_parallel != 1, ITEM_7),
-    ]
-    for flag, is_set, item in unported:
-        if is_set:
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
-
-
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -190,17 +184,27 @@ def _free_port() -> int:
 
 def make_mesh_if_requested(args: argparse.Namespace,
                            device: torch.device) -> Optional[Mesh]:
-    """The data group the flags ask for, this process joined to it, or None
-    (counterpart of the JAX CLI's `make_mesh_if_requested`):
+    """The (data, model, pipe) grid the flags ask for, this process joined
+    to it, or None (counterpart of the JAX CLI's `make_mesh_if_requested`):
     `--coordinator H:P --num_hosts N --host_id I` joins N ranks at H:P;
-    `--multiGPU` joins torchrun's world, or forms a world of one. A rank on
-    the card drives the card of its index among its host's ranks
+    `--multiGPU` joins torchrun's world, or forms a world of one;
+    `--model_parallel` and `--pp` set the grid's model and pipe groups. A
+    rank on the card drives the card of its index among its host's ranks
     (`host_ranks`), and a host must run one rank per visible card: a host
     with more cards than ranks would leave cards idle, one with fewer would
     put two ranks on a card, and either raises ValueError. So do
-    `--shard_opt_state` without a world, as in the JAX package, and an
-    incomplete multi-host triple."""
+    `--shard_opt_state` without a world, as in the JAX package, an
+    incomplete multi-host triple, and `--pp` > 1 without `--multiGPU` or
+    with `--coordinator` (JAX keeps pipeline stages on one host)."""
     hosts = (args.coordinator, args.num_hosts, args.host_id)
+    pp = args.pp_stages
+    if pp > 1:
+        if any(x is not None for x in hosts):
+            raise ValueError("--pp composes with --multiGPU single-host "
+                             "worlds; multi-host pipeline stages are not "
+                             "supported")
+        if not args.multiGPU:
+            raise ValueError("--pp requires --multiGPU (a device mesh)")
     if any(x is not None for x in hosts):
         if any(x is None for x in hosts):
             raise ValueError("--coordinator, --num_hosts and --host_id go "
@@ -231,7 +235,12 @@ def make_mesh_if_requested(args: argparse.Namespace,
                 f"limit CUDA_VISIBLE_DEVICES to the cards to use")
         device = torch.device("cuda", index)
         torch.cuda.set_device(device)
-    return make_mesh(args.model_parallel, device)
+    try:
+        return make_mesh(args.model_parallel, device,
+                         pipeline_parallel=max(1, pp))
+    except ValueError:  # the world does not divide into the grid
+        shutdown_distributed()
+        raise
 
 
 @contextlib.contextmanager
@@ -243,12 +252,12 @@ def mesh_if_requested(args: argparse.Namespace, device: torch.device):
         yield mesh
     finally:
         if mesh is not None:
+            clear_pipeline_mesh()
             shutdown_distributed()
 
 
 def to_config(args: argparse.Namespace, task: str) -> XGGMConfig:
-    """The XGGMConfig of parsed flags; raises for an unported flag."""
-    reject_unported(args)
+    """The XGGMConfig of parsed flags."""
     clean_first = task == "vqa"  # VQA-CP runs the clean phase first
     rel_d_mult = 8.0 if task == "vqa" else 12.0
     # --fp16 is the reference's mixed-precision switch; bf16 compute is the
@@ -265,6 +274,11 @@ def to_config(args: argparse.Namespace, task: str) -> XGGMConfig:
                                 r_layers=args.rlayers),
             dtype=args.dtype,
             remat=args.remat,
+            # --pp implies the stacked [L, ...] layout the pipeline's stages
+            # are cut from (checkpoints interchange with per-stage runs)
+            stacked_layers=args.pp_stages > 1,
+            pp_stages=args.pp_stages,
+            pp_microbatches=args.pp_microbatches,
         ),
         ggm=GGMConfig(gnn=args.gnn, num_layers=args.num_layer,
                       sigma=args.sigma, delta=args.delta),
@@ -300,16 +314,16 @@ def generate_synthetic_once(generate, data_root: str,
     and a completion mark, every rank waits at a barrier, and a rank that
     then sees no mark (a host with a filesystem of its own) writes its own
     seeded copy. Two ranks racing the same writes would corrupt them."""
-    if mesh is None or mesh.size == 1:
+    if mesh is None or mesh.world_size == 1:
         generate()
         return
     mark = os.path.join(data_root, ".synthetic_done")
-    if mesh.rank == 0:
+    if mesh.primary:
         generate()
         with open(mark, "w") as f:
             f.write("ok\n")
     host_barrier("synthetic_corpus")
-    if mesh.rank != 0 and not os.path.exists(mark):
+    if not mesh.primary and not os.path.exists(mark):
         generate()
 
 
@@ -317,7 +331,7 @@ def dump_args(args: argparse.Namespace, output: str,
               mesh: Optional[Mesh] = None) -> None:
     """The run's flags as {output}/args.json (rank 0 writes it)."""
     os.makedirs(output, exist_ok=True)
-    if mesh is not None and mesh.rank != 0:
+    if mesh is not None and not mesh.primary:
         return
     with open(os.path.join(output, "args.json"), "w") as f:
         json.dump(vars(args), f, indent=2, default=str)

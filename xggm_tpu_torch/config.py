@@ -63,9 +63,13 @@ class LxmertConfig:
     Parameters stay float32; matmul inputs are cast to `compute_dtype`;
     LayerNorm and softmax run in float32. `remat` recomputes each encoder
     layer's activations in the backward (`torch.utils.checkpoint`).
-    `stacked_layers` and `pp_stages` exist so that a JAX config carries over
-    field for field, but this port runs only the per-layer path and raises
-    if either is set.
+    `stacked_layers` keeps each layer group's parameters as [L, ...] leaves
+    (`lang_stack`, `r_stack`, `x_stack`; `models/lxmert.py::LayerStack`).
+    `pp_stages` > 1 runs the lang -> visn -> x layer sequence as a GPipe
+    pipeline over that many ranks of the mesh's pipe group, in
+    `pp_microbatches` microbatches (`parallel/pipeline_lxmert.py`); it
+    requires `stacked_layers` and a pipeline mesh (`set_pipeline_mesh`, which
+    the trainers set).
     """
 
     bert: BertConfig = field(default_factory=BertConfig)
@@ -74,6 +78,8 @@ class LxmertConfig:
     stacked_layers: bool = False
     remat: bool = False
     pp_stages: int = 0
+    # microbatches per pipelined batch; the bubble is (S - 1) / (M + S - 1)
+    pp_microbatches: int = 4
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -144,8 +150,7 @@ class DataConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The parallel layout: the batch split over the data group, and the
-    size of a tensor-parallel model axis (1: data parallelism only, the one
-    the port runs)."""
+    size of the tensor-parallel model group (1: data parallelism only)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

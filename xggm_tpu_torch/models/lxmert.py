@@ -27,6 +27,18 @@ and kernel seeds again, and `checkpoint` restores only the global RNGs, not
 a `DropoutRng`'s explicit generators: `_remat` saves their state at the
 layer's start and puts it back before the recompute (the attention kernels
 redraw their masks from the same seeds).
+
+With `LxmertConfig.stacked_layers` the encoder holds three `LayerStack`s,
+`lang_stack`, `r_stack` and `x_stack`, each a `layer` of BertLayer or
+XLayer shape whose every parameter has a leading [L] dim, the JAX package's
+`nn.scan` layout: layer i runs the template on the i-th slice of each
+(`torch.func.functional_call`), and its output is that of the per-layer
+encoder with the same weights. Indexing a stacked parameter per layer
+accumulates the L slice-gradients into one [L, ...] gradient. With
+`pp_stages` > 1 too, the stacks run as a GPipe pipeline over the pipe group
+(`parallel/pipeline_lxmert.py`): the embeddings and `visn_fc` run on stage 0
+alone, and every stage but the last raises `NotLastStage` once its share of
+the forward has run.
 """
 from __future__ import annotations
 
@@ -40,7 +52,8 @@ from xggm_tpu_torch.config import BertConfig, LxmertConfig
 from xggm_tpu_torch.ops.attention import mha, mha_dropout
 from xggm_tpu_torch.ops.basic import (
     Dense, DropoutRng, Embedding, LayerNorm, gelu, maybe_dropout)
-from xggm_tpu_torch.parallel.mesh import ITEM_7
+from xggm_tpu_torch.parallel.pipeline_lxmert import (
+    pipeline_mesh, pipelined_lxr_stack)
 from xggm_tpu_torch.utils.device import resolve_device
 
 NEG_INF_MASK = -10000.0
@@ -279,19 +292,54 @@ def _remat(layer: Callable, rng: Optional[DropoutRng], *args):
                       preserve_rng_state=False)
 
 
+class LayerStack(nn.Module):
+    """`length` layers of one shape with stacked parameters: `layer` is a
+    template whose every parameter has a leading [length] dim (the JAX
+    package's `nn.scan` layout); layer i is the template run on the i-th
+    slice of each."""
+
+    def __init__(self, template: nn.Module, length: int, *, device=None):
+        super().__init__()
+        self.length = length
+        for mod in template.modules():
+            for name, p in list(mod.named_parameters(recurse=False)):
+                setattr(mod, name, nn.Parameter(
+                    torch.empty((length, *p.shape), device=device)))
+        self.layer = template
+
+    def layer_fn(self, i: int) -> Callable:
+        """Layer i as a function of the template's forward arguments."""
+        def run(*args):
+            params = {n: p[i] for n, p in self.layer.named_parameters()}
+            return torch.func.functional_call(self.layer, params, args)
+        return run
+
+
 class LxmertEncoder(nn.Module):
     """Visual embedding -> language layers -> relational (visual) layers ->
-    cross-modality layers; each layer rematerialised with `cfg.remat`."""
+    cross-modality layers; each layer rematerialised with `cfg.remat`,
+    stacked with `cfg.stacked_layers`, pipelined with `cfg.pp_stages`."""
 
     def __init__(self, cfg: LxmertConfig, *, device=None):
         super().__init__()
-        if cfg.stacked_layers or cfg.pp_stages > 1:
-            raise NotImplementedError(
-                "stacked_layers and pp_stages are not ported yet; the port "
-                f"runs the per-layer encoder: {ITEM_7}")
+        if cfg.pp_stages > 1 and not cfg.stacked_layers:
+            raise ValueError("pp_stages > 1 requires stacked_layers=True "
+                             "(the [L, ...] layout the pipeline's stages "
+                             "are cut from)")
         self.remat = cfg.remat
+        self.pp_stages = cfg.pp_stages
         c, v, dt = cfg.bert, cfg.visual, cfg.compute_dtype
+        self.hidden_size, self.dtype = c.hidden_size, dt
         self.visn_fc = VisualFeatEncoder(cfg, device=device)
+        self.stacked = cfg.stacked_layers
+        if self.stacked:
+            self.lang_stack = LayerStack(BertLayer(c, dt, device="meta"),
+                                         v.l_layers, device=device)
+            self.r_stack = LayerStack(BertLayer(c, dt, device="meta"),
+                                      v.r_layers, device=device)
+            self.x_stack = LayerStack(XLayer(c, dt, device="meta"),
+                                      v.x_layers, device=device)
+            return
         self.layer = nn.ModuleList(
             BertLayer(c, dt, device=device) for _ in range(v.l_layers))
         self.r_layers = nn.ModuleList(
@@ -299,11 +347,38 @@ class LxmertEncoder(nn.Module):
         self.x_layers = nn.ModuleList(
             XLayer(c, dt, device=device) for _ in range(v.x_layers))
 
-    def forward(self, lang: torch.Tensor, lang_bias: Optional[torch.Tensor],
+    def runs_inputs(self) -> bool:
+        """Whether this rank embeds the inputs: always, but under
+        `pp_stages` > 1 on pipeline stage 0 alone."""
+        if self.pp_stages <= 1:
+            return True
+        mesh = pipeline_mesh()
+        return mesh is None or mesh.pipe_rank == 0
+
+    def _layers(self):
+        """(language, relational, cross) layers as functions of the
+        layers' forward arguments."""
+        if self.stacked:
+            return tuple([s.layer_fn(i) for i in range(s.length)]
+                         for s in (self.lang_stack, self.r_stack,
+                                   self.x_stack))
+        return self.layer, self.r_layers, self.x_layers
+
+    def forward(self, lang: Optional[torch.Tensor],
+                lang_bias: Optional[torch.Tensor],
                 feats: torch.Tensor, boxes: torch.Tensor,
                 visn_bias: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(lang, visn) outputs. Under `pp_stages` > 1 `lang` is None on
+        every stage but the first, and every stage but the last raises
+        `NotLastStage`."""
+        if self.pp_stages > 1:
+            first = self.runs_inputs()
+            visn = self.visn_fc(feats, boxes, rng) if first else None
+            return pipelined_lxr_stack(self, lang, visn, lang_bias,
+                                       visn_bias, rng,
+                                       visn_len=feats.shape[1])
         visn = self.visn_fc(feats, boxes, rng)
 
         def run(layer, *args):
@@ -311,11 +386,12 @@ class LxmertEncoder(nn.Module):
                 return _remat(layer, rng, *args)
             return layer(*args, rng)
 
-        for layer in self.layer:
+        lang_layers, r_layers, x_layers = self._layers()
+        for layer in lang_layers:
             lang = run(layer, lang, lang_bias)
-        for layer in self.r_layers:
+        for layer in r_layers:
             visn = run(layer, visn, visn_bias)
-        for layer in self.x_layers:
+        for layer in x_layers:
             lang, visn = run(layer, lang, lang_bias, visn, visn_bias)
         return lang, visn
 
@@ -345,7 +421,8 @@ class LxmertModel(nn.Module):
             input_mask = torch.ones_like(input_ids)
         lang_bias = additive_mask(input_mask)
         visn_bias = None if visn_mask is None else additive_mask(visn_mask)
-        emb = self.embeddings(input_ids, token_type_ids, rng)
+        emb = (self.embeddings(input_ids, token_type_ids, rng)
+               if self.encoder.runs_inputs() else None)
         lang, visn = self.encoder(emb, lang_bias, feats, boxes, visn_bias,
                                   rng)
         return (lang, visn), self.pooler(lang)

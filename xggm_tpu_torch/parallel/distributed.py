@@ -160,11 +160,11 @@ def process_slice(rows, process_index: int, process_count: int):
 
 
 def to_host(x: torch.Tensor, mesh=None) -> np.ndarray:
-    """`x`, each rank's rows of one result, as the whole result on every
-    rank: the ranks' rows in rank order (an all-gather), as numpy. With no
-    mesh, or a mesh of one rank, `x` itself."""
+    """`x`, each data rank's rows of one result, as the whole result on
+    every rank: the data group's rows in rank order (an all-gather), as
+    numpy. With no mesh, or a data group of one rank, `x` itself."""
     if mesh is None or mesh.size == 1:
         return x.detach().cpu().numpy()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.detach().contiguous())
+    dist.all_gather(parts, x.detach().contiguous(), group=mesh.data_group)
     return torch.cat(parts).cpu().numpy()

@@ -28,6 +28,13 @@ Under ZeRO-1 (`parallel/mesh.py::maybe_zero_shard_state`) a state's m and v
 hold this rank's shard of each parameter that `shards` names; `step` and
 `fused_step` then update that shard of the parameter only, from the whole
 gradient, and the caller gathers the parameters (`training/steps.py`).
+
+Under tensor parallelism (`parallel/tensor.py`) the parameters that `split`
+names hold this rank's slice, and so do their gradients, m and v. Given the
+mesh, the global norm then sums those leaves' squares over the model group
+(each replicated leaf counted once), and a split leaf's "any nonzero" flag
+is OR-ed over the model group, so that the clip, the flags and the
+per-leaf counters are those of the whole leaf on every rank.
 """
 from __future__ import annotations
 
@@ -37,8 +44,10 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Set, \
     Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from xggm_tpu_torch.ops.fused_adam import fused_adam
+from xggm_tpu_torch.parallel.tensor import model_all_reduce
 
 
 def _w(x: torch.Tensor, warmup: float) -> torch.Tensor:
@@ -73,8 +82,10 @@ class BertAdamState:
     """Moments per parameter; per-parameter lr scales, counters and
     activation flags as vectors in `names` order; the global update count;
     the names that have had a gradient (the others are certainly inactive
-    and are skipped); and, under ZeRO-1, {name: (dim, start, length)} of the
-    slice of each sharded parameter that this rank's m and v hold."""
+    and are skipped); under ZeRO-1, {name: (dim, start, length)} of the
+    slice of each sharded parameter that this rank's m and v hold; and
+    under tensor parallelism, {name: dim} of the parameters whose slice
+    this rank holds (its m and v too)."""
 
     names: list
     m: Dict[str, torch.Tensor]
@@ -85,6 +96,7 @@ class BertAdamState:
     count: int = 0
     touched: Set[str] = field(default_factory=set)
     shards: Optional[Dict[str, Tuple[int, int, int]]] = None
+    split: Optional[Dict[str, int]] = None
 
     def local(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole-parameter tensor `x` (all of it
@@ -99,12 +111,13 @@ class BertAdamState:
         return dict(zip(self.names, self.active.tolist()))
 
     def state_dict(self) -> Dict[str, object]:
-        """Every field but `shards`, as tensors, lists and numbers
-        (`touched` sorted); a sharded state is gathered first
-        (`parallel/mesh.py::gathered_opt_state`)."""
-        if self.shards:
-            raise ValueError("a ZeRO-sharded BertAdam state has no "
-                             "single-rank state dict: gather it first")
+        """Every field but `shards` and `split`, as tensors, lists and
+        numbers (`touched` sorted); a sharded state is gathered first
+        (`parallel/tensor.py::whole_opt_state`)."""
+        if self.shards or self.split:
+            raise ValueError("a ZeRO-sharded or tensor-parallel BertAdam "
+                             "state has no single-rank state dict: gather "
+                             "it first")
         return dict(names=list(self.names), m=dict(self.m), v=dict(self.v),
                     lr_scale=self.lr_scale, leaf_count=self.leaf_count,
                     active=self.active, count=self.count,
@@ -124,11 +137,22 @@ class BertAdamState:
                    touched=set(d["touched"]))
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """The L2 norm of all the gradients together (0 for none)."""
+def global_norm(grads: List[torch.Tensor],
+                split: Optional[List[bool]] = None, mesh=None
+                ) -> torch.Tensor:
+    """The L2 norm of all the gradients together (0 for none). Under
+    tensor parallelism (`split` flags the gradients that are this rank's
+    slice of their leaf, `mesh` gives the model group) their squares are
+    summed over the model group and the others counted once."""
     if not grads:
         return torch.zeros((), dtype=torch.float32)
-    return torch.stack(torch._foreach_norm(grads)).norm()
+    norms = torch.stack(torch._foreach_norm(grads))
+    if mesh is None or mesh.model_size == 1 or not split or not any(split):
+        return norms.norm()
+    sq = norms.float().square()
+    mask = torch.tensor(split, device=sq.device)
+    split_sq = model_all_reduce(sq[mask].sum(), mesh)
+    return (split_sq + sq[~mask].sum()).sqrt()
 
 
 class BertAdam:
@@ -174,12 +198,13 @@ class BertAdam:
                           device=cnt.device)
 
     def _activate(self, grads: Mapping[str, Optional[torch.Tensor]],
-                  state: BertAdamState) -> Tuple[List[str], List[str],
-                                                 Dict[str, int]]:
+                  state: BertAdamState, mesh=None
+                  ) -> Tuple[List[str], List[str], Dict[str, int]]:
         """Names with a gradient, names touched before with none (their
         gradient is zero), and the names' indices; marks the former touched
         and activates those whose gradient has a nonzero entry (its
-        inf-norm, which cannot underflow as the L2 norm can)."""
+        inf-norm, which cannot underflow as the L2 norm can; for a
+        tensor-parallel slice, on any rank of the model group)."""
         index = {n: i for i, n in enumerate(state.names)}
         with_grad = [n for n in state.names if grads.get(n) is not None]
         state.touched.update(with_grad)
@@ -190,6 +215,10 @@ class BertAdam:
                                device=state.active.device)
             nonzero = torch.stack(torch._foreach_norm(
                 [grads[n] for n in with_grad], float("inf"))) > 0
+            if state.split and mesh is not None and mesh.model_size > 1:
+                flags = nonzero.int()
+                model_all_reduce(flags, mesh, dist.ReduceOp.MAX)
+                nonzero = flags > 0
             state.active[idx] |= nonzero
         return with_grad, no_grad, index
 
@@ -205,11 +234,12 @@ class BertAdam:
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, Optional[torch.Tensor]],
-             state: BertAdamState) -> None:
+             state: BertAdamState, mesh=None) -> None:
         """One update of `params` in place from `grads` (None: zero), which
-        the caller has clipped; under ZeRO-1, of this rank's slices."""
+        the caller has clipped; under ZeRO-1, of this rank's slices. `mesh`
+        gives the model group of a tensor-parallel state."""
         b1, b2 = self.b1, self.b2
-        with_grad, no_grad, index = self._activate(grads, state)
+        with_grad, no_grad, index = self._activate(grads, state, mesh)
         live = with_grad + no_grad
 
         if with_grad:
@@ -243,16 +273,19 @@ class BertAdam:
     @torch.no_grad()
     def fused_step(self, params: Mapping[str, torch.Tensor],
                    grads: Mapping[str, Optional[torch.Tensor]],
-                   state: BertAdamState, clip: float) -> torch.Tensor:
+                   state: BertAdamState, clip: float,
+                   mesh=None) -> torch.Tensor:
         """Clip to a global norm of `clip`, update and apply in one
         traversal (the counterpart of `make_fused_bert_adam_step`): the
         gradients are not scaled in place; kernel 7 applies
         c = min(1, clip / (norm + 1e-6)) as it reads them. Parameters
         touched before with a gradient of None join with a zero gradient;
-        those never touched stay out. Returns the norm before clipping."""
-        with_grad, no_grad, index = self._activate(grads, state)
+        those never touched stay out. Returns the norm before clipping.
+        `mesh` gives the model group of a tensor-parallel state."""
+        with_grad, no_grad, index = self._activate(grads, state, mesh)
         live = with_grad + no_grad
-        norm = global_norm([grads[n] for n in with_grad])
+        norm = global_norm([grads[n] for n in with_grad],
+                           split_flags(with_grad, state), mesh)
         if live:
             norm = norm.to(state.active.device)
             scale = torch.clamp(clip / (norm + 1e-6), max=1.0)
@@ -278,6 +311,12 @@ class BertAdam:
         for p, w in zip(ps, work):
             if w is not p:
                 p.copy_(w)
+
+
+def split_flags(names: List[str], state: BertAdamState) -> List[bool]:
+    """Whether each of `names` is a tensor-parallel slice in `state`."""
+    split = state.split or {}
+    return [n in split for n in names]
 
 
 def lr_scale_tree(names: Iterable[str], predicate: Callable[[str], bool],

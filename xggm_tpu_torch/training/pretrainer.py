@@ -50,11 +50,13 @@ from xggm_tpu_torch.models.pretrain_model import LOSSES_NAME, PretrainModel
 from xggm_tpu_torch.ops.basic import DropoutRng, init_weights
 from xggm_tpu_torch.parallel.distributed import process_slice, to_host
 from xggm_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_sum, gathered_opt_state, maybe_zero_shard_state,
-    mean_scalars)
-from xggm_tpu_torch.training.bert_adam import BertAdam, BertAdamState
+    Mesh, all_reduce_sum, maybe_zero_shard_state, mean_scalars)
+from xggm_tpu_torch.parallel.pipeline import from_last_stage
+from xggm_tpu_torch.training.bert_adam import BertAdam
 from xggm_tpu_torch.training.steps import (
-    TrainState, _grads, apply_grads, fold_rank)
+    TrainState, _grads, apply_grads, fold_rank, on_last_stage,
+    restore_snapshot, whole_snapshot)
+from xggm_tpu_torch.training.trainer import split_wide_layers, use_pipeline
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
 from xggm_tpu_torch.utils.preempt import (
@@ -79,7 +81,8 @@ class LxmertPretrainer:
                  mesh: Optional[Mesh] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.mesh = mesh
-        self.primary = mesh is None or mesh.rank == 0
+        self.primary = mesh is None or mesh.primary
+        use_pipeline(cfg, mesh)
         self.device = resolve_device(mesh.device if mesh is not None
                                      else device)
         self.cfg = cfg
@@ -99,6 +102,7 @@ class LxmertPretrainer:
                           task_obj_predict=task_obj_predict, task_qa=task_qa,
                           visual_losses=visual_losses, device=self.device),
             torch.Generator(device=self.device).manual_seed(cfg.train.seed))
+        split_wide_layers(self.model, mesh)
 
         # the schedule ticks once per update, one per accum_steps batches
         self.accum = max(1, int(cfg.train.accum_steps))
@@ -155,37 +159,43 @@ class LxmertPretrainer:
         counts = all_reduce_sum(counts, mesh).float().clamp_min(1.0)
         return dict(zip(keys, (counts / mesh.size).unbind()))
 
-    def _losses(self, batch: Batch, seed: int):
-        return self.model.compute_losses(batch,
-                                         DropoutRng(seed, self.device),
-                                         self._denominators(batch))
+    def _losses(self, batch: Batch, seed: Optional[int]):
+        """(total, losses, answer logits), None on a pipeline stage but the
+        last; deterministic without a seed."""
+        rng = None if seed is None else DropoutRng(seed, self.device)
+        return on_last_stage(self.model.compute_losses, batch, rng,
+                             self._denominators(batch))
 
     def train_step(self, batch: Batch, seed: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               torch.Tensor]:
         """One batch and one update: (total, losses, predicted answers)."""
-        total, losses, ans_logits = self._losses(batch, seed)
-        apply_grads(self.opt, self.state, _grads(total, self.state), CLIP)
-        return self._global(total, losses, ans_logits)
+        out = self._losses(batch, seed)
+        apply_grads(self.opt, self.state,
+                    _grads(None if out is None else out[0], self.state),
+                    CLIP)
+        return self._global(out)
 
-    def _global(self, total: torch.Tensor, losses: Dict[str, torch.Tensor],
-                ans_logits: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
-                           torch.Tensor]:
-        """(total, losses) averaged over the group, and every rank's
-        predicted answers in rank order (numpy)."""
-        out = mean_scalars({"loss": total.detach(), **_detached(losses)},
-                           self.mesh)
-        preds = to_host(ans_logits.argmax(-1), self.mesh)
-        return out.pop("loss"), out, preds
+    def _global(self, out) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                    torch.Tensor]:
+        """(total, losses) averaged over the data group, and every rank's
+        predicted answers in rank order (numpy), from `_losses`'s result
+        (the last pipeline stage's)."""
+        if out is not None:
+            total, losses, ans_logits = out
+            out = ({"loss": total.detach(), **_detached(losses)},
+                   ans_logits.detach().argmax(-1))
+        scalars, preds = from_last_stage(out, self.mesh)
+        scalars = mean_scalars(scalars, self.mesh)
+        return scalars.pop("loss"), scalars, to_host(preds, self.mesh)
 
     def grad_step(self, batch: Batch, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              torch.Tensor]:
         """One microbatch: its float32 gradients added to the accumulator,
         no update."""
-        total, losses, ans_logits = self._losses(batch, seed)
-        grads = _grads(total, self.state)
+        out = self._losses(batch, seed)
+        grads = _grads(None if out is None else out[0], self.state)
         if self._acc is None:
             self._acc = {n: None if g is None else g.float().clone()
                          for n, g in grads.items()}
@@ -193,7 +203,7 @@ class LxmertPretrainer:
             for n, g in grads.items():
                 if g is not None:
                     self._acc[n].add_(g.float())
-        return self._global(total, losses, ans_logits)
+        return self._global(out)
 
     def apply_step(self) -> None:
         """The update from the mean of the accumulated gradients."""
@@ -325,8 +335,7 @@ class LxmertPretrainer:
         for batch, uids in self._batches(self.valid_feat, bs, False,
                                          np.random.RandomState(0)):
             batch = self.put(batch)
-            loss, _, preds = self._global(*self.model.compute_losses(
-                batch, denominators=self._denominators(batch)))
+            loss, _, preds = self._global(self._losses(batch, None))
             total += float(loss)
             if self.valid_evaluator is not None:
                 for uid, p in zip(uids, preds.tolist()):
@@ -344,28 +353,15 @@ class LxmertPretrainer:
 
     # ------------------------------------------------------------------
 
-    def _opt_state_dict(self) -> Dict[str, object]:
-        """The BertAdam state in the single-rank format (every rank calls
-        this: a ZeRO-1 state is all-gathered)."""
-        return gathered_opt_state(self.state.opt_state,
-                                  self.mesh).state_dict()
-
     def save(self, name: str) -> None:
-        self.ckpt.save(name, {"model": self.model.state_dict(),
-                              "opt_state": self._opt_state_dict()})
+        model, opt_state = whole_snapshot(self.model, self.state)
+        self.ckpt.save(name, {"model": model, "opt_state": opt_state})
 
     def _restore(self, restored: Dict[str, object], name: str) -> None:
         """The model and BertAdam state of a checkpoint of this format,
-        re-sharded under `shard_opt_state`."""
-        self.model.load_state_dict(restored["model"])
-        opt_state = BertAdamState.from_state_dict(restored["opt_state"],
-                                                  self.device)
-        if opt_state.names != self.state.opt_state.names:
-            raise ValueError(f"{name}: the optimizer state's parameters are "
-                             "not this model's")
-        self.state.opt_state = opt_state
-        self.state, _ = maybe_zero_shard_state(
-            self.state, self.mesh, self.cfg.train.shard_opt_state)
+        re-sliced for this rank's tensor-parallel and ZeRO-1 layout."""
+        restore_snapshot(self.model, self.state, restored,
+                         self.cfg.train.shard_opt_state, name)
 
     def load(self, name_or_path: str) -> None:
         """--load: the parameters and BertAdam state of a checkpoint by name
@@ -381,9 +377,9 @@ class LxmertPretrainer:
         and microbatch counts (the latter gives the dropout seeds), the best
         validation loss, the epoch's shuffle RandomState as of its start and
         the featurizer's as of now."""
+        model, opt_state = whole_snapshot(self.model, self.state)
         self.ckpt.save("PREEMPT", {
-            "model": self.model.state_dict(),
-            "opt_state": self._opt_state_dict(),
+            "model": model, "opt_state": opt_state,
             "epoch": epoch, "batches_done": batches_done,
             "opt_steps": opt_steps, "train_iter": train_iter,
             "best_eval_loss": best_eval_loss,

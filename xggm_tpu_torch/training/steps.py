@@ -10,13 +10,22 @@ GQA runs GGM then clean; VQA-CP (`clean_phase_first`) clean then GGM. With
 
 Under data parallelism (a `TrainState.mesh` of more than one rank) each rank
 runs the steps on its rows of the global batch: `apply_grads` averages the
-gradients over the group before the clip, so every rank computes the same
-norm and the same update, and the step's scalar metrics are averaged over
-the group (the global batch's losses). A ZeRO-1 state updates this rank's
-slice of each sharded parameter and gathers the rest
-(`parallel/mesh.py`). The rank is folded into the step's dropout and noise
-seeds, so ranks draw different masks for their rows (rank 0 draws those of
-a single-process run).
+gradients over the data group before the clip, so every rank computes the
+same norm and the same update, and the step's scalar metrics are averaged
+over the group (the global batch's losses). A ZeRO-1 state updates this
+rank's slice of each sharded parameter and gathers the rest
+(`parallel/mesh.py`). The data rank is folded into the step's dropout and
+noise seeds, so data ranks draw different masks for their rows (data rank
+0 draws those of a single-process run), while the ranks of one data slice
+(its model and pipe ranks) draw alike.
+
+Under tensor parallelism the split leaves hold this rank's slice; the
+optimizer sums their norm over the model group (`bert_adam.py`). Under
+pipeline parallelism (`pp_stages` > 1) a loss exists on the last pipe stage
+alone: the forward raises `NotLastStage` on the others (`on_last_stage`
+turns that into None), `_grads` drives the pipeline's backward and sums the
+gradients over the pipe group, so every pipe rank applies the same whole
+gradient, and the metrics come from the last stage (`from_last_stage`).
 
 The model's float32 parameters are the masters; the forward casts them to
 the compute dtype at use (bf16 on the card), which takes the place of the
@@ -27,8 +36,9 @@ optionally noise_override (the GGM noise to replay).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -38,9 +48,15 @@ from xggm_tpu_torch.ops.basic import DropoutRng
 from xggm_tpu_torch.ops.losses import (
     bce_with_logits, score_matching_loss, symmetric_kl)
 from xggm_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_mean_, gather_params_, mean_scalars)
+    Mesh, all_reduce_mean_, gather_params_, gathered_opt_state,
+    maybe_zero_shard_state, mean_scalars)
+from xggm_tpu_torch.parallel.pipeline import (
+    NotLastStage, from_last_stage, pipeline_grads, sum_over_pipe)
+from xggm_tpu_torch.parallel.pipeline_lxmert import pipeline_mesh
+from xggm_tpu_torch.parallel.tensor import (
+    gather_split, local_state_dict, tp_split)
 from xggm_tpu_torch.training.bert_adam import (
-    BertAdam, BertAdamState, global_norm)
+    BertAdam, BertAdamState, global_norm, split_flags)
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -50,8 +66,8 @@ Grads = Dict[str, Optional[torch.Tensor]]
 @dataclass
 class TrainState:
     """The model's float32 parameters (the masters, updated in place) by
-    name, the BertAdam state, and the data group the steps run in (None:
-    this process alone)."""
+    name, the BertAdam state (with the model's tensor-parallel split), and
+    the mesh the steps run in (None: this process alone)."""
 
     params: Dict[str, torch.nn.Parameter]
     opt_state: BertAdamState
@@ -61,7 +77,49 @@ class TrainState:
     def create(cls, model: torch.nn.Module, opt: BertAdam,
                mesh: Optional[Mesh] = None) -> "TrainState":
         params = dict(model.named_parameters())
-        return cls(params, opt.init(params), mesh)
+        opt_state = opt.init(params)
+        opt_state.split = tp_split(model) or None
+        return cls(params, opt_state, mesh)
+
+
+def whole_snapshot(model: torch.nn.Module, state: TrainState
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
+    """The model's state dict and the BertAdam state dict in the
+    single-rank format: a ZeRO-1 state's slices gathered over the data
+    group, then the tensor-parallel slices over the model group. Every rank
+    calls it."""
+    mesh = state.mesh
+    opt = gathered_opt_state(state.opt_state, mesh)
+    if opt.split:
+        opt = dataclasses.replace(opt, m=gather_split(opt.m, opt.split, mesh),
+                                  v=gather_split(opt.v, opt.split, mesh),
+                                  split=None)
+    return (gather_split(model.state_dict(), tp_split(model), mesh),
+            opt.state_dict())
+
+
+def restore_snapshot(model: torch.nn.Module, state: TrainState,
+                     restored: Mapping[str, object], shard_opt_state: bool,
+                     name: str) -> None:
+    """Load a single-rank checkpoint's model and BertAdam state into
+    `model` and `state`, re-sliced for this rank: the tensor-parallel
+    slices of the split leaves, then the ZeRO-1 layout under
+    `shard_opt_state`."""
+    model.load_state_dict(local_state_dict(model, restored["model"]))
+    device = next(iter(state.params.values())).device
+    opt = BertAdamState.from_state_dict(restored["opt_state"], device)
+    if opt.names != state.opt_state.names:
+        raise ValueError(f"{name}: the optimizer state's parameters are "
+                         "not this model's")
+    split = tp_split(model)
+    if split:
+        def local(moments):
+            return {n: x.clone() if n in split else x for n, x in
+                    local_state_dict(model, moments).items()}
+        opt = dataclasses.replace(opt, m=local(opt.m), v=local(opt.v),
+                                  split=split)
+    state.opt_state = opt
+    maybe_zero_shard_state(state, state.mesh, shard_opt_state)
 
 
 def _batch_args(batch: Batch) -> Tuple[torch.Tensor, ...]:
@@ -69,24 +127,42 @@ def _batch_args(batch: Batch) -> Tuple[torch.Tensor, ...]:
             batch["feats"], batch["boxes"])
 
 
-def _grads(loss: torch.Tensor, state: TrainState) -> Grads:
-    """d loss / d params; None for a parameter outside the graph."""
+def on_last_stage(fn: Callable, *args):
+    """`fn(*args)`, or None on a pipeline stage that is not the last (where
+    the forward raises `NotLastStage`)."""
+    try:
+        return fn(*args)
+    except NotLastStage:
+        return None
+
+
+def _grads(loss: Optional[torch.Tensor], state: TrainState) -> Grads:
+    """d loss / d params; None for a parameter outside the graph. Under
+    pipeline parallelism `loss` is None on every stage but the last; the
+    pipeline's backward runs, and the gradients are summed over the pipe
+    group, None where no stage touched a parameter."""
     names = list(state.params)
-    grads = torch.autograd.grad(loss, [state.params[n] for n in names],
-                                allow_unused=True)
+    params = [state.params[n] for n in names]
+    grads = sum_over_pipe(pipeline_grads(loss, params), params, state.mesh)
     return dict(zip(names, grads))
 
 
-def clip_by_global_norm(grads: Grads, clip: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Grads, clip: float,
+                        state: Optional[BertAdamState] = None,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Scale the gradients in place to a global norm of at most `clip`
-    (scale min(1, clip / (norm + 1e-6))); returns the norm before."""
-    gs = [g for g in grads.values() if g is not None]
-    norm = global_norm(gs)
+    (scale min(1, clip / (norm + 1e-6))); returns the norm before. A
+    tensor-parallel `state` and its `mesh` sum the split leaves' norm over
+    the model group."""
+    names = [n for n, g in grads.items() if g is not None]
+    gs = [grads[n] for n in names]
+    norm = global_norm(gs, None if state is None
+                       else split_flags(names, state), mesh)
     torch._foreach_mul_(gs, torch.clamp(clip / (norm + 1e-6), max=1.0))
     return norm
 
 
-def _update(opt: BertAdam, state: TrainState, loss: torch.Tensor,
+def _update(opt: BertAdam, state: TrainState, loss: Optional[torch.Tensor],
             clip: float) -> None:
     """Clip, update and apply: through `fused_step` (kernel 7) for a fused
     BertAdam, as the JAX package's `_clip_update_apply` takes a transform's
@@ -105,16 +181,25 @@ def apply_grads(opt: BertAdam, state: TrainState, grads: Grads,
     if mesh is not None and mesh.size > 1:
         all_reduce_mean_([g for g in grads.values() if g is not None], mesh)
     if opt.fused:
-        opt.fused_step(state.params, grads, state.opt_state, clip)
+        opt.fused_step(state.params, grads, state.opt_state, clip, mesh)
     else:
-        clip_by_global_norm(grads, clip)
-        opt.step(state.params, grads, state.opt_state)
+        clip_by_global_norm(grads, clip, state.opt_state, mesh)
+        opt.step(state.params, grads, state.opt_state, mesh)
     gather_params_(state.params, state.opt_state, mesh)
 
 
 def fold_rank(seed: int, mesh: Optional[Mesh]) -> int:
-    """`seed` for this rank's draws: rank 0's is `seed` itself."""
+    """`seed` for this rank's draws: that of its data rank (`Mesh.rank`),
+    so that the model and pipe ranks of one data slice draw alike; data
+    rank 0's is `seed` itself."""
     return seed + ((mesh.rank if mesh is not None else 0) << 48)
+
+
+def _merged(*metrics: Optional[Metrics]) -> Optional[Metrics]:
+    """The phases' metrics in one dict; None on a stage without them."""
+    if any(m is None for m in metrics):
+        return None
+    return {k: v for m in metrics for k, v in m.items()}
 
 
 def phase_seeds(seed: int, mesh: Optional[Mesh] = None
@@ -172,10 +257,12 @@ def make_ggm_phase(model: XGGMModel, opt: BertAdam, cfg: TrainConfig,
     ggm_loss = make_ggm_loss(model, cfg, branch)
 
     def phase(state: TrainState, batch: Batch, dropout_seed: int,
-              noise_seed: int) -> Metrics:
-        loss, metrics = ggm_loss(batch, dropout_seed, noise_seed)
+              noise_seed: int) -> Optional[Metrics]:
+        out = on_last_stage(ggm_loss, batch, dropout_seed, noise_seed)
+        loss, metrics = out if out is not None else (None, None)
         _update(opt, state, loss, cfg.grad_clip)
-        return {k: v.detach() for k, v in metrics.items()}
+        return None if metrics is None else {k: v.detach()
+                                             for k, v in metrics.items()}
 
     return phase
 
@@ -199,12 +286,17 @@ def make_clean_loss(model, num_answers: int) -> Callable:
 def make_clean_phase(model, opt: BertAdam, cfg: TrainConfig,
                      num_answers: int) -> Callable:
     """The plain BCE phase of an XGGMModel or PlainModel:
-    phase(state, batch, dropout_seed) -> metrics, one update."""
+    phase(state, batch, dropout_seed) -> metrics (None on a pipeline stage
+    but the last), one update."""
     clean_loss = make_clean_loss(model, num_answers)
 
-    def phase(state: TrainState, batch: Batch, dropout_seed: int) -> Metrics:
-        loss, logits = clean_loss(batch, dropout_seed)
+    def phase(state: TrainState, batch: Batch,
+              dropout_seed: int) -> Optional[Metrics]:
+        out = on_last_stage(clean_loss, batch, dropout_seed)
+        loss, logits = out if out is not None else (None, None)
         _update(opt, state, loss, cfg.grad_clip)
+        if loss is None:
+            return None
         return {"clean_loss": loss.detach(),
                 "preds": logits.detach().argmax(dim=-1)}
 
@@ -228,7 +320,8 @@ def make_ggm_train_step(model: XGGMModel, opt: BertAdam, cfg: TrainConfig,
         else:
             m1 = ggm_phase(state, batch, ggm_dropout, ggm_noise)
             m2 = clean_phase(state, batch, clean_dropout)
-        return state, mean_scalars({**m1, **m2}, state.mesh)
+        metrics = from_last_stage(_merged(m1, m2), state.mesh)
+        return state, mean_scalars(metrics, state.mesh)
 
     return step
 
@@ -241,18 +334,19 @@ def make_clean_train_step(model, opt: BertAdam, cfg: TrainConfig,
 
     def step(state: TrainState, batch: Batch,
              seed: int) -> Tuple[TrainState, Metrics]:
-        return state, mean_scalars(
-            clean_phase(state, batch, fold_rank(seed, state.mesh)),
-            state.mesh)
+        metrics = clean_phase(state, batch, fold_rank(seed, state.mesh))
+        return state, mean_scalars(from_last_stage(metrics, state.mesh),
+                                   state.mesh)
 
     return step
 
 
 def _logits(model, batch: Batch) -> torch.Tensor:
+    """The logits, on every stage of a pipeline (from its last)."""
     args = _batch_args(batch)
-    if isinstance(model, XGGMModel):
-        return model.clean_forward(*args)
-    return model(*args)
+    forward = (model.clean_forward if isinstance(model, XGGMModel)
+               else model)
+    return from_last_stage(on_last_stage(forward, *args), pipeline_mesh())
 
 
 def make_logits_step(model) -> Callable[[Batch], torch.Tensor]:

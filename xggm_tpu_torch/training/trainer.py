@@ -15,12 +15,16 @@ The dropout and noise of a step come from a seed made of `cfg.train.seed`
 and the step's index, so they differ from the JAX package's draws.
 
 With a `mesh` (`parallel/mesh.py`) every rank runs this trainer on its own
-card: the feeder hands each rank its slice of every global batch of
-`batch_size`, the steps average the gradients over the group (ZeRO-1 with
-`cfg.train.shard_opt_state`), the branch draw is the same on every rank,
-predictions are gathered to every rank in order, and rank 0 alone writes
-the run's files (checkpoints gathered to the single-rank format, `log.log`,
-`metrics.jsonl`, predictions).
+card: the feeder hands each data rank its slice of every global batch of
+`batch_size`, the steps average the gradients over the data group (ZeRO-1
+with `cfg.train.shard_opt_state`), the branch draw is the same on every
+rank, predictions are gathered to every rank in order, and global rank 0
+alone writes the run's files (checkpoints gathered to the single-rank
+format, `log.log`, `metrics.jsonl`, predictions). A model group of more
+than one rank splits the wide Dense layers (`param_shardings`,
+`parallel/tensor.py::shard_model_`); with `pp_stages` > 1 the trainer sets
+the pipeline mesh (`parallel/pipeline_lxmert.py`), and the predictions come
+from the last stage.
 
 `train` saves a `PREEMPT` checkpoint at the first step boundary after a
 SIGTERM (on any rank) and raises `Preempted`; `resume` continues from it, or
@@ -52,16 +56,39 @@ from xggm_tpu_torch.models.task_model import XGGMModel
 from xggm_tpu_torch.ops.basic import init_weights
 from xggm_tpu_torch.parallel.distributed import to_host
 from xggm_tpu_torch.parallel.mesh import (
-    Mesh, gathered_opt_state, maybe_zero_shard_state)
-from xggm_tpu_torch.training.bert_adam import (
-    BertAdam, BertAdamState, lr_scale_tree)
+    Mesh, maybe_zero_shard_state, param_shardings)
+from xggm_tpu_torch.parallel.pipeline_lxmert import set_pipeline_mesh
+from xggm_tpu_torch.parallel.tensor import shard_model_
+from xggm_tpu_torch.training.bert_adam import BertAdam, lr_scale_tree
 from xggm_tpu_torch.training.metrics import MetricsLogger
 from xggm_tpu_torch.training.steps import (
-    TrainState, make_clean_train_step, make_eval_step, make_ggm_train_step)
+    TrainState, make_clean_train_step, make_eval_step, make_ggm_train_step,
+    restore_snapshot, whole_snapshot)
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
 from xggm_tpu_torch.utils.preempt import (
     Preempted, PreemptionGuard, pack_rng_state, unpack_rng_state)
+
+
+def use_pipeline(cfg: XGGMConfig, mesh: Optional[Mesh]) -> None:
+    """With `pp_stages` > 1, pipeline the encoder over `mesh`'s pipe group
+    (before any step runs); ValueError without a pipe group of that
+    size."""
+    pp = cfg.lxmert.pp_stages
+    if pp <= 1:
+        return
+    if mesh is None or mesh.pipe_size != pp:
+        raise ValueError(f"pp_stages={pp} requires a mesh whose pipe group "
+                         f"has {pp} ranks (make_mesh(pipeline_parallel="
+                         f"{pp}))")
+    set_pipeline_mesh(mesh, cfg.lxmert.pp_microbatches)
+
+
+def split_wide_layers(model: torch.nn.Module, mesh: Optional[Mesh]) -> None:
+    """With a model group of more than one rank: this rank's slice of each
+    wide Dense layer (`param_shardings`, `shard_model_`)."""
+    if mesh is not None and mesh.model_size > 1:
+        shard_model_(model, mesh, param_shardings(model, mesh))
 
 
 def host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -86,7 +113,8 @@ class XGGMTrainer:
         if task not in ("gqa", "vqa"):
             raise ValueError(f"unknown task {task!r}")
         self.mesh = mesh
-        self.primary = mesh is None or mesh.rank == 0
+        self.primary = mesh is None or mesh.primary
+        use_pipeline(cfg, mesh)
         self.device = resolve_device(mesh.device if mesh is not None
                                      else device)
         self.use_xpack = use_xpack
@@ -134,6 +162,7 @@ class XGGMTrainer:
         self.model = init_weights(
             XGGMModel(cfg.lxmert, num_answers, cfg.ggm, device=self.device),
             torch.Generator(device=self.device).manual_seed(cfg.train.seed))
+        split_wide_layers(self.model, mesh)
 
         # downstream parameters at mult x lr, the encoder at lr;
         # t_total = t_total_mult x batches x epochs
@@ -209,22 +238,9 @@ class XGGMTrainer:
 
     def _restore(self, restored: Dict[str, object], name: str) -> None:
         """The model and BertAdam state of a checkpoint of this format,
-        re-sharded under `shard_opt_state`."""
-        self.model.load_state_dict(restored["model"])
-        opt_state = BertAdamState.from_state_dict(restored["opt_state"],
-                                                  self.device)
-        if opt_state.names != self.state.opt_state.names:
-            raise ValueError(f"{name}: the optimizer state's parameters are "
-                             "not this model's")
-        self.state.opt_state = opt_state
-        self.state, _ = maybe_zero_shard_state(
-            self.state, self.mesh, self.cfg.train.shard_opt_state)
-
-    def _opt_state_dict(self) -> Dict[str, object]:
-        """The BertAdam state in the single-rank format (every rank calls
-        this: a ZeRO-1 state is all-gathered)."""
-        return gathered_opt_state(self.state.opt_state,
-                                  self.mesh).state_dict()
+        re-sliced for this rank's tensor-parallel and ZeRO-1 layout."""
+        restore_snapshot(self.model, self.state, restored,
+                         self.cfg.train.shard_opt_state, name)
 
     def load_lxmert(self, path: str) -> None:
         """--loadLXMERT: the encoder of a torch LXMERT snapshot
@@ -264,8 +280,8 @@ class XGGMTrainer:
         self._restore(self.ckpt.load(name), name_or_path)
 
     def save(self, name: str, epoch: int = -1) -> None:
-        self.ckpt.save(name, {"model": self.model.state_dict(),
-                              "opt_state": self._opt_state_dict(),
+        model, opt_state = whole_snapshot(self.model, self.state)
+        self.ckpt.save(name, {"model": model, "opt_state": opt_state,
                               "epoch": epoch})
 
     def save_preempt(self, epoch: int, batches_done: int, train_iter: int,
@@ -277,9 +293,9 @@ class XGGMTrainer:
         generator is saved: a step's dropout and noise come from
         `_step_seed(train_iter)`, so the restored step count restores
         their stream."""
+        model, opt_state = whole_snapshot(self.model, self.state)
         self.ckpt.save("PREEMPT", {
-            "model": self.model.state_dict(),
-            "opt_state": self._opt_state_dict(),
+            "model": model, "opt_state": opt_state,
             "epoch": epoch, "batches_done": batches_done,
             "train_iter": train_iter, "best_valid": best_valid,
             "host_rng": pack_rng_state(self.host_rng).tolist()})
