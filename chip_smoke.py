@@ -266,11 +266,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             model rank. Also whether gloo's send and recv take CUDA
             tensors (a two-process probe). ms per global batch: no gain to
             claim while the ranks share the card.
-17. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+17. lineage (a) the adjacency precompute at bert-base-uncased width in
+            fp32 (12 layers, hidden 768, 12 heads, FFN 3072, a synthetic
+            WordPiece vocabulary of 30,522 written to a file): the names
+            of 1600 objects and 400 attributes embedded by
+            `tools/compute_adjacency.py::embed_vocab` in chunks of 256 at
+            16 tokens, 9 forwards and 108 kernel-1 launches (counted); the
+            pooled embeddings against the plain attention within 12 x
+            1e-5; the adjacency of 256 images on the card against its numpy
+            recomputation within 1e-6; names per second, ms per forward,
+            kernel 1 at [3072, 16, 64] fp32 (kernel, plain, SDPA, device
+            time and bound), peak memory. (b) every research-lineage module
+            (ggm/extras, score_network, graph_vae, ops/mi, debias_losses,
+            models/updn) at the task model's widths (batch 96, 36 objects,
+            768-d features, 1842 answers) or the JAX module's defaults:
+            one forward and backward in fp32 and in float64 on the card
+            against float64 on the CPU: the fp32 outputs, and the float64
+            outputs and whole gradient, within 1e-4 relative L2, every
+            output on the card and finite (the fp32 gradients, and the
+            CPU's fp32 run, reported); the fp32 GEMM within 1e-5 of
+            float64 where TF32 is not; ms per module.
+18. summary the kernels line (all seven kernels; kernels 1 to 3 with their
             trainer-phase, VQA-CP, served-artifact, GIN/GAT, pretraining,
-            scale-out and model-parallel launches too, kernel 7 with its
-            scale-out and model-parallel ones), the card's name and power
-            limit, and last {"ok": true, "device": {...}}.
+            scale-out and model-parallel launches too, kernel 1 with the
+            adjacency precompute's, kernel 7 with its scale-out and
+            model-parallel ones), the card's name and power limit, and last
+            {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -4454,6 +4475,502 @@ def phase_model_parallel(torch, t_start: float) -> dict:
     return out
 
 
+# The lineage phase. (a) The adjacency precompute at the width of
+# bert-base-uncased in fp32 (12 layers, hidden 768, 12 heads of 64, FFN
+# 3072, a WordPiece vocabulary of 30,522): the names of 1600 objects and 400
+# attributes embedded in chunks of 256 at 16 tokens, 7 + 2 forwards of 12
+# kernel-1 launches each, and the adjacency of 256 images.
+ADJ_VOCAB, ADJ_OBJECTS, ADJ_ATTRS = 30522, 1600, 400
+ADJ_LAYERS, ADJ_BS, ADJ_LEN, ADJ_IMAGES = 12, 256, 16, 256
+ADJ_FORWARDS = -(-ADJ_OBJECTS // ADJ_BS) - (-ADJ_ATTRS // ADJ_BS)
+ADJ_LAUNCHES = ADJ_FORWARDS * ADJ_LAYERS
+# Kernel 1's fp32 body is gated at 1e-5 against its plain version per call
+# (FP32_TOL). Each of the 12 layers adds its attention's difference to the
+# residual stream, which the LayerNorms keep at unit scale, so the
+# differences add up layer by layer rather than multiply; the pooler's tanh
+# of a unit-scale projection does not enlarge them. The pooled embeddings
+# are held to 12 x 1e-5.
+POOLED_ATOL = ADJ_LAYERS * FP32_TOL["atol"]
+# The adjacency accumulates in float64 (`adjacency_from_ids`) and is held
+# to a float64 numpy recomputation from the same embeddings.
+ADJ_ATOL = 1e-6
+# (b) Each research-lineage module at the task model's widths where it has
+# them (36 objects, 768-d node features, batch 96, 1842 answers), the JAX
+# module's defaults where it has those (GraphVAE hidden 300, LearnedMixin
+# 1024, InfoNCE 300, MVMI and JointMI 384), and the UpDn recipe's elsewhere
+# (2048-d objects, 1024 hidden, 300-d word vectors, 14 tokens): forward and
+# backward on the card against the same module on the CPU.
+LINEAGE_WIDTHS = dict(b=96, n=36, f=768, answers=1842, vae_hidden=300,
+                      mi_hidden=512, mixin_hidden=1024, v_dim=2048,
+                      num_hid=1024, emb=300, ntoken=20000, seq=14)
+# Relative L2 from a float64 reference on the CPU: fp32 outputs (TF32 off)
+# and float64 outputs and gradients on the card (`lineage_on_device`).
+LINEAGE_RTOL = 1e-4
+
+
+def adjacency_numpy(obj_ids, attr_ids, obj_emb, attr_emb):
+    """The adjacency of `tools/compute_adjacency.py` recomputed in numpy in
+    float64, a batch of images at once."""
+    import numpy as np
+
+    c = obj_emb[obj_ids].astype(np.float64)
+    a = attr_emb[attr_ids].astype(np.float64)
+    cn = c / np.maximum(np.linalg.norm(c, axis=-1, keepdims=True), 1e-6)
+    an = a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-6)
+    upper = np.triu(np.einsum("bih,bjh->bij", cn, an))
+    adj = upper + upper.transpose(0, 2, 1)
+    return adj / adj.max(axis=(1, 2), keepdims=True)
+
+
+def phase_adjacency(torch, attn, card: str, t_start: float) -> dict:
+    """(a): writes the vocabularies, embeds both through `embed_vocab`
+    (kernel 1 counted, counts at 0 just before and read just after), holds
+    the pooled embeddings to the plain attention and the adjacency of 256
+    images to its numpy recomputation, and times the forward, kernel 1 at
+    this shape ([3072, 16, 64] fp32, kernel, plain, SDPA, device time) and
+    the names embedded per second. Returns the kernel-1 entries of the
+    kernels line."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from xggm_tpu_torch.config import BertConfig
+    from xggm_tpu_torch.data.tokenizer import (
+        CLS_TOKEN, MASK_TOKEN, PAD_TOKEN, SEP_TOKEN, UNK_TOKEN,
+        BertTokenizer, encode_batch)
+    from xggm_tpu_torch.models.lxmert import BertTextModel
+    from xggm_tpu_torch.ops.basic import init_weights
+    from xggm_tpu_torch.tools.compute_adjacency import (
+        adjacency_from_ids, embed_vocab)
+    from xggm_tpu_torch.utils.io import load_txt_lines
+
+    rng = np.random.RandomState(SEED)
+    specials = [PAD_TOKEN, UNK_TOKEN, CLS_TOKEN, SEP_TOKEN, MASK_TOKEN]
+    words = [f"w{i}" for i in range(ADJ_VOCAB - len(specials))]
+    with tempfile.TemporaryDirectory(prefix="xggm_adjacency_") as root:
+        files = {}
+        for name, lines in (
+                ("vocab.txt", specials + words),
+                ("objects_vocab.txt",
+                 [" ".join(rng.choice(words, 1 + i % 3)) for i in
+                  range(ADJ_OBJECTS)]),
+                ("attributes_vocab.txt",
+                 [" ".join(rng.choice(words, 1 + i % 2)) for i in
+                  range(ADJ_ATTRS)])):
+            files[name] = os.path.join(root, name)
+            with open(files[name], "w") as f:
+                f.write("\n".join(lines) + "\n")
+        tok = BertTokenizer.from_file(files["vocab.txt"])
+        obj_names = load_txt_lines(files["objects_vocab.txt"])
+        attr_names = load_txt_lines(files["attributes_vocab.txt"])
+    check(len(tok.vocab) == ADJ_VOCAB, f"vocabulary {len(tok.vocab)}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = BertTextModel(BertConfig(vocab_size=ADJ_VOCAB),
+                          num_layers=ADJ_LAYERS, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    model.eval()
+
+    def embed_both():
+        return [embed_vocab(names, tok, model, ADJ_LEN, ADJ_BS)
+                for names in (obj_names, attr_names)]
+
+    embed_both()  # warm-up: cuBLAS handles and the kernel's first load
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    attn.fused_attention.launches = 0
+    t0 = time.perf_counter()
+    obj_emb, attr_emb = embed_both()
+    embed_s = time.perf_counter() - t0
+    launches = attn.fused_attention.launches
+    check(launches == ADJ_LAUNCHES,
+          f"{launches} kernel-1 launches for {ADJ_FORWARDS} forwards, "
+          f"expected {ADJ_LAUNCHES}")
+    check(obj_emb.shape == (ADJ_OBJECTS, 768) and
+          attr_emb.shape == (ADJ_ATTRS, 768), "embedding shapes")
+    check(bool(np.isfinite(obj_emb).all() and np.isfinite(attr_emb).all()),
+          "non-finite embeddings")
+    with mock.patch.object(attn, "fused_attention", attn.attention_reference):
+        plain = embed_both()
+    pooled_err = max(float(np.abs(g - w).max())
+                     for g, w in zip((obj_emb, attr_emb), plain))
+
+    obj_ids = rng.randint(0, ADJ_OBJECTS, (ADJ_IMAGES, 36))
+    attr_ids = rng.randint(0, ADJ_ATTRS, (ADJ_IMAGES, 36))
+    emb = [torch.from_numpy(e).cuda() for e in (obj_emb, attr_emb)]
+    ids = [torch.from_numpy(i).cuda() for i in (obj_ids, attr_ids)]
+    adj = adjacency_from_ids(*ids, *emb)
+    adj_ms = cuda_ms(lambda: adjacency_from_ids(*ids, *emb), iters=10)
+    want = adjacency_numpy(obj_ids, attr_ids, obj_emb, attr_emb)
+    adj_err = float(np.abs(adj.cpu().numpy() - want).max())
+    diag_doubled = float(np.abs(np.diagonal(want, axis1=1, axis2=2)).max())
+
+    # one forward at the chunk's shape, and kernel 1 alone at it
+    ids_b, mask_b, seg_b = (torch.from_numpy(a).long().cuda()
+                            for a in encode_batch(tok, obj_names[:ADJ_BS],
+                                                  ADJ_LEN))
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: model(ids_b, mask_b, seg_b), iters=10)
+    rows = ADJ_BS * 12
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(rows, ADJ_LEN, D, device="cuda", generator=g)
+               for _ in range(3))
+    bias = (1.0 - mask_b.float()) * -10000.0
+    got = attn.fused_attention(q, k, v, bias, 12)
+    ref = attn.attention_reference(q, k, v, bias, 12)
+    k1_err = max_err(got, ref)
+    nbytes = 4 * rows * ADJ_LEN * D * 4 + 4 * ADJ_BS * ADJ_LEN
+    bound_ms, bound_by = bound(nbytes, 4 * rows * ADJ_LEN * ADJ_LEN * D,
+                               FP32_FLOPS)
+    q4, k4, v4 = (x.view(ADJ_BS, 12, ADJ_LEN, D) for x in (q, k, v))
+    mask4 = bias[:, None, None, :]
+    dev = device_ms(lambda: attn.fused_attention(q, k, v, bias, 12), bound_ms)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask4), bound_ms)
+    kernel = dict(
+        ms=cuda_ms(lambda: attn.fused_attention(q, k, v, bias, 12)),
+        plain_ms=cuda_ms(lambda: attn.attention_reference(q, k, v, bias, 12)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4)),
+        device_ms=dev["ms"], library_device_ms=lib["ms"],
+        device_kernels=dev["kernels_per_call"],
+        library_device_kernels=lib["kernels_per_call"],
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=k1_err)
+    emit("adjacency", card=card, width="bert-base-uncased, fp32",
+         layers=ADJ_LAYERS, vocab=ADJ_VOCAB, names=[ADJ_OBJECTS, ADJ_ATTRS],
+         batch=ADJ_BS, max_len=ADJ_LEN, forwards=ADJ_FORWARDS,
+         launches=launches, expected_launches=ADJ_LAUNCHES,
+         pooled_max_abs_err_vs_plain=pooled_err, pooled_atol=POOLED_ATOL,
+         images=ADJ_IMAGES, adjacency_max_abs_err_vs_numpy=adj_err,
+         adjacency_atol=ADJ_ATOL, adjacency_max_diagonal=diag_doubled,
+         adjacency_ms=adj_ms, names_per_s=(ADJ_OBJECTS + ADJ_ATTRS) / embed_s,
+         embed_seconds=embed_s, forward_ms=forward_ms,
+         kernel_1_at_3072x16x64_fp32=kernel,
+         kernel_1_bytes_per_launch=nbytes,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         seconds_so_far=time.perf_counter() - t_start)
+    check(pooled_err <= POOLED_ATOL,
+          f"pooled embeddings vs the plain attention: {pooled_err}")
+    check(k1_err <= FP32_TOL["atol"], f"kernel 1 fp32 at L=16: {k1_err}")
+    check(list(dev["kernels_per_call"].values()) == [1.0],
+          f"kernel 1 is one launch a call: {dev['kernels_per_call']}")
+    check(adj.is_cuda and adj.shape == (ADJ_IMAGES, 36, 36),
+          f"adjacency {adj.device} {tuple(adj.shape)}")
+    check(adj_err <= ADJ_ATOL, f"adjacency vs numpy: {adj_err}")
+    del model, emb, ids, adj, q, k, v, q4, k4, v4
+    return dict(launches=launches, **kernel)
+
+
+def lineage_cases(torch, w: dict) -> list:
+    """(name, make the module on a device or None, the inputs as numpy
+    arrays from a RandomState, call(module, *tensors) -> outputs) of every
+    research-lineage module and function, at the widths `w`
+    (LINEAGE_WIDTHS on the card)."""
+    from xggm_tpu_torch.ggm import extras, graph_vae, score_network
+    from xggm_tpu_torch.models import updn
+    from xggm_tpu_torch.ops import debias_losses as debias
+    from xggm_tpu_torch.ops import mi
+
+    b, n, f = w["b"], w["n"], w["f"]
+    h, vh = w["mi_hidden"], w["vae_hidden"]
+
+    def graph(r):
+        a = r.rand(b, n, n).astype("float32")
+        flags = (r.rand(b, n) > 0.1).astype("float32")
+        return [r.randn(b, n, f).astype("float32"), (a + a.transpose(0, 2, 1))
+                / 2, flags]
+
+    def xy(r, dx=f, dy=f):
+        return [r.randn(b, dx).astype("float32"),
+                r.randn(b, dy).astype("float32")]
+
+    def perm(r):
+        return r.permutation(b)
+
+    def normal(r, *shape):
+        return r.randn(*shape).astype("float32")
+
+    def probs(r, *shape):
+        return r.rand(*shape).astype("float32")
+
+    x_adj = (lambda r: graph(r)[:2])
+    return [
+        ("GinPlainEncoder", lambda d: extras.GinPlainEncoder(f, f, 2,
+                                                             device=d),
+         x_adj, lambda m, x, a: m(x, a)),
+        ("GCNPlainEncoder", lambda d: extras.GCNPlainEncoder(f, f, 2,
+                                                             device=d),
+         x_adj, lambda m, x, a: m(x, a)),
+        ("MixGenerator", lambda d: extras.MixGenerator(f, f, 2, device=d),
+         lambda r: [normal(r, b, f), graph(r)[1], probs(r, b, n, f),
+                    normal(r, b, f)],
+         lambda m, x, a, feats, eps: m(x, a, feats, eps=eps)),
+        ("SpectralGCN", lambda d: extras.SpectralGCN((f, f, f), device=d),
+         graph, lambda m, x, a, fl: m(x, a, fl)),
+        ("GraphAttentionLayer", lambda d: extras.GraphAttentionLayer(
+            f, f, device=d), x_adj, lambda m, x, a: m(x, a)),
+        ("EdgeDenseScoreNetwork", lambda d: score_network.EdgeDenseScoreNetwork(
+            (f, f), 8, device=d), graph, lambda m, x, a, fl: m(x, a, fl)),
+        ("GraphVAE", lambda d: graph_vae.GraphVAE(vh, f, device=d),
+         lambda r: graph(r)[:2] + [normal(r, b, vh)],
+         lambda m, x, a, eps: m(x, a, eps=eps)),
+        ("MlpVaePlain", lambda d: graph_vae.MlpVaePlain(f, vh, n * (n - 1)
+                                                        // 2, device=d),
+         lambda r: [normal(r, b, f), normal(r, b, vh)],
+         lambda m, x, eps: m(x, eps=eps)),
+        ("EdgeConvGNN", lambda d: graph_vae.EdgeConvGNN(f, f, n, 2, device=d),
+         x_adj, lambda m, x, a: m(x, a)),
+        ("EdgeGNN", lambda d: graph_vae.EdgeGNN(f, f, 2, device=d), x_adj,
+         lambda m, x, a: m(x, a)),
+        ("edge_similarity_matrix+mpm", None,
+         lambda r: [(r.rand(n, n) > 0.5).astype("float32"),
+                    probs(r, n, n)],
+         lambda _, a, rec: graph_vae.mpm(
+             torch.full((n, n), 1.0 / n, dtype=a.dtype, device=a.device),
+             graph_vae.edge_similarity_matrix(a, rec, a.sum(1), rec.sum(1)))),
+        ("CLUB", lambda d: mi.CLUB(f, f, h, device=d), xy,
+         lambda m, x, y: m(x, y)),
+        ("CLUBSample", lambda d: mi.CLUBSample(f, f, h, device=d),
+         lambda r: xy(r) + [perm(r)], lambda m, x, y, p: m(x, y, perm=p)),
+        ("MINE", lambda d: mi.MINE(f, f, h, device=d),
+         lambda r: xy(r) + [perm(r)], lambda m, x, y, p: m(x, y, perm=p)),
+        ("NWJ", lambda d: mi.NWJ(f, f, h, device=d), xy,
+         lambda m, x, y: m(x, y)),
+        ("VarUB", lambda d: mi.VarUB(f, f, h, device=d), xy,
+         lambda m, x, y: m(x, y)),
+        ("L1OutUB", lambda d: mi.L1OutUB(f, f, h, device=d), xy,
+         lambda m, x, y: m(x, y)),
+        ("InfoNCE", lambda d: mi.InfoNCE(f, f, device=d),
+         lambda r: xy(r) + [perm(r)], lambda m, x, y, p: m(x, y, perm=p)),
+        ("InfoNCEv2", lambda d: mi.InfoNCEv2(f, f, device=d),
+         lambda r: xy(r) + [perm(r)], lambda m, x, y, p: m(x, y, perm=p)),
+        ("MIUpperBound", lambda d: mi.MIUpperBound(True, f, f, h, device=d),
+         lambda r: xy(r) + [perm(r)],
+         lambda m, x, y, p: (m(x, y), m(x, y, perm=p, mi_mode="sample"))),
+        ("MIEstimator", lambda d: mi.MIEstimator(2 * f, device=d), xy,
+         lambda m, x, y: m(x, y)),
+        ("MVMIEstimator", lambda d: mi.MVMIEstimator(f // 2, device=d),
+         lambda r: xy(r) + [normal(r, b, f // 2), normal(r, b, f // 2)],
+         lambda m, z1, z2, n1, n2: m(z1, z2, normals=(n1, n2))),
+        ("JointMIEstimator", lambda d: mi.JointMIEstimator(f // 2,
+                                                            device=d),
+         lambda r: [normal(r, b, 20, f), normal(r, b, n, f),
+                    normal(r, b, f // 2), normal(r, b, f // 2), perm(r)],
+         lambda m, zl, zv, n1, n2, p: m(zl, zv, draws=(n1, n2, p))),
+        ("knn estimators", None, xy,
+         lambda _, x, y: (mi.knn_kl_estimator(x, y),
+                          mi.skl_divergence_knn(x, y))),
+        ("debias losses", None,
+         lambda r: [normal(r, b, w["mixin_hidden"]),
+                    normal(r, b, w["answers"]), probs(r, b, w["answers"]),
+                    (r.rand(b, w["answers"]) > 0.99).astype("float32")],
+         lambda _, *a: (debias.plain_loss(*a), debias.focal_loss(*a),
+                        debias.reweight_by_inv_bias(*a))),
+        ("BiasProduct", lambda d: debias.BiasProduct(device=d),
+         lambda r: [normal(r, b, w["mixin_hidden"]),
+                    normal(r, b, w["answers"]), probs(r, b, w["answers"]),
+                    (r.rand(b, w["answers"]) > 0.99).astype("float32")],
+         lambda m, *a: m(*a)),
+        ("LearnedMixin", lambda d: debias.LearnedMixin(
+            0.36, w["mixin_hidden"], device=d),
+         lambda r: [normal(r, b, w["mixin_hidden"]),
+                    normal(r, b, w["answers"]), probs(r, b, w["answers"]),
+                    (r.rand(b, w["answers"]) > 0.99).astype("float32")],
+         lambda m, *a: m(*a)),
+        ("FCNet", lambda d: updn.FCNet((w["v_dim"], w["num_hid"]), device=d),
+         lambda r: [normal(r, b, n, w["v_dim"])], lambda m, v: m(v)),
+        ("Attention", lambda d: updn.Attention(w["v_dim"], w["num_hid"],
+                                               w["num_hid"], device=d),
+         lambda r: [normal(r, b, n, w["v_dim"]), normal(r, b, w["num_hid"])],
+         lambda m, v, q: m(v, q)),
+        ("NewAttention", lambda d: updn.NewAttention(
+            w["v_dim"], w["num_hid"], w["num_hid"], device=d),
+         lambda r: [normal(r, b, n, w["v_dim"]), normal(r, b, w["num_hid"])],
+         lambda m, v, q: m(v, q)),
+        ("SimpleClassifier", lambda d: updn.SimpleClassifier(
+            w["num_hid"], 2 * w["num_hid"], w["answers"], device=d),
+         lambda r: [normal(r, b, w["num_hid"])], lambda m, x: m(x)),
+        ("GaussianLayer", lambda d: updn.GaussianLayer(
+            w["num_hid"], w["answers"], device=d),
+         lambda r: [normal(r, b, w["num_hid"])], lambda m, x: m(x)),
+        ("WordEmbedding", lambda d: updn.WordEmbedding(
+            w["ntoken"], w["emb"], device=d),
+         lambda r: [r.randint(0, w["ntoken"] + 1, (b, w["seq"]))],
+         lambda m, ids: m(ids)),
+        ("QuestionEmbedding GRU", lambda d: updn.QuestionEmbedding(
+            w["emb"], w["num_hid"], device=d),
+         lambda r: [normal(r, b, w["seq"], w["emb"])], lambda m, e: m(e)),
+        ("QuestionEmbedding LSTM 2 layers bidirect",
+         lambda d: updn.QuestionEmbedding(w["emb"], w["num_hid"], 2, True,
+                                          "LSTM", device=d),
+         lambda r: [normal(r, b, w["seq"], w["emb"])], lambda m, e: m(e)),
+        ("contrastive_loss", None,
+         lambda r: [normal(r, b, w["num_hid"]), normal(r, b, w["num_hid"])],
+         lambda _, a, c: (updn.contrastive_loss(a, c),
+                          updn.contrastive_loss(a, c, max_violation=False))),
+    ]
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def as_float64(torch, module):
+    """A float64 copy of `module`: its parameters and every compute dtype (a
+    `dtype` attribute of float32) in float64."""
+    import copy
+
+    module = copy.deepcopy(module).double()
+    for sub in module.modules():
+        if getattr(sub, "dtype", None) == torch.float32:
+            sub.dtype = torch.float64
+    return module
+
+
+def lineage_on_device(torch, w: dict, device: str = "cuda") -> list:
+    """Each case of `lineage_cases`: the module drawn on the CPU from a
+    seeded generator, the same inputs everywhere, one forward and backward
+    of sum(output * c) for fixed random c (a function: the forward alone),
+    four times: in float64 on the CPU, the reference; in fp32 on the CPU;
+    in fp32 on `device`, as the port runs; in float64 on `device`. Rows of
+    the relative L2 distances from the reference of the outputs and of the
+    whole parameter gradient of the other three, whether every output lies
+    on `device` and its fp32 run is finite, and the ms of one fp32 forward
+    and backward there.
+
+    The fp32 gradients are reported, not gated: where a ReLU-like kink
+    meets a pre-activation within float32's rounding of zero, which among
+    millions of units happens a few times, the two sides take different
+    branches and that unit's gradient differs by its whole size (on an
+    H100 at batch 96: up to 1e-3 relative L2 in 3 modules of 36, on either
+    device, with the outputs within 1e-7). In float64 no unit lies that
+    close to a kink, and the gradients are held there."""
+    import copy
+
+    import numpy as np
+    from torch.utils._pytree import tree_leaves
+
+    from xggm_tpu_torch.ops.basic import init_weights
+
+    def grad_of(p):  # NaN where a parameter got no gradient
+        return (p.grad if p.grad is not None
+                else torch.full_like(p, float("nan"))).reshape(-1).double()
+
+    def run(i, mod, call, arrays, dev, dt):
+        args = [torch.from_numpy(a).to(dev, dt if a.dtype.kind == "f"
+                                       else None) for a in arrays]
+        out = [o for o in tree_leaves(call(mod, *args))
+               if isinstance(o, torch.Tensor)]
+        grads = None
+        if mod is not None:
+            cot = [torch.from_numpy(np.asarray(np.random.RandomState(i).randn(
+                *o.shape))).to(dev, dt) for o in out]
+            sum((o * c).sum() for o, c in zip(out, cot)).backward()
+            grads = torch.cat([grad_of(p).cpu() for p in mod.parameters()])
+        return out, grads
+
+    rows = []
+    for i, (name, make, inputs, call) in enumerate(lineage_cases(torch, w)):
+        arrays = inputs(np.random.RandomState(SEED + i))
+        cpu = None if make is None else init_weights(
+            make("cpu"), torch.Generator().manual_seed(SEED + i))
+        mods = {"ref": None if cpu is None else as_float64(torch, cpu),
+                "cpu_fp32": cpu,
+                "fp32": None if cpu is None else copy.deepcopy(cpu).to(device),
+                "fp64": None if cpu is None
+                else as_float64(torch, cpu).to(device)}
+        out = {key: run(i, mods[key], call, arrays, dev, dt)
+               for key, dev, dt in (("ref", "cpu", torch.float64),
+                                    ("cpu_fp32", "cpu", torch.float32),
+                                    ("fp32", device, torch.float32),
+                                    ("fp64", device, torch.float64))}
+        row = dict(module=name,
+                   params=0 if cpu is None else sum(
+                       p.numel() for p in cpu.parameters()),
+                   outputs=[list(o.shape) for o in out["ref"][0]],
+                   on_device=all(o.device.type == torch.device(device).type
+                                 for o in out["fp32"][0] + out["fp64"][0]),
+                   finite=all(bool(torch.isfinite(o).all())
+                              for o in out["fp32"][0]))
+        for key in ("cpu_fp32", "fp32", "fp64"):
+            row[f"output_rel_l2_{key}"] = max(
+                rel_l2(g, r) for g, r in zip(out[key][0], out["ref"][0]))
+            if cpu is not None:
+                row[f"grad_rel_l2_{key}"] = rel_l2(out[key][1],
+                                                   out["ref"][1])
+        if cpu is not None:
+            row["grads_finite"] = bool(torch.isfinite(out["fp32"][1]).all())
+            dev32 = mods["fp32"]
+            dev_args = [torch.from_numpy(a).to(device) for a in arrays]
+
+            def fwd_bwd():
+                dev32.zero_grad(set_to_none=True)
+                sum(o.float().sum() for o in tree_leaves(
+                    call(dev32, *dev_args)) if isinstance(o, torch.Tensor)
+                    ).backward()
+
+            if device != "cpu":
+                row["ms"] = cuda_ms(fwd_bwd, iters=3, warmup=1)
+        rows.append(row)
+        del cpu, mods, out
+    return rows
+
+
+def lineage_failures(rows: list) -> list:
+    """The rows that break a gate of `lineage_on_device`: an output off the
+    device or not finite; an fp32 output, or a float64 output or gradient,
+    farther than LINEAGE_RTOL relative L2 from the float64 reference."""
+    return [r for r in rows if not (
+        r["on_device"] and r["finite"] and r.get("grads_finite", True)
+        and r["output_rel_l2_fp32"] <= LINEAGE_RTOL
+        and r["output_rel_l2_fp64"] <= LINEAGE_RTOL
+        and r.get("grad_rel_l2_fp64", 0.0) <= LINEAGE_RTOL)]
+
+
+def fp32_gemm_error(torch) -> dict:
+    """The card's fp32 GEMM at the shape of a lineage Dense's weight
+    gradient ([3456, 1024]^T [3456, 2048], batch 96 x 36 objects) against
+    float64, as the modules run it (TF32 off) and with TF32 on: the
+    difference that the fp32 output gate of `lineage_failures` relies on
+    to expose TF32."""
+    g = torch.Generator().manual_seed(SEED)
+    d = torch.randn(3456, 1024, generator=g)
+    x = torch.randn(3456, 2048, generator=g)
+    exact = d.double().t() @ x.double()
+    out = {}
+    was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            out["tf32" if tf32 else "fp32"] = rel_l2(d.cuda().t() @ x.cuda(),
+                                                     exact)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    out["cpu_fp32"] = rel_l2(d.t() @ x, exact)
+    return out
+
+
+def phase_lineage(torch, card: str, t_start: float) -> None:
+    """(b): `lineage_on_device` at LINEAGE_WIDTHS, gated by
+    `lineage_failures`, and the fp32 GEMM's own error (`fp32_gemm_error`),
+    which must be the fp32 one, not TF32's."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gemm = fp32_gemm_error(torch)
+    rows = lineage_on_device(torch, LINEAGE_WIDTHS)
+    emit("lineage_modules", card=card, widths=LINEAGE_WIDTHS, rows=rows,
+         rel_l2_tolerance=LINEAGE_RTOL, gemm_rel_l2_vs_float64=gemm,
+         seconds=time.perf_counter() - t0,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         seconds_so_far=time.perf_counter() - t_start)
+    check(gemm["fp32"] <= 1e-5 < gemm["tf32"],
+          f"fp32 GEMM error against float64 {gemm}: TF32 is on, or the "
+          "check cannot tell it")
+    bad = lineage_failures(rows)
+    check(not bad, f"lineage modules on the card vs the CPU: {bad}")
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -4694,6 +5211,15 @@ def main() -> int:
 
     # 16. the stacked layout, tensor and pipeline parallelism
     model_parallel = phase_model_parallel(torch, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the modules off the main path: the adjacency precompute through
+    # kernel 1 in fp32, then each research-lineage module against the CPU
+    adjacency = phase_adjacency(torch, attn, card, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lineage(torch, card, t_start)
 
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
@@ -4709,7 +5235,7 @@ def main() -> int:
     def scaled_out(kernel):
         return {part: counts[kernel] for part, counts in scale_out.items()}
 
-    # 17. summary: one entry per kernel. Kernel 1 over one forward's
+    # 18. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -4737,6 +5263,10 @@ def main() -> int:
         "pretrain_launches": pretraining("attention_fwd"),
         "scale_out_launches": scaled_out("attention_fwd"),
         "model_parallel_launches": model_parallel["attention_fwd"],
+        "adjacency_launches": adjacency["launches"],
+        "adjacency_fp32": {key: adjacency[key] for key in (
+            "ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_abs_err")},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),

@@ -10,7 +10,13 @@ the per-layer lists `layer_i`, `r_layer_i`, `x_layer_i` become
 `head.i`, `merge.i`), a Dense `kernel` [in, out] becomes `weight` [out,
 in], LayerNorm `scale` and Embed `embedding` become `weight`, and an int8
 artifact's `kernel_scale_int8` becomes `weight_scale`. GIN's `eps` and
-GAT's `attn` [2F, 1] keep their names and shapes. The stacked encoder's
+GAT's `attn` [2F, 1] keep their names and shapes, as do the raw
+parameters of the research-lineage modules (`weight` [in, out] of a Kipf
+GCN layer `gcn_i`, `W` and `a`, `gain`, `smooth_param`, `centers`,
+`covs`). A flax
+`WeightNorm(Dense_k, feature_axes=None)` named `wn` keeps its scalar scale
+under `wn/Dense_k/kernel/scale`: it becomes `wn.scale` of a module that
+names its Dense in `dense_name`. The stacked encoder's
 `encoder/lang_stack/layer/...`, `r_stack/layer/...` and `x_stack/layer/...`
 (`stacked_layers`) become `encoder.lang_stack.layer....` and the like: a
 stacked kernel [L, in, out] becomes a stacked weight [L, out, in], and the
@@ -41,7 +47,14 @@ GGM_SUBMODULES = frozenset({"generator", "encoder_adj", "node_fc",
                             "fusion_fc"})
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "bias": "bias", "eps": "eps", "attn": "attn",
-           "kernel_scale_int8": "weight_scale"}
+           "kernel_scale_int8": "weight_scale",
+           "W": "W", "a": "a", "gain": "gain",
+           "smooth_param": "smooth_param", "centers": "centers",
+           "covs": "covs"}
+_WN_DENSE = re.compile(r"^Dense_\d+$")
+# a raw `weight` leaf is a Kipf GCN layer's (SpectralGCN's `gcn_i`) alone:
+# under any other name `weight` is no JAX leaf
+_KIPF_LAYER = re.compile(r"^gcn_\d+$")
 _LAYER_LIST = re.compile(
     r"^(layer|r_layer|x_layer|gnn|conv|proj|head|merge)_(\d+)$")
 _LIST_NAMES = {"layer": "layer", "r_layer": "r_layers", "x_layer": "x_layers",
@@ -62,13 +75,20 @@ def port_name(jax_key: str) -> str:
     if parts[0] == "params":
         parts = parts[1:]
     *path, leaf = parts
-    if leaf not in _LEAVES:
+    if (leaf == "scale" and len(path) >= 3 and path[-1] == "kernel"
+            and _WN_DENSE.match(path[-2])):
+        path, port_leaf = path[:-2], "scale"
+    elif leaf == "weight" and path and _KIPF_LAYER.match(path[-1]):
+        port_leaf = "weight"
+    elif leaf in _LEAVES:
+        port_leaf = _LEAVES[leaf]
+    else:
         raise KeyError(f"JAX parameter {jax_key!r}: unknown leaf {leaf!r}")
     out = []
     for p in path:
         m = _LAYER_LIST.match(p)
         out.append(f"{_LIST_NAMES[m.group(1)]}.{m.group(2)}" if m else p)
-    return ".".join(out + [_LEAVES[leaf]])
+    return ".".join(out + [port_leaf])
 
 
 def from_jax_params(flat: Mapping[str, np.ndarray], model: nn.Module,
@@ -124,6 +144,8 @@ def _jax_leaf(module: nn.Module, leaf: str) -> str:
             return "embedding"
     if leaf == "weight_scale":
         return "kernel_scale_int8"
+    if leaf == "scale" and hasattr(module, "dense_name"):
+        return f"{module.dense_name}/kernel/scale"
     return leaf
 
 

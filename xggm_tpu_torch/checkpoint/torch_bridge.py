@@ -14,7 +14,8 @@ snapshot alike:
   `qkv` projection, the cross-attention's k/v into one `kv`, since the port
   keeps the JAX package's parameter tree.
 
-`convert_pretrain_model` does the same for a reference pretraining model
+`convert_bert_text` maps a plain BERT (HF bert-base-uncased) onto
+`BertTextModel`, and `convert_pretrain_model` a reference pretraining model
 (`LXRTPretraining`: the encoder and the four pretraining heads). With
 `cfg.stacked_layers` the encoder's per-layer paths are stacked into the
 `lang_stack` / `r_stack` / `x_stack` [L, ...] layout (`stack_encoder_flat`;
@@ -248,6 +249,23 @@ def convert_lxrt_bert(sd: Dict[str, np.ndarray], cfg: LxmertConfig,
     if cfg.stacked_layers:
         m.out = stack_encoder_flat(m.out, cfg, our_prefix=o)
     return m.out, m
+
+
+def convert_bert_text(sd: Dict[str, np.ndarray], num_layers: int = 12,
+                      torch_prefix: str = "") -> Dict[str, np.ndarray]:
+    """A plain BERT state dict (HF bert-base-uncased: `embeddings.*`,
+    `encoder.layer.{i}.*`, `pooler.dense.*`, each under `torch_prefix`) as
+    the flat names of `models/lxmert.py::BertTextModel`."""
+    m = _Mapper(strip_prefixes(sd))
+    t = torch_prefix
+    for table in ("word_embeddings", "position_embeddings",
+                  "token_type_embeddings"):
+        m.embedding(f"{t}embeddings.{table}", f"embeddings/{table}")
+    m.layernorm(f"{t}embeddings.LayerNorm", "embeddings/LayerNorm")
+    for i in range(num_layers):
+        _map_bert_layer(m, f"{t}encoder.layer.{i}", f"layer_{i}")
+    m.linear(f"{t}pooler.dense", "pooler/dense")
+    return m.out
 
 
 def _map_linear_gelu_ln(m: _Mapper, t: str, o: str):

@@ -228,3 +228,12 @@ def encode_batch(tokenizer: BertTokenizer, sents: Iterable[str],
         np.asarray(segs, dtype=np.int32),
     )
 
+
+def make_test_vocab(extra_words: Sequence[str] = ()) -> Dict[str, int]:
+    """Tiny deterministic vocab for unit tests (no network access needed)."""
+    base = [PAD_TOKEN, UNK_TOKEN, CLS_TOKEN, SEP_TOKEN, MASK_TOKEN]
+    words = list(extra_words) or [
+        "what", "is", "the", "color", "of", "dog", "cat", "un", "##want",
+        "##ed", "run", "##ning", "?", ",", "a", "on", "left", "right",
+    ]
+    return {t: i for i, t in enumerate(base + words)}

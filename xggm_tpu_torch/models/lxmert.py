@@ -428,6 +428,40 @@ class LxmertModel(nn.Module):
         return (lang, visn), self.pooler(lang)
 
 
+class BertTextModel(nn.Module):
+    """Text-only BERT: embeddings, `num_layers` BertLayers (`layer.i`) and
+    the pooler, in `dtype` (float32 by default, as the JAX package's).
+    Returns (sequence [B, L, H], pooled [B, H]); its attention is kernel 1
+    on the card (kernels 2 and 3 with an rng and a dropout rate above 0).
+    The adjacency precompute (`tools/compute_adjacency.py`) embeds object
+    and attribute names with its pooled output.
+
+    Parameters are created uninitialised on `device`; draw them with
+    `ops.basic.init_weights(model, generator)` or load a state dict."""
+
+    def __init__(self, c: BertConfig, num_layers: int = 12,
+                 dtype: torch.dtype = torch.float32, *, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.embeddings = BertEmbeddings(c, dtype, device=dev)
+        self.layer = nn.ModuleList(BertLayer(c, dtype, device=dev)
+                                   for _ in range(num_layers))
+        self.pooler = Pooler(c, dtype, device=dev)
+
+    def forward(self, input_ids: torch.Tensor,
+                input_mask: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if input_mask is None:
+            input_mask = torch.ones_like(input_ids)
+        bias = additive_mask(input_mask)
+        x = self.embeddings(input_ids, token_type_ids, rng)
+        for layer in self.layer:
+            x = layer(x, bias, rng)
+        return x, self.pooler(x)
+
+
 class AnswerHead(nn.Module):
     """hid -> 2 hid -> GeLU -> LN(1e-12) -> num_answers, float32 logits."""
 

@@ -18,15 +18,21 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in float64 where it is already (a float64 reference
+    run computes in float64 throughout)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """erf-based GeLU, not the tanh approximation."""
     return F.gelu(x, approximate="none")
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm computed in float32 with a configurable epsilon; the output
-    takes the input's dtype. eps 1e-12 is BertLayerNorm; 1e-5 the torch
-    default used by the GGM modules."""
+    """LayerNorm computed in float32 (float64 for a float64 input) with a
+    configurable epsilon; the output takes the input's dtype. eps 1e-12 is
+    BertLayerNorm; 1e-5 the torch default used by the GGM modules."""
 
     def __init__(self, dim: int, eps: float = 1e-12, *, device=None):
         super().__init__()
@@ -39,7 +45,7 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = at_least_float32(x)
         mean = x32.mean(-1, keepdim=True)
         var = (x32 - mean).square().mean(-1, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
@@ -47,6 +53,9 @@ class LayerNorm(nn.Module):
 
 
 TORCH_LN_EPS = 1e-5
+# flax nn.LayerNorm's default, which the JAX package's research-lineage
+# modules (score network, graph VAE, MixGenerator) keep
+FLAX_LN_EPS = 1e-6
 
 
 class TorchLayerNorm(LayerNorm):
@@ -94,6 +103,14 @@ class TorchLinear(Dense):
             self.weight.uniform_(-bound, bound, generator=generator)
             if self.bias is not None:
                 self.bias.uniform_(-bound, bound, generator=generator)
+
+
+def lecun_dense(n_in: int, n_out: int, *, bias: bool = True,
+                device=None) -> Dense:
+    """Dense in float32 with the variance of flax nn.Dense's default init
+    (lecun: 1 / fan_in; a plain normal here, where flax truncates)."""
+    return Dense(n_in, n_out, stddev=math.sqrt(1.0 / n_in), bias=bias,
+                 device=device)
 
 
 class Embedding(nn.Module):

@@ -1,6 +1,7 @@
 """Losses of the GGM train step and of pretraining, in float32 (counterpart
 of `bce_with_logits`, `symmetric_kl`, `score_matching_loss`,
-`cross_entropy` and `smooth_l1` in `xggm_tpu/ops/losses.py`)."""
+`cross_entropy`, `smooth_l1` and `hinge_discriminator_loss` in
+`xggm_tpu/ops/losses.py`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -63,3 +64,11 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     reduction='none')."""
     d = (pred.float() - target.float()).abs()
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def hinge_discriminator_loss(dis_fake: torch.Tensor,
+                             dis_real: torch.Tensor) -> torch.Tensor:
+    """Hinge GAN discriminator loss: mean(relu(1 - real)) + mean(relu(1 +
+    fake)), in float32."""
+    return (F.relu(1.0 - dis_real.float()).mean()
+            + F.relu(1.0 + dis_fake.float()).mean())

@@ -25,6 +25,7 @@ class MetricsLogger:
     }
 
     def __init__(self, output_dir: Optional[str]):
+        self.output_dir = output_dir
         self.jsonl = self.tb = None
         if output_dir is None:
             return
@@ -63,3 +64,11 @@ class MetricsLogger:
         self.jsonl.flush()
         if self.tb is not None:
             self.tb.add_scalar(name, value, step)
+
+    def dump_config(self, cfg_dict: Dict, name: str = "args.json") -> None:
+        """Write `cfg_dict` as `name` in the output directory (JSON, indent
+        2, any other value as its str); a muted logger writes nothing."""
+        if self.output_dir is None:
+            return
+        with open(os.path.join(self.output_dir, name), "w") as f:
+            json.dump(cfg_dict, f, indent=2, default=str)
