@@ -72,7 +72,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             0.5), bf16 compute over fp32 masters, BertAdam at lr 4 x 5e-6
             with lxrt at 1/4 of it, warmup 0.1 of t_total 10000, one
             synthetic batch of 96 with an adjacency: the branch plan
-            relation, representation, relation, representation, with 68
+            relation, representation, relation, representation (bf16
+            training runs from the bf16 parameter shadow, the default), with 68
             kernel-2 and 66 kernel-3 launches per batch (the clean phase
             backpropagates through neither visual-stream attention of the
             last x-layer, which its loss does not read), finite losses, two
@@ -90,8 +91,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    train    launch per update): the branch plan with 8 kernel-7 launches
             for 4 batches and the checks of phase 8; kernel 7 against its
             plain version over the full 395-parameter state with one null
-            gradient and one inactive parameter (rtol 1e-6, atol 1e-7), and
-            its time per update against its bound, beside
+            gradient and one inactive parameter (rtol 1e-6, atol 1e-7), the
+            bf16 shadow it writes bit for bit, and its time per update
+            with and without the shadow (in turns) against its bounds, beside
             torch._fused_adamw_ over the same tensors (another function: it
             corrects the moments' bias); from one copied state and one
             batch, one GGM-phase update through the fused path against the
@@ -228,7 +230,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             relative, their terms printed, each parameter's update within
             phase 8's gradient gates, BertAdam's counters and flags
             exactly, kernels 1, 3 and 7 launched as derived; ms per global
-            batch (no gain to claim: the ranks share the card). Then once
+            batch (no gain to claim: the ranks share the card); in bf16 each
+            rank's shadow, and under ZeRO-1 its bytes and its whole
+            masters against one rank's (JAX's envelope), for phase 18. Then once
             in fp32 (tree BertAdam, ZeRO-1): every loss term within 1e-4
             relative, the same update gates, counters and launches. (c) the
             training model at 96, dropout on, with and without remat: a
@@ -286,11 +290,38 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             output on the card and finite (the fp32 gradients, and the
             CPU's fp32 run, reported); the fp32 GEMM within 1e-5 of
             float64 where TF32 is not; ms per module.
-18. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+18. shadow  the bf16 parameter shadow at phase 8's width (GCN, batch 96,
+            bf16): two batches (relation, representation; four updates)
+            from the same parameters at BertAdam's constant rate (no
+            warmup, so that every update moves each leaf) with the masters
+            cast at use, with the shadow and the tree BertAdam, with the
+            shadow and kernel 7, and under ZeRO-1 as a world of one over
+            NCCL: each one's updates (p - p0) against the first's within
+            0.1 relative L2 over all leaves and 0.5 over each leaf (masters
+            left unchanged read 10 and 2 times those), its parameters
+            within JAX's envelope (per leaf, relative L2 at most 3e-2 plus
+            2e-5), the refreshed shadow a fresh cast of the masters bit for
+            bit, ZeRO-1 bit for bit the one-rank shadow run, a rank's bytes
+            of masters, moments and shadow 12/N + 2 per shadowed parameter;
+            one batch each way under a dispatch mode: no float32 -> bf16
+            cast reads a shadowed master with the shadow, and the masters'
+            run casts at least one per shadowed leaf; ms per batch with and
+            without the shadow in 12 turns of 5 batches, wall and the
+            process's CPU ms (the paired differences and their 95%
+            intervals), peak memory, and one
+            profiled batch each way: device launches, cast and copy
+            launches and device ms, host aten::_to_copy and aten::copy_
+            calls, idle share; kernel 7's time with the shadow
+            against its bound (phase 9's) and its shadow store at lengths
+            1, 7, 4096 and 32771 with null rows and a misaligned shadow;
+            phase 15 (b)'s two-rank ZeRO-1 runs under the shadow: bytes and
+            envelope.
+19. summary the kernels line (all seven kernels; kernels 1 to 3 with their
             trainer-phase, VQA-CP, served-artifact, GIN/GAT, pretraining,
             scale-out and model-parallel launches too, kernel 1 with the
-            adjacency precompute's, kernel 7 with its scale-out and
-            model-parallel ones), the card's name and power limit, and last
+            adjacency precompute's, kernel 7 with its scale-out,
+            model-parallel and shadow ones), the card's name and power
+            limit, and last
             {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA card, or
@@ -372,6 +403,11 @@ PARAM_GRAD_RTOL = 5e-2
 # update: the tolerances of tests/test_fused_optim.py (fp32 on both sides;
 # the kernel rounds every operation as the plain version does).
 ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
+# One phase's loss through the bf16 shadow against the masters cast at use
+# (the JAX package's tolerance for its shadow's losses,
+# tests/test_bf16_shadow.py): the two forwards differ only where JAX's
+# rule shadows a LayerNorm's bias, which then adds its bf16 rounding.
+SHADOW_LOSS_RTOL = 2e-2
 UPDATES_PER_BATCH = 2
 # The trainer phase: a synthetic GQA-OOD corpus written as feature packs,
 # trained one epoch through the CLI at the recipe's batch (4 batches), then
@@ -425,8 +461,9 @@ PRETRAIN_RUNS = {"A": (PRETRAIN_BS, 1), "B": (PRETRAIN_BS // 2, 2)}
 PRETRAIN_TIMED_STEPS = 4
 RESUME_LOSS_RTOL, RESUME_PARAM_ATOL = 1e-4, 1e-5
 # An update reads g, m, v, p and writes m, v, p: 28 bytes per fp32 element
-# (24 where the gradient is null), and some 15 FLOPs.
-ADAM_BYTES, ADAM_FLOPS = 28, 15
+# (24 where the gradient is null), and some 15 FLOPs; an element with a
+# bf16 shadow writes its 2 bytes too.
+ADAM_BYTES, ADAM_FLOPS, ADAM_SHADOW_BYTES = 28, 15, 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1483,23 +1520,26 @@ def drive_plan(torch, t, phase: str, counters: dict) -> dict:
     return launches
 
 
-def time_batches(torch, t) -> dict:
-    """ms per two-phase batch over TIMED_BATCHES batches of the branches in
-    turn, pairs/s and peak device memory."""
+def time_batches(torch, t, batches: int = TIMED_BATCHES) -> dict:
+    """ms per two-phase batch over `batches` batches of the branches in
+    turn, the process's CPU ms per batch (all its threads: the host's own
+    work, which other tenants of the host do not add to), pairs/s and peak
+    device memory."""
     state = t.state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i in range(TIMED_BATCHES):
+    t0, c0 = time.perf_counter(), time.process_time()
+    for i in range(batches):
         br = ("relation", "representation")[i % 2]
         state, m = t.steps[br](state, t.batch, 1000 + i)
     final = float(m["clean_loss"])
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt, cpu = time.perf_counter() - t0, time.process_time() - c0
     check(math.isfinite(final), "non-finite loss in the timed batches")
-    return dict(batches=TIMED_BATCHES, batch_size=t.train_b,
-                ms_per_batch=dt / TIMED_BATCHES * 1e3,
-                pairs_per_s=t.train_b * TIMED_BATCHES / dt,
+    return dict(batches=batches, batch_size=t.train_b,
+                ms_per_batch=dt / batches * 1e3,
+                cpu_ms_per_batch=cpu / batches * 1e3,
+                pairs_per_s=t.train_b * batches / dt,
                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                 final_clean_loss=final)
 
@@ -1564,6 +1604,53 @@ def kernels_vs_plain(torch, attn, philox, t, state, phase: str, branches,
     return agreement
 
 
+def shadow_vs_masters(torch, t, state, phase: str) -> list:
+    """Each phase's loss and its gradient for every parameter from `state`
+    and fixed seeds, through the kernels, once as the main path takes them
+    (`loss_and_grads`: the forward and backward read the bf16 shadow, the
+    shadow's gradients upcast) and once with the masters cast at use (the
+    same state without its shadow), with no update: the losses within
+    SHADOW_LOSS_RTOL, the gradients within GRAD_RTOL overall and
+    PARAM_GRAD_RTOL per parameter, over the same parameters."""
+    from dataclasses import replace
+
+    from xggm_tpu_torch.training.steps import (
+        loss_and_grads, make_clean_loss, make_ggm_loss, phase_seeds)
+
+    check(state.shadow is not None, f"{phase}: the state has no shadow")
+    ggm_dropout, ggm_noise, clean_dropout = phase_seeds(100)
+    masters = replace(state, shadow=None)
+    rows = []
+    for key, fn, args in (
+            ("relation_ggm_loss", make_ggm_loss(t.model, t.tc, "relation"),
+             (t.batch, ggm_dropout, ggm_noise)),
+            ("representation_ggm_loss",
+             make_ggm_loss(t.model, t.tc, "representation"),
+             (t.batch, ggm_dropout, ggm_noise)),
+            ("clean_loss", make_clean_loss(t.model, t.cfg.num_answers),
+             (t.batch, clean_dropout))):
+        out_s, grads_s = loss_and_grads(state, fn, *args)
+        out_m, grads_m = loss_and_grads(masters, fn, *args)
+        loss_s, loss_m = float(out_s[0].detach()), float(out_m[0].detach())
+        rows.append(dict(
+            phase=key, shadow=loss_s, masters=loss_m,
+            loss_rel_diff=abs(loss_s - loss_m) / max(abs(loss_m), 1e-12),
+            **grad_agreement(torch, t.names,
+                             [grads_s[n] for n in t.names],
+                             [grads_m[n] for n in t.names])))
+        del grads_s, grads_m
+    emit(phase, rows=rows, shadowed_leaves=len(state.shadow),
+         loss_rtol=SHADOW_LOSS_RTOL, grad_rtol=GRAD_RTOL,
+         param_grad_rtol=PARAM_GRAD_RTOL)
+    bad = [r for r in rows
+           if not (r["same_graph"] and r["loss_rel_diff"] <= SHADOW_LOSS_RTOL
+                   and r["grad_rel_l2"] <= GRAD_RTOL
+                   and r["max_param_grad_rel_l2"] <= PARAM_GRAD_RTOL)]
+    check(not bad, f"{phase}: gradients through the shadow vs the masters' "
+                   f"cast: {bad}")
+    return rows
+
+
 def phase_train(torch, attn, philox):
     """The GGM train step at full width through kernels 2 and 3, with the
     tree BertAdam. Returns the main path's counts and the profile."""
@@ -1576,6 +1663,7 @@ def phase_train(torch, attn, philox):
 
     kernels_vs_plain(torch, attn, philox, t, state, "train_vs_plain",
                      ("relation", "representation", "clean"))
+    shadow_vs_masters(torch, t, state, "train_shadow_vs_masters")
 
     timing = time_batches(torch, t)
     emit("train_timing", **timing)
@@ -1599,14 +1687,20 @@ def copy_train_state(state):
 
 
 def check_kernel7(torch, fa, t) -> dict:
-    """Kernel 7 against its plain version over the full state, on copies:
-    random gradients, one null (node_fc's first parameter, touched before),
-    one parameter inactive (rate 0); then its time per update with every
-    gradient present, its plain version's, and torch._fused_adamw_'s."""
+    """Kernel 7 against its plain version over the full state, on copies,
+    with the bf16 shadow of every shadowed parameter as the main path
+    writes it: random gradients, one null (node_fc's first parameter,
+    touched before), one parameter inactive (rate 0); p, m and v within
+    ADAM_TOL, the shadow bit for bit (and equal to the kernel's p cast).
+    Then its time per update with every gradient present, with the shadow
+    and without it in turns, its plain version's, and
+    torch._fused_adamw_'s."""
     state, names, opt = t.state, t.names, t.opt
     hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     ps = [state.params[n].detach() for n in names]
+    shadowed = [n in (state.shadow or {}) for n in names]
+    check(any(shadowed), "kernel 7: the training state carries no shadow")
     grads = [torch.randn(p.shape, device="cuda", generator=gen) * 1e-2
              for p in ps]
     null = next(i for i, n in enumerate(names) if n.startswith("node_fc."))
@@ -1620,55 +1714,82 @@ def check_kernel7(torch, fa, t) -> dict:
     def copies():
         return ([p.clone() for p in ps],
                 [state.opt_state.m[n].clone() for n in names],
-                [state.opt_state.v[n].clone() for n in names])
+                [state.opt_state.v[n].clone() for n in names],
+                [torch.zeros(p.shape, device="cuda", dtype=torch.bfloat16)
+                 if s else None for p, s in zip(ps, shadowed)])
 
     kernel_pmv, plain_pmv = copies(), copies()
-    fa.fused_adam(some_null, *kernel_pmv[1:], kernel_pmv[0], idx, clip,
-                  lr_eff, **hyper)
-    fa.fused_adam_reference(some_null, *plain_pmv[1:], plain_pmv[0], idx,
-                            clip, lr_eff, **hyper)
+    fa.fused_adam(some_null, *kernel_pmv[1:3], kernel_pmv[0], idx, clip,
+                  lr_eff, **hyper, shadows=kernel_pmv[3])
+    fa.fused_adam_reference(some_null, *plain_pmv[1:3], plain_pmv[0], idx,
+                            clip, lr_eff, **hyper, shadows=plain_pmv[3])
     torch.cuda.synchronize()
     errs = {k: max(max_err(a, b) for a, b in zip(x, y))
             for k, x, y in zip("pmv", kernel_pmv, plain_pmv)}
-    ok = all(within(a, b, ADAM_TOL) for x, y in zip(kernel_pmv, plain_pmv)
+    ok = all(within(a, b, ADAM_TOL) for x, y in zip(kernel_pmv[:3],
+                                                    plain_pmv[:3])
              for a, b in zip(x, y))
+    shadow_exact = all(
+        s is None or (torch.equal(s, r) and torch.equal(s, p.to(s.dtype)))
+        for s, r, p in zip(kernel_pmv[3], plain_pmv[3], kernel_pmv[0]))
     unchanged = bool(torch.equal(kernel_pmv[0][inactive], ps[inactive]))
     elements = sum(p.numel() for p in ps)
+    shadow_elements = sum(p.numel() for p, s in zip(ps, shadowed) if s)
     emit("fused_adam_kernel", params=len(names), elements=elements,
+         shadowed_params=sum(shadowed), shadowed_elements=shadow_elements,
          null_gradient=names[null], inactive=names[inactive],
          max_abs_err=errs, tolerance=ADAM_TOL, within=ok,
+         shadow_bit_for_bit=shadow_exact,
          inactive_parameter_unchanged=unchanged)
-    check(ok and unchanged, f"kernel 7 vs its plain version: max abs err "
-                            f"{errs}, inactive unchanged {unchanged}")
+    check(ok and unchanged and shadow_exact,
+          f"kernel 7 vs its plain version: max abs err {errs}, inactive "
+          f"unchanged {unchanged}, shadow bit for bit {shadow_exact}")
     del plain_pmv
 
     # the kernel alone: launches from one table on the card; the wrapper
     # (checks, the table on the host, its copy) takes longer than the
     # kernel, so CUDA events around wrapper calls time the host
-    kp, km, kv = kernel_pmv
-    table = fa._table(grads, km, kv, kp, idx)
-    rows = torch.from_numpy(table).to("cuda")
+    kp, km, kv, ks = kernel_pmv
+    tables = {"shadow": fa._table(grads, km, kv, kp, idx, ks),
+              "no_shadow": fa._table(grads, km, kv, kp, idx,
+                                     [None] * len(ps))}
+    rows = {k: torch.from_numpy(x).to("cuda") for k, x in tables.items()}
+    turns = {k: [] for k in tables}
+    for key in ("shadow", "no_shadow", "no_shadow", "shadow"):
+        turns[key].append(cuda_ms(lambda: fa._launch(
+            rows[key], fa._chunks(tables[key]), clip, lr_eff, **hyper)))
     steps_t = [torch.zeros((), device="cuda") for _ in names]
     kernel = dict(
         max_abs_err=max(errs.values()),
-        ms=cuda_ms(lambda: fa._launch(rows, fa._chunks(table), clip, lr_eff,
-                                      **hyper)),
+        ms=statistics.mean(turns["shadow"]),
+        no_shadow_ms=statistics.mean(turns["no_shadow"]), turns_ms=turns,
         wrapper_ms=cuda_ms(lambda: fa.fused_adam(grads, km, kv, kp, idx,
-                                                 clip, lr_eff, **hyper)),
+                                                 clip, lr_eff, **hyper,
+                                                 shadows=ks)),
         plain_ms=cuda_ms(lambda: fa.fused_adam_reference(
-            grads, km, kv, kp, idx, clip, lr_eff, **hyper), iters=3,
-            warmup=1),
+            grads, km, kv, kp, idx, clip, lr_eff, **hyper, shadows=ks),
+            iters=3, warmup=1),
         fused_adamw_ms=cuda_ms(lambda: torch._fused_adamw_(
             kp, grads, km, kv, [], steps_t, lr=1e-3, beta1=opt.b1,
             beta2=opt.b2, weight_decay=opt.weight_decay, eps=opt.eps,
-            amsgrad=False, maximize=False)))
+            amsgrad=False, maximize=False)),
+        shadow_bit_for_bit=shadow_exact, elements=elements,
+        shadowed_elements=shadow_elements)
     kernel["bound_ms"], kernel["bound_by"] = bound(
-        ADAM_BYTES * elements, ADAM_FLOPS * elements, FP32_FLOPS)
+        ADAM_BYTES * elements + ADAM_SHADOW_BYTES * shadow_elements,
+        ADAM_FLOPS * elements, FP32_FLOPS)
+    kernel["no_shadow_bound_ms"] = bound(ADAM_BYTES * elements,
+                                         ADAM_FLOPS * elements,
+                                         FP32_FLOPS)[0]
     kernel["bound_share"] = kernel["bound_ms"] / kernel["ms"]
-    emit("fused_adam_time", **kernel, elements=elements,
-         timed_over="one update of every parameter, every gradient present; "
-                    "ms: the kernel's launches alone from one table on the "
-                    "card; wrapper_ms: fused_adam calls, host work included",
+    kernel["no_shadow_bound_share"] = (kernel["no_shadow_bound_ms"]
+                                       / kernel["no_shadow_ms"])
+    emit("fused_adam_time", **kernel,
+         timed_over="one update of every parameter, every gradient present, "
+                    "the shadowed ones' bf16 shadow written (ms) or not "
+                    "(no_shadow_ms), in turns; the kernel's launches alone "
+                    "from one table on the card; wrapper_ms: fused_adam "
+                    "calls with the shadow, host work included",
          fused_adamw="torch._fused_adamw_ over the same tensors: AdamW with "
                      "bias correction, another function; timing only")
     return kernel
@@ -3440,9 +3561,9 @@ def scale_out_rank(coordinator: str, rank: int, workdir: str) -> int:
                 refs = {}
 
             def fresh(mesh_or_none, zero_or_not: bool) -> None:
-                """The initial parameters and a new BertAdam state."""
-                with torch.no_grad():
-                    torch._foreach_copy_(list(t.state.params.values()), init)
+                """The initial parameters (whole) and a new BertAdam
+                state, with the bf16 shadow in bf16."""
+                reset_params(torch, t.state, init)
                 t.opt.fused = fused
                 t.state = TrainState.create(t.model, t.opt, mesh_or_none)
                 maybe_zero_shard_state(t.state, mesh_or_none, zero_or_not)
@@ -3463,9 +3584,20 @@ def scale_out_rank(coordinator: str, rank: int, workdir: str) -> int:
                        rows=rows_per_rank, sharded_leaves=sharded,
                        ms_per_global_batch=[r["ms"] for r in got["record"]],
                        launches=got["launches"], count=got["count"])
+            shadow = t.state.shadow
+            if shadow:
+                # a rank's bytes of the shadowed leaves' state: its slices
+                # of the masters and moments, and the whole bf16 shadow
+                opt_state = t.state.opt_state
+                row["shadow_bytes"] = shadow_state_bytes(t.state)
+            masters = t.state.whole_params()
+            if shadow:
+                row["shadow_fresh_cast"] = all(
+                    torch.equal(x, masters[n].to(x.dtype))
+                    for n, x in shadow.items())
+                row["sliced_masters"] = len(opt_state.sliced)
             if ref is not None:
-                deltas = [p.detach() - p0 for p, p0 in
-                          zip(t.state.params.values(), init)]
+                deltas = [masters[n] - p0 for n, p0 in zip(t.names, init)]
                 want = [p - p0 for p, p0 in zip(ref["params"], init)]
                 rel = [{k: abs(g["losses"][k] - v) / max(abs(v), 1e-12)
                         for k, v in w["losses"].items()}
@@ -3486,11 +3618,17 @@ def scale_out_rank(coordinator: str, rank: int, workdir: str) -> int:
                         and got["active"] == ref["active"]
                         and got["count"] == ref["count"]),
                     moments_whole=all(
-                        whole.m[n].shape == p.shape
-                        for n, p in t.state.params.items()),
+                        whole.m[n].shape == p0.shape
+                        for n, p0 in zip(t.names, init)),
                     update_agreement=grad_agreement(
                         torch, t.names, deltas, want))
+                if shadow:
+                    row["envelope"] = envelope(
+                        torch, dict(zip(t.names, [masters[n] for n in
+                                                  t.names])),
+                        dict(zip(t.names, ref["params"])))
                 del deltas, want
+            del masters
             out["runs"].append(row)
             del whole
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
@@ -3564,9 +3702,11 @@ def scale_out_two_ranks(torch) -> dict:
               f"two ranks against one, parameter updates: {agree}")
         check((row["sharded_leaves"] > 0) == row["zero"],
               f"ZeRO layout: {row['sharded_leaves']} split leaves")
-    return {k: sum(r["launches"][k] + o["launches"][k]
-                   for r, o in zip(rows, ranks[1]["runs"]))
-            for k in rows[0]["launches"]}
+    launches = {k: sum(r["launches"][k] + o["launches"][k]
+                       for r, o in zip(rows, ranks[1]["runs"]))
+                for k in rows[0]["launches"]}
+    return launches, [r for r in rows
+                      if r["zero"] and r["dtype"] == "bfloat16"]
 
 
 def scale_out_world_of_one(torch, attn, fa, tmp: str) -> dict:
@@ -3728,8 +3868,9 @@ def scale_out_remat(torch, attn, fa) -> tuple:
     return launches
 
 
-def phase_scale_out(torch, attn, fa, t_start: float) -> dict:
-    """Phase 15: (a) to (c) above. Returns each part's kernel launches."""
+def phase_scale_out(torch, attn, fa, t_start: float) -> tuple:
+    """Phase 15: (a) to (c) above. Returns each part's kernel launches,
+    and (b)'s bf16 ZeRO-1 rows (under the shadow) for phase 18."""
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="xggm_world_of_one_")
     try:
@@ -3738,14 +3879,14 @@ def phase_scale_out(torch, attn, fa, t_start: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    two_ranks = scale_out_two_ranks(torch)
+    two_ranks, zero_rows = scale_out_two_ranks(torch)
     remat = scale_out_remat(torch, attn, fa)
     gc.collect()
     torch.cuda.empty_cache()
     emit("scale_out", seconds=time.perf_counter() - t0,
          seconds_so_far=time.perf_counter() - t_start)
     return {"world_of_one": world_of_one, "two_ranks": two_ranks,
-            "remat": remat}
+            "remat": remat}, zero_rows
 
 
 # ---------------------------------------------------------------- phase 16
@@ -4971,6 +5112,434 @@ def phase_lineage(torch, card: str, t_start: float) -> None:
     bad = lineage_failures(rows)
     check(not bad, f"lineage modules on the card vs the CPU: {bad}")
 
+# ---------------------------------------------------------------- phase 18
+
+# Phase 18: the bf16 parameter shadow (TrainConfig.bf16_params, the default
+# under bf16 compute) at phase 8's width, GCN, batch 96, bf16. Two batches
+# (relation, representation; dropout on, the same seeds) with and without
+# the shadow from the same parameters at BertAdam's constant rate. The
+# updates (p - p0) in relative L2 over all leaves and over each leaf that
+# moves: BertAdam's first step moves each element by about lr whatever its
+# gradient's size, so an element whose gradient lies within rounding of 0
+# may move either way in the two runs (tests/test_torch_bf16_shadow.py
+# measured at most 0.041 and 0.21 at its sizes). The parameters also within
+# JAX's envelope (tests/test_bf16_shadow.py): per leaf |a - b| <= 3e-2 |b|
+# + 2e-5 in L2.
+SHADOW_PLAN = ("relation", "representation")
+SHADOW_UPDATE_RTOL, SHADOW_UPDATE_PARAM_RTOL = 0.1, 0.5
+SHADOW_ENV_RTOL, SHADOW_ENV_ATOL = 3e-2, 2e-5
+SHADOW_TIMED_BATCHES = 5
+# masters (False) and shadow (True) in turns, each pair one of each
+SHADOW_TURNS = (False, True, True, False) * 3
+# Student's t at 97.5% for the 5 degrees of freedom of 6 paired turns
+T_975_5 = 2.571
+# kernel 7's shadow store at lengths of every alignment, with null rows and
+# a shadow whose start is 2 bytes off an 8-byte boundary (the scalar path)
+SHADOW_KERNEL_LENGTHS = (1, 7, 4096, 32771)
+
+
+def reset_params(torch, state, init) -> None:
+    """Put `init` back into the parameters of `state` in place, each whole
+    again (`TrainState.unshard_`)."""
+    state.unshard_()
+    with torch.no_grad():
+        torch._foreach_copy_(list(state.params.values()), init)
+
+
+def envelope(torch, got: dict, want: dict) -> dict:
+    """JAX's envelope per leaf: the largest |got - want| / (3e-2 |want| +
+    2e-5) over the leaves, in L2 (within at 1 or less), and its leaf."""
+    worst, where = 0.0, None
+    for n, w in want.items():
+        w64 = w.double()
+        ratio = float((got[n].double() - w64).norm()) / (
+            SHADOW_ENV_RTOL * float(w64.norm()) + SHADOW_ENV_ATOL)
+        if ratio > worst:
+            worst, where = ratio, n
+    return dict(worst_ratio=worst, worst_param=where, within=worst <= 1.0)
+
+
+def update_agreement(torch, got: dict, want: dict, init: dict) -> dict:
+    """The updates got - init against want - init, by leaf: relative L2
+    over all leaves together, and the largest over single leaves whose
+    update is nonzero, with its leaf; within at SHADOW_UPDATE_RTOL and
+    SHADOW_UPDATE_PARAM_RTOL."""
+    diff2 = ref2 = 0.0
+    worst, where, moved = 0.0, None, 0
+    for n, w in want.items():
+        p0 = init[n].double()
+        dw = w.double() - p0
+        d = float((got[n].double() - p0 - dw).norm())
+        m = float(dw.norm())
+        diff2, ref2 = diff2 + d * d, ref2 + m * m
+        if m > 0:
+            moved += 1
+            if d / m > worst:
+                worst, where = d / m, n
+    overall = diff2 ** 0.5 / ref2 ** 0.5
+    return dict(update_rel_l2=overall, max_leaf_update_rel_l2=worst,
+                worst_leaf=where, leaves_moved=moved, leaves=len(want),
+                within=(overall <= SHADOW_UPDATE_RTOL
+                        and worst <= SHADOW_UPDATE_PARAM_RTOL))
+
+
+def weight_casts(torch, step, state, batch, names) -> dict:
+    """One two-phase batch under a dispatch mode: the float32 -> bf16
+    casts (aten::_to_copy) that read the master of one of the leaves
+    `names`, and the other float32 -> bf16 casts."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ptrs = {state.params[n].untyped_storage().data_ptr() for n in names}
+
+    class Casts(TorchDispatchMode):
+        weight = other = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if (func is torch.ops.aten._to_copy.default
+                    and kwargs.get("dtype") == torch.bfloat16
+                    and args[0].dtype == torch.float32):
+                if args[0].untyped_storage().data_ptr() in ptrs:
+                    self.weight += 1
+                else:
+                    self.other += 1
+            return func(*args, **kwargs)
+
+    with Casts() as casts:
+        step(state, batch, 3100)
+    torch.cuda.synchronize()
+    return dict(weight_casts=casts.weight,
+                other_f32_to_bf16_casts=casts.other)
+
+
+def shadow_state_bytes(state) -> dict:
+    """A rank's bytes of the shadowed leaves' state: the masters (its
+    slices of the sliced ones), m and v (its slices), the whole bf16
+    shadow; per shadowed parameter, against 12/N + 2 for a sliced leaf and
+    14 for a whole one (N the data group's size)."""
+    opt = state.opt_state
+    size = state.mesh.size if state.mesh is not None else 1
+    names = list(state.shadow)
+    out = dict(
+        masters=sum(state.params[n].numel() * 4 for n in names),
+        moments=sum((opt.m[n].numel() + opt.v[n].numel()) * 4
+                    for n in names),
+        shadow=sum(state.shadow[n].numel() * 2 for n in names),
+        shadowed_params=sum(state.shadow[n].numel() for n in names),
+        expected_bytes=sum(state.shadow[n].numel()
+                           * ((12 / size if n in opt.sliced else 12) + 2)
+                           for n in names),
+        sliced=len(opt.sliced), data_ranks=size)
+    total = out["masters"] + out["moments"] + out["shadow"]
+    out.update(total=total, per_param=total / out["shadowed_params"],
+               per_param_expected=12 / size + 2)
+    return out
+
+
+def profile_casts(torch, step, state, batch, timed_ms: float) -> dict:
+    """One two-phase batch under torch.profiler (CPU and CUDA): the host's
+    aten::_to_copy and aten::copy_ calls, and the device's kernels: all of
+    them, and by category (count and ms; the casts and copies, and the
+    foreach kernels, among them), busy ms and the idle share against the
+    unprofiled `timed_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seeds = iter((3000, 3001))
+    step(state, batch, next(seeds))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, next(seeds))
+        torch.cuda.synchronize()
+    ops = {"aten::_to_copy": 0, "aten::copy_": 0, "aten::_foreach_copy_": 0}
+    by_cat = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            row = by_cat.setdefault(kernel_category(evt.name), [0, 0.0])
+            row[0] += 1
+            row[1] += evt.time_range.elapsed_us() / 1e3
+        elif evt.name in ops:
+            ops[evt.name] += 1
+    busy = sum(ms for _, ms in by_cat.values())
+    casts = by_cat.get("casts and copies", [0, 0.0])
+    return dict(host_ops=ops, device_events=sum(n for n, _ in
+                                                by_cat.values()),
+                device_busy_ms=busy,
+                device_events_by_category={k: v[0] for k, v in
+                                           by_cat.items()},
+                device_ms_by_category={k: v[1] for k, v in by_cat.items()},
+                cast_copy_launches=casts[0], cast_copy_device_ms=casts[1],
+                timed_ms_per_batch=timed_ms,
+                device_idle_share=(1.0 - busy / timed_ms) if busy else None)
+
+
+def check_kernel7_shadow_lengths(torch, fa) -> dict:
+    """Kernel 7 at SHADOW_KERNEL_LENGTHS, every other row's gradient null,
+    one shadow misaligned and one row without a shadow: p, m and v within
+    ADAM_TOL of the plain version, every shadow bit for bit its plain
+    version's and the kernel's p cast."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    n = len(SHADOW_KERNEL_LENGTHS)
+
+    def rand(k, scale=1.0):
+        return torch.randn(k, device="cuda", generator=gen) * scale
+
+    ps = [rand(k) for k in SHADOW_KERNEL_LENGTHS] + [rand(64)]
+    ms = [rand(p.numel(), 1e-3) for p in ps]
+    vs = [rand(p.numel(), 1e-3).abs() for p in ps]
+    gs = [None if i % 2 else rand(p.numel(), 1e-2) for i, p in
+          enumerate(ps)]
+    # a shadow view 2 bytes into its buffer for the last shadowed row
+    shadows = [torch.empty(p.numel(), device="cuda", dtype=torch.bfloat16)
+               for p in ps[:n - 1]]
+    offset = torch.empty(ps[n - 1].numel() + 1, device="cuda",
+                         dtype=torch.bfloat16)
+    shadows += [offset[1:], None]
+    lr_eff = torch.rand(len(ps), device="cuda", generator=gen) * 1e-2
+    clip = torch.tensor(0.5, device="cuda")
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    idx = list(range(len(ps)))
+    plain = ([p.clone() for p in ps], [m.clone() for m in ms],
+             [v.clone() for v in vs],
+             [None if s is None else s.clone() for s in shadows])
+    fa.fused_adam(gs, ms, vs, ps, idx, clip, lr_eff, **hyper,
+                  shadows=shadows)
+    fa.fused_adam_reference(gs, plain[1], plain[2], plain[0], idx, clip,
+                            lr_eff, **hyper, shadows=plain[3])
+    torch.cuda.synchronize()
+    ok = all(within(a, b, ADAM_TOL) for x, y in zip((ps, ms, vs), plain[:3])
+             for a, b in zip(x, y))
+    exact = all(s is None or (torch.equal(s, r) and torch.equal(
+        s, p.to(torch.bfloat16))) for s, r, p in zip(shadows, plain[3], ps))
+    out = dict(lengths=list(SHADOW_KERNEL_LENGTHS) + [64],
+               null_gradients=[g is None for g in gs],
+               misaligned_shadow_bytes=offset[1:].data_ptr() % 8,
+               within=ok, shadow_bit_for_bit=exact)
+    check(ok and exact, f"kernel 7's shadow store at odd lengths: {out}")
+    return out
+
+
+def phase_shadow(torch, fa, adam: dict, zero_rows: list, card: str,
+                 t_start: float) -> dict:
+    """Phase 18: the bf16 parameter shadow at phase 8's width. Returns
+    kernel 7's launches in its fused run."""
+    from xggm_tpu_torch.parallel import (
+        init_distributed, make_mesh, maybe_zero_shard_state,
+        shutdown_distributed)
+    from xggm_tpu_torch.training.steps import (
+        TrainState, shadow_overlay, upcast_grads)
+
+    t0 = time.perf_counter()
+    t = train_setup(torch, fused=False)
+    check(t.state.shadow is not None,
+          "bf16 training builds no shadow by default")
+    shadowed = list(t.state.shadow)
+    params = list(t.state.params.values())
+    init = [p.detach().clone() for p in params]
+
+    def fresh(bf16_params: bool, fused: bool = False, mesh=None,
+              zero: bool = False) -> None:
+        reset_params(torch, t.state, init)
+        t.opt.fused = fused
+        t.state = TrainState.create(t.model, t.opt, mesh, bf16_params)
+        maybe_zero_shard_state(t.state, mesh, zero)
+
+    def trajectory() -> dict:
+        """SHADOW_PLAN from t.state: the losses, kernel 7's launches, the
+        whole masters after, whether the shadow is their fresh cast."""
+        fa.fused_adam.launches = 0
+        state, losses = t.state, []
+        for i, br in enumerate(SHADOW_PLAN):
+            state, m = t.steps[br](state, t.batch, i)
+            losses.append({k: float(v) for k, v in m.items()
+                           if v.dim() == 0})
+        torch.cuda.synchronize()
+        masters = state.whole_params()
+        return dict(losses=losses, kernel7_launches=fa.fused_adam.launches,
+                    masters={n: x.clone() for n, x in masters.items()},
+                    fresh_cast=None if state.shadow is None else all(
+                        torch.equal(x, masters[n].to(x.dtype))
+                        for n, x in state.shadow.items()),
+                    bytes=(None if state.shadow is None
+                           else shadow_state_bytes(state)))
+
+    # the trajectories at the constant rate: every update moves each leaf
+    warmup, t.opt.warmup = t.opt.warmup, -1.0
+    runs = {}
+    for name, kw in (("masters", dict(bf16_params=False)),
+                     ("shadow_tree", dict(bf16_params=True)),
+                     ("shadow_fused", dict(bf16_params=True, fused=True))):
+        fresh(**kw)
+        runs[name] = trajectory()
+    # ZeRO-1 under the shadow as a world of one over NCCL
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                     device="cuda")
+    try:
+        mesh = make_mesh(device="cuda")
+        fresh(True, mesh=mesh, zero=True)
+        runs["zero_world_of_one"] = trajectory()
+        runs["zero_world_of_one"]["backend"] = mesh.backend
+    finally:
+        t.state.mesh = None
+        shutdown_distributed()
+    t.opt.warmup = warmup
+    ref = runs["masters"]["masters"]
+    init_by_name = dict(zip(t.names, init))
+    rows = {}
+    for name, run in runs.items():
+        rows[name] = dict(
+            losses=run["losses"], kernel7_launches=run["kernel7_launches"],
+            shadow_fresh_cast=run["fresh_cast"], bytes=run["bytes"])
+        if name != "masters":
+            rows[name].update(
+                updates_vs_masters=update_agreement(
+                    torch, run["masters"], ref, init_by_name),
+                envelope_vs_masters=envelope(torch, run["masters"], ref))
+    # what the measures read for masters left as they were
+    unchanged = dict(updates=update_agreement(torch, init_by_name, ref,
+                                              init_by_name),
+                     envelope=envelope(torch, init_by_name, ref))
+    zero, tree = runs["zero_world_of_one"], runs["shadow_tree"]
+    rows["zero_world_of_one"].update(
+        backend=zero["backend"],
+        bit_for_bit_vs_shadow_tree=all(torch.equal(zero["masters"][n], x)
+                                       for n, x in tree["masters"].items())
+        and zero["losses"] == tree["losses"])
+    del runs, ref
+    gc.collect()
+    emit("shadow_trajectory", plan=list(SHADOW_PLAN), runs=rows,
+         unchanged_masters=unchanged, rate="constant (no warmup)",
+         update_rtol=SHADOW_UPDATE_RTOL,
+         update_param_rtol=SHADOW_UPDATE_PARAM_RTOL,
+         envelope=dict(rtol=SHADOW_ENV_RTOL, atol=SHADOW_ENV_ATOL),
+         card=card)
+    check(not unchanged["updates"]["within"],
+          f"masters left unchanged pass the update gate: {unchanged}")
+    for name, row in rows.items():
+        if name == "masters":
+            continue
+        check(row["shadow_fresh_cast"], f"{name}: the shadow is not the "
+                                        "masters' fresh cast")
+        check(row["updates_vs_masters"]["within"]
+              and row["envelope_vs_masters"]["within"],
+              f"{name} against the masters' run: {row}")
+    check(rows["shadow_fused"]["kernel7_launches"]
+          == UPDATES_PER_BATCH * len(SHADOW_PLAN),
+          f"kernel 7 launches {rows['shadow_fused']['kernel7_launches']}")
+    z = rows["zero_world_of_one"]
+    check(z["backend"] == "nccl" and z["bit_for_bit_vs_shadow_tree"],
+          f"ZeRO-1 world of one against one rank: {z}")
+    check(z["bytes"]["total"] == z["bytes"]["expected_bytes"]
+          and z["bytes"]["sliced"] > 0, f"ZeRO-1 bytes: {z['bytes']}")
+
+    # the weight casts of one batch each way: none reads a shadowed master
+    # under the shadow
+    casts = {}
+    for bf16_params in (False, True):
+        fresh(bf16_params)
+        casts["shadow" if bf16_params else "masters"] = weight_casts(
+            torch, t.steps["relation"], t.state, t.batch, shadowed)
+    emit("shadow_weight_casts", card=card, shadowed_leaves=len(shadowed),
+         runs=casts, note="one two-phase batch (relation) under a "
+                          "dispatch mode; weight_casts read a shadowed "
+                          "leaf's master")
+    check(casts["shadow"]["weight_casts"] == 0
+          and casts["masters"]["weight_casts"] >= len(shadowed),
+          f"weight casts with and without the shadow: {casts}")
+
+    # ms per batch with and without the shadow in turns, then one profiled
+    # batch of each
+    turns = []
+    for bf16_params in SHADOW_TURNS:
+        fresh(bf16_params)
+        turns.append(dict(shadow=bf16_params, **time_batches(
+            torch, t, SHADOW_TIMED_BATCHES)))
+    # each pair of turns holds one of each: shadow minus masters, with its
+    # mean's 95% interval, of the wall and of the host's CPU ms per batch
+    paired = {}
+    for key in ("ms_per_batch", "cpu_ms_per_batch"):
+        diffs = [on[key] - off[key] for on, off in
+                 ((b, a) if b["shadow"] else (a, b)
+                  for a, b in zip(turns[::2], turns[1::2]))]
+        mean = statistics.mean(diffs)
+        half = T_975_5 * statistics.stdev(diffs) / len(diffs) ** 0.5
+        paired[key] = dict(shadow_minus_masters=diffs, mean=mean,
+                           ci95=[mean - half, mean + half],
+                           resolved=not mean - half <= 0 <= mean + half)
+    profiles = {}
+    for bf16_params in (False, True):
+        fresh(bf16_params)
+        ms = statistics.mean(x["ms_per_batch"] for x in turns
+                             if x["shadow"] == bf16_params)
+        profiles["shadow" if bf16_params else "masters"] = profile_casts(
+            torch, t.steps["relation"], t.state, t.batch, ms)
+    # the host's own cost of the shadow per phase: the overlay's swap in and
+    # out, and the gradients' upcast (the shadow's tensors standing in for
+    # its gradients; the copy's enqueue included)
+    shadow_leaves = list(t.state.shadow.values())
+
+    def overlay():
+        with shadow_overlay(t.state):
+            pass
+
+    host = dict(overlay_ms=host_ms(overlay),
+                upcast_ms=host_ms(lambda: upcast_grads(shadow_leaves)))
+    del shadow_leaves
+    by_turn = {flag: [x["ms_per_batch"] for x in turns
+                      if x["shadow"] == flag] for flag in (False, True)}
+    emit("shadow_timing", card=card, turns=turns, profiles=profiles,
+         ms_per_batch_masters=statistics.mean(by_turn[False]),
+         ms_per_batch_shadow=statistics.mean(by_turn[True]),
+         cpu_ms_per_batch_masters=statistics.mean(
+             x["cpu_ms_per_batch"] for x in turns if not x["shadow"]),
+         cpu_ms_per_batch_shadow=statistics.mean(
+             x["cpu_ms_per_batch"] for x in turns if x["shadow"]),
+         paired=paired,
+         host_ms_per_phase=host,
+         note="a two-phase batch of 96 (relation); host_ops counts the "
+              "profiled batch's aten::_to_copy and aten::copy_ calls")
+    check(profiles["shadow"]["host_ops"]["aten::_to_copy"]
+          < profiles["masters"]["host_ops"]["aten::_to_copy"],
+          f"the shadow left the casts: {profiles}")
+
+    # kernel 7 with the shadow: phase 9's check over the full state, and the
+    # odd lengths here
+    lengths = check_kernel7_shadow_lengths(torch, fa)
+    emit("shadow_kernel7", card=card, ms=adam["ms"],
+         no_shadow_ms=adam["no_shadow_ms"], bound_ms=adam["bound_ms"],
+         no_shadow_bound_ms=adam["no_shadow_bound_ms"],
+         bound_share=adam["bound_share"], plain_ms=adam["plain_ms"],
+         shadow_bit_for_bit=adam["shadow_bit_for_bit"],
+         max_abs_err=adam["max_abs_err"], elements=adam["elements"],
+         shadowed_elements=adam["shadowed_elements"], odd_lengths=lengths,
+         note="phase 9's full-state check and timing (check_kernel7)")
+
+    # ZeRO-1 under the shadow on two gloo ranks: phase 15 (b)'s ZeRO runs
+    two = [dict(fused=r["fused"], bytes=r["shadow_bytes"],
+                envelope=r["envelope"], shadow_fresh_cast=r[
+                    "shadow_fresh_cast"], update_agreement={
+                    k: r["update_agreement"][k] for k in (
+                        "grad_rel_l2", "max_param_grad_rel_l2")})
+           for r in zero_rows]
+    emit("shadow_zero_two_ranks", card=card, runs=two,
+         note="phase 15 (b)'s bf16 ZeRO-1 runs: two gloo ranks of 48 rows "
+              "on one card against one rank of 96")
+    check(two and all(r["bytes"]["total"] == r["bytes"]["expected_bytes"]
+                      and r["bytes"]["sliced"] > 0 and r["shadow_fresh_cast"]
+                      and r["envelope"]["within"] for r in two),
+          f"ZeRO-1 under the shadow on two ranks: {two}")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("shadow", seconds=time.perf_counter() - t0,
+         seconds_so_far=time.perf_counter() - t_start)
+    return {"bert_adam": rows["shadow_fused"]["kernel7_launches"]}
+
+
 def post(url: str, payload: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -5205,7 +5774,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 15. scale-out: a world of one, two ranks, remat
-    scale_out = phase_scale_out(torch, attn, fa, t_start)
+    scale_out, zero_rows = phase_scale_out(torch, attn, fa, t_start)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5220,6 +5789,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lineage(torch, card, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. the bf16 parameter shadow: with and without it, kernel 7's shadow
+    # store, ZeRO-1 of the shadowed masters
+    shadow = phase_shadow(torch, fa, adam, zero_rows, card, t_start)
 
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
@@ -5235,7 +5810,7 @@ def main() -> int:
     def scaled_out(kernel):
         return {part: counts[kernel] for part, counts in scale_out.items()}
 
-    # 18. summary: one entry per kernel. Kernel 1 over one forward's
+    # 19. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
     # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
     # update of every parameter.
@@ -5384,17 +5959,22 @@ def main() -> int:
          "launches": fused_launches["bert_adam"],
          "scale_out_launches": scaled_out("bert_adam"),
          "model_parallel_launches": model_parallel["bert_adam"],
+         "shadow_launches": shadow["bert_adam"],
          "max_abs_err": adam["max_abs_err"], "ms": adam["ms"],
          "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
          "bound_by": adam["bound_by"], "library_ms": None,
+         "no_shadow_ms": adam["no_shadow_ms"],
+         "no_shadow_bound_ms": adam["no_shadow_bound_ms"],
          "fused_adamw_ms": adam["fused_adamw_ms"],
          "wrapper_ms": adam["wrapper_ms"],
          "timed_over": "one update of all parameters, every gradient "
-                       "present; ms launches the kernel from one table on "
-                       "the card, wrapper_ms calls fused_adam (host work "
-                       "included); no PyTorch call computes BertAdam: "
-                       "fused_adamw_ms is torch._fused_adamw_ over the same "
-                       "tensors, with bias correction"}]}), flush=True)
+                       "present, the bf16 shadow of the shadowed ones "
+                       "written (no_shadow_ms: not, in turns); ms launches "
+                       "the kernel from one table on the card, wrapper_ms "
+                       "calls fused_adam (host work included); no PyTorch "
+                       "call computes BertAdam: fused_adamw_ms is "
+                       "torch._fused_adamw_ over the same tensors, with bias "
+                       "correction"}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -17,7 +17,12 @@ global batch:
     slice for slice and saved again, gathered, as ONE_RESAVED;
   * two epochs of `LxmertPretrainer` with accum_steps 2, recording every
     microbatch's losses (the ranks' mean) and the averaged gradient of
-    each update.
+    each update;
+  * the task trajectory again in bf16 with the bf16 parameter shadow, as
+    "dp", "zero" and "zero_fused", and on rank 0 as one rank at the global
+    batch ("one"): the ZeRO-1 layout of the masters, a rank's bytes of
+    masters, moments and shadow, the gathered snapshot, the shadow against
+    a fresh cast of the masters, and a restore of the snapshot.
 
 It writes WORKDIR/results_{RANK}.pt and prints WORKER_OK RANK.
 """
@@ -88,6 +93,74 @@ def task_runs(inp, mesh):
             ckpt.save("ZERO2", {"model": model.state_dict(),
                                 "opt_state": whole.state_dict()})
             ckpt.wait()
+    return out
+
+
+def shadow_runs(inp, mesh):
+    """The task trajectory in bf16 with the shadow, as "dp", "zero",
+    "zero_fused" and (rank 0) "one": per step the metrics, then the
+    gathered snapshot, the shadow and the ZeRO-1 layout and bytes."""
+    cfg = inp["cfg"]
+    cfg = cfg.replace(lxmert=cfg.lxmert.replace(dtype="bfloat16"))
+    runs = [("dp", {}, False, mesh), ("zero", {}, True, mesh),
+            ("zero_fused", {"fused": True}, True, mesh)]
+    if mesh.rank == 0:
+        runs.append(("one", {}, False, None))
+    out = {}
+    for name, kw, zero, run_mesh in runs:
+        model = XGGMModel(cfg.lxmert, cfg.num_answers, cfg.ggm, device="cpu")
+        model.load_state_dict(inp["flat0"])
+        opt = BertAdam(inp["lr"], inp["warmup"], inp["t_total"], **kw)
+        state, _ = maybe_zero_shard_state(
+            TrainState.create(model, opt, run_mesh), run_mesh, zero)
+        record = []
+        for i, (branch, batch) in enumerate(zip(inp["plan"],
+                                                inp["batches"])):
+            rows = ({k: torch.from_numpy(v) for k, v in batch.items()}
+                    if run_mesh is None else
+                    {k: torch.from_numpy(process_slice(v, mesh.rank,
+                                                       mesh.size))
+                     for k, v in batch.items()})
+            for k in INT_KEYS:
+                rows[k] = rows[k].long()
+            step = make_ggm_train_step(model, opt, cfg.train, branch)
+            state, m = step(state, rows, i)
+            record.append({k: float(m[k]) for k in inp["metrics"]})
+        opt_state = state.opt_state
+        shadow = state.shadow
+        masters, opt_sd = steps.whole_snapshot(model, state)
+        sliced = sorted(opt_state.sliced)
+        bytes_ = {
+            "masters": sum(state.params[n].numel() * 4 for n in shadow),
+            "moments": sum((opt_state.m[n].numel() + opt_state.v[n].numel())
+                           * 4 for n in shadow),
+            "shadow": sum(t.numel() * 2 for t in shadow.values()),
+            "shadowed": sum(t.numel() for t in shadow.values())}
+        fresh = all(torch.equal(shadow[n], masters[n].to(torch.bfloat16))
+                    for n in shadow)
+        restored_ok = None
+        if zero:
+            # a restore of the gathered snapshot: the masters re-sliced
+            # and the shadow cast anew, equal to what was saved
+            steps.restore_snapshot(model, state,
+                                   {"model": masters, "opt_state": opt_sd},
+                                   True, "snapshot")
+            again, _ = steps.whole_snapshot(model, state)
+            restored_ok = (sorted(state.opt_state.sliced) == sliced
+                           and all(torch.equal(again[n], masters[n])
+                                   for n in masters)
+                           and all(torch.equal(state.shadow[n],
+                                               masters[n].to(torch.bfloat16))
+                                   for n in state.shadow))
+        out[name] = {
+            "record": record,
+            "params": {n: t.clone() for n, t in masters.items()},
+            "shadow": {n: t.detach().clone() for n, t in shadow.items()},
+            "fresh_cast": fresh, "sliced": sliced,
+            "dims": {n: s[0] for n, s in (opt_state.shards or {}).items()},
+            "param_shapes": {n: tuple(p.shape)
+                             for n, p in state.params.items()},
+            "bytes": bytes_, "restored_ok": restored_ok}
     return out
 
 
@@ -170,6 +243,7 @@ def main():
         results = {"host_ranks": host_ranks(),
                    "task": task_runs(inp, mesh),
                    "reverse": reverse_checkpoint(inp, mesh),
+                   "shadow": shadow_runs(inp, mesh),
                    "pretrain": pretrain_run(inp, mesh)}
         torch.save(results, os.path.join(workdir, f"results_{rank}.pt"))
     finally:

@@ -190,7 +190,11 @@ def cuda():
 def test_kernel_matches_plain_version(cuda):
     """Kernel 7 against `fused_adam_reference` on leaves of 1, 7, 1842 and
     64 x 1842 elements, one more of 1842 at a 4-byte offset (the scalar
-    path), one with a null gradient and one inactive (rate 0); one launch."""
+    path), one with a null gradient and one inactive (rate 0); one launch.
+    Then the same update writing a bf16 shadow of every leaf but one (at
+    lengths 1 and 7, the null row, a shadow 2 bytes off its buffer's
+    start): each shadow equals the updated p cast to bf16, bit for bit, and
+    the plain version's; p, m and v as without it."""
     rng = np.random.RandomState(2)
     shapes = [(1,), (7,), (1842,), (64, 1842), (1842,), (7, 33), (5, 5)]
     buf = torch.zeros(4 * 1843, device=cuda)  # holds the unaligned leaf
@@ -224,3 +228,30 @@ def test_kernel_matches_plain_version(cuda):
     with pytest.raises(ValueError):
         fused_adam([leaves[0][0].double()], *[[x] for x in leaves[0][1:]],
                    [0], clip, lr_eff, **hyper)
+
+    # the shadow: leaf 2's none, leaf 3's misaligned
+    starts = [[None if x is None else x.clone() for x in leaf]
+              for leaf in want]
+    odd = torch.empty(64 * 1842 + 1, device=cuda, dtype=torch.bfloat16)
+    shadows = [None if t == 2 else
+               odd[1:].view(64, 1842) if t == 3 else
+               torch.empty(shape, device=cuda, dtype=torch.bfloat16)
+               for t, shape in enumerate(shapes)]
+    plain_shadows = [None if x is None else x.clone() for x in shadows]
+    ref = [[None if x is None else x.clone() for x in leaf]
+           for leaf in starts]
+    fused_adam(*zip(*starts), indices, clip, lr_eff, **hyper,
+               shadows=shadows)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + 2
+    fused_adam_reference(*zip(*ref), indices, clip, lr_eff, **hyper,
+                         shadows=plain_shadows)
+    for t, (got, w) in enumerate(zip(starts, ref)):
+        for name, a, x in zip("mvp", got[1:], w[1:]):
+            torch.testing.assert_close(a, x, msg=f"leaf {t} {name}", **TOL)
+        if shadows[t] is not None:
+            assert torch.equal(shadows[t], got[3].to(torch.bfloat16)), t
+            assert torch.equal(shadows[t], plain_shadows[t]), t
+    with pytest.raises(ValueError):
+        fused_adam(*[[x] for x in starts[0]], [0], clip, lr_eff, **hyper,
+                   shadows=[shadows[0].float()])

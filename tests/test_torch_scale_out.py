@@ -18,7 +18,17 @@ blocked), started once per module while this process compiles JAX's steps.
         JAX's `maybe_zero_shard_state` on a 2-device data mesh; a ZeRO
         checkpoint written by the two ranks read by one rank, and a
         single-rank checkpoint sharded and written again by two, bit for
-        bit;
+        bit. Then in bf16 with the bf16 parameter shadow (the JAX
+        package's `zero_state_shardings` with its shadow; the counterpart
+        of tests/test_zero_sharding.py's layout and bf16 envelope tests):
+        ZeRO-1 equal to data parallelism bit for bit, both ranks alike,
+        the tree and the fused BertAdam against one rank at the global
+        batch within JAX's envelope (per leaf, relative L2 at most 3e-2
+        plus 2e-5), the masters JAX's layout splits split along their
+        moments' dimension and the others whole, a rank's bytes of
+        masters, moments and shadow 12/N + 2 per shadowed parameter, the
+        shadow a fresh cast of the masters, the gathered snapshot the
+        single-rank one, and its restore re-slicing it;
   (iii) two epochs of `LxmertPretrainer` with accum_steps 2 (two updates)
         on two ranks against one rank on the global batch of 8 and against
         JAX's loss and gradient on each global microbatch: the masked-LM,
@@ -429,6 +439,71 @@ def test_zero_trajectory_and_cross_world_checkpoint(runs):
         assert a["opt_state"][key] == b["opt_state"][key], key
     for key in ("lr_scale", "leaf_count", "active"):
         assert torch.equal(a["opt_state"][key], b["opt_state"][key]), key
+
+    _check_zero_shadow(runs, params, tx, mesh)
+
+
+def _envelope(got, want, what):
+    """JAX's bf16-shadow envelope (tests/test_bf16_shadow.py): per leaf,
+    |got - want| <= 3e-2 |want| + 2e-5 in L2."""
+    for n, w in want.items():
+        diff = float((got[n].double() - w.double()).norm())
+        assert diff <= 3e-2 * float(w.double().norm()) + 2e-5, (what, n)
+
+
+def _check_zero_shadow(runs, params, tx, mesh):
+    """(ii) in bf16 with the shadow: `_torch_dist_worker.shadow_runs`
+    against JAX's shadowed ZeRO layout on the 2-device data mesh."""
+    from xggm_tpu.parallel.mesh import maybe_zero_shard_state, \
+        param_shardings
+    from xggm_tpu.training import steps as jax_steps
+
+    r0, r1 = (r["shadow"] for r in runs["ranks"])
+    one, dp = r0["one"], r0["dp"]
+    assert one["sliced"] == [] and dp["sliced"] == []
+    for run in ("dp", "zero", "zero_fused"):
+        for r in (r0, r1):
+            got = r[run]
+            assert got["fresh_cast"], run
+            assert set(got["shadow"]) == set(one["shadow"]), run
+            for n, t in got["params"].items():
+                assert torch.equal(t, r0[run]["params"][n]), (run, n)
+            for a, b in zip(got["record"], one["record"]):
+                for k in a:
+                    np.testing.assert_allclose(a[k], b[k], rtol=2e-2,
+                                               atol=1e-3, err_msg=run)
+        _envelope(r0[run]["params"], one["params"], run)
+    for n, t in dp["params"].items():
+        assert torch.equal(r0["zero"]["params"][n], t), n
+    assert r0["zero"]["record"] == dp["record"]
+
+    state, shardings = maybe_zero_shard_state(
+        jax_steps.TrainState(params, tx.init(params),
+                             jax_steps.bf16_param_shadow(params)),
+        mesh, param_shardings(params, mesh), True)
+    flat = {port_name(jax_steps._path_str(path)): sh for path, sh in
+            jax.tree_util.tree_leaves_with_path(shardings.params)}
+    jax_sliced = sorted(n for n, sh in flat.items()
+                        if "data" in tuple(sh.spec))
+    assert set(state.params_bf16) and set(
+        port_name(k) for k in state.params_bf16) == set(one["shadow"])
+    for r in (r0, r1):
+        for run in ("zero", "zero_fused"):
+            got = r[run]
+            assert got["sliced"] == jax_sliced and jax_sliced, run
+            assert got["restored_ok"], run
+            for n, shape in got["param_shapes"].items():
+                whole = tuple(dp["params"][n].shape)
+                if n not in got["sliced"]:
+                    assert shape == whole, (run, n)
+                    continue
+                d = got["dims"][n]
+                assert shape[d] * RANKS == whole[d] and all(
+                    a == b for i, (a, b) in enumerate(zip(shape, whole))
+                    if i != d), (run, n)
+            b = got["bytes"]
+            assert (b["masters"] + b["moments"] + b["shadow"]
+                    == (12 / RANKS + 2) * b["shadowed"]), (run, b)
 
 
 def test_two_rank_pretraining_matches_one_rank_and_jax(runs, monkeypatch):

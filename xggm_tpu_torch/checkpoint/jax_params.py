@@ -63,6 +63,24 @@ _LIST_NAMES = {"layer": "layer", "r_layer": "r_layers", "x_layer": "x_layers",
 _JAX_LISTS = {v: k for k, v in _LIST_NAMES.items()}
 
 
+# Parent-module markers of the leaves the model reads in float32
+# (LayerNorms); every other kernel and bias is read in the compute dtype.
+_LN_MARKERS = ("layernorm", "layer_norm")
+
+
+def bf16_consumed(key: str) -> bool:
+    """Whether the JAX parameter `key` ('/'-joined path) is one the model
+    reads in the compute dtype, the JAX package's rule
+    (`xggm_tpu/training/steps.py::_bf16_consumed`): a `kernel` or `bias`
+    whose parent module's name holds no LayerNorm marker. The leaves it
+    selects are the bf16 parameter shadow's and the bf16 leaves of an
+    exported artifact."""
+    parts = key.split("/")
+    parent = parts[-2].lower() if len(parts) > 1 else ""
+    return (parts[-1] in ("kernel", "bias")
+            and not any(m in parent for m in _LN_MARKERS))
+
+
 def bf16_bits_to_float32(bits: np.ndarray) -> np.ndarray:
     """uint16 bf16 bit patterns -> the float32 values they encode (exact)."""
     return (bits.astype(np.uint32) << 16).view(np.float32)

@@ -67,7 +67,7 @@ def main(argv=None) -> str:
         trainer.model, args.artifact,
         batch_size=None if args.serve_bs == 0 else args.serve_bs,
         label2ans=trainer.label2ans, bf16_weights=not args.fp32_weights,
-        quantize=args.quantize,
+        quantize=args.quantize, shadow=trainer.state.shadow,
         notes={"task": args.task, "load": args.load or None,
                "load_lxmert": args.load_lxmert or None,
                "load_lxmert_qa": args.load_lxmert_qa or None})

@@ -124,6 +124,10 @@ class TrainConfig:
     rep_sm_mult: float = 1.1
     # VQA-CP runs the clean phase before the GGM phase; GQA the reverse.
     clean_phase_first: bool = False
+    # Under bf16 compute, carry a bf16 copy of the leaves the model reads in
+    # bf16 and run the forward and backward from it
+    # (training/steps.py::bf16_param_shadow); ignored in fp32.
+    bf16_params: bool = True
     # Pretraining: one BertAdam update on the mean gradient of this many
     # consecutive microbatches of batch_size (t_total counts the updates).
     accum_steps: int = 1

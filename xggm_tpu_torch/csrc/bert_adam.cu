@@ -11,7 +11,12 @@
 //   v' = b2 * v + (1 - b2) * g' * g'
 //   p' = p - lr_eff * (m' / (sqrt(v') + eps) + wd * p)     (wd * p if wd > 0)
 //
-// written to m, v and p in place (the TPU kernel's input_output_aliases).
+// written to m, v and p in place (the TPU kernel's input_output_aliases),
+// and, where the row carries a bf16 shadow of the parameter, s = bf16(p')
+// rounded to nearest even (__float2bfloat16_rn, the rounding of
+// torch.Tensor.to(torch.bfloat16)): the refresh of the bf16 parameter
+// shadow that the JAX package's train step runs after its update
+// (xggm_tpu/training/steps.py::_clip_update_apply), done in the same pass.
 // c is one fp32 on the device for the whole update; lr_eff is entry `index`
 // of a device vector of per-parameter rates, lr(count) * lr_scale where the
 // parameter is active and 0 where it is not. A null g is a zero gradient:
@@ -22,21 +27,25 @@
 //
 // What bounds it: memory bandwidth. An element reads g, m, v, p and writes
 // m, v, p: 28 bytes for some 12 FLOPs, far below the ~20 FLOP/byte at which
-// fp32 arithmetic would be the limit. 220,128,936 parameters move 6.16 GB,
-// 1.84 ms at 3.35 TB/s.
+// fp32 arithmetic would be the limit; a shadowed element writes 2 more.
+// 220,128,936 parameters move 6.16 GB, 1.84 ms at 3.35 TB/s; with the
+// 196,185,768 shadowed ones of the full-width GQA-OOD model, 6.55 GB and
+// 1.96 ms.
 //
 // Design: the TPU launches one pallas_call per leaf (395 per update at full
 // width). Here one launch covers every parameter: the caller passes a table
-// of rows (g, m, v, p, numel, index, first_chunk, unused), 8 x 64 bits
+// of rows (g, m, v, p, numel, index, first_chunk, shadow), 8 x 64 bits
 // each, and the grid has one block per chunk of kChunk elements of every
 // row in turn; row t owns blocks first_chunk[t] .. first_chunk[t + 1] - 1,
 // and a block finds its row by binary search. The table lives on the
 // device (the caller copies it without a synchronisation, since the
 // gradient pointers change every update). Loads and stores are float4
-// where all four pointers are 16-byte aligned, with a scalar tail for a
-// length that is not a multiple of 4 (sizes 1 and 7 exist); otherwise the
-// block goes element by element.
+// where all four fp32 pointers are 16-byte aligned and the shadow (if any)
+// 8-byte aligned, the shadow's four values then stored as one 8-byte word;
+// a scalar tail takes a length that is not a multiple of 4 (sizes 1 and 7
+// exist); otherwise the block goes element by element.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,7 +62,7 @@ struct AdamRow {  // one row of the table: 8 x 64 bits
   long long numel;
   long long index;        // entry of lr_eff
   long long first_chunk;  // first block of this row
-  long long unused;
+  __nv_bfloat16* shadow;  // null: the parameter has no bf16 shadow
 };
 static_assert(sizeof(AdamRow) == 64, "the table's rows are 8 x 64 bits");
 
@@ -95,12 +104,13 @@ bert_adam_kernel(const AdamRow* __restrict__ table, int rows,
                          reinterpret_cast<uintptr_t>(t.m) |
                          reinterpret_cast<uintptr_t>(t.v) |
                          reinterpret_cast<uintptr_t>(t.p);
-  if ((addr & 15) == 0) {
+  if ((addr & 15) == 0 && (reinterpret_cast<uintptr_t>(t.shadow) & 7) == 0) {
     const long long nvec = (end - begin) >> 2;
     const float4* g4 = reinterpret_cast<const float4*>(t.g + begin);
     float4* m4 = reinterpret_cast<float4*>(t.m + begin);
     float4* v4 = reinterpret_cast<float4*>(t.v + begin);
     float4* p4 = reinterpret_cast<float4*>(t.p + begin);
+    uint2* s4 = reinterpret_cast<uint2*>(t.shadow + begin);
     for (long long i = threadIdx.x; i < nvec; i += kThreads) {
       const float4 g = t.g ? g4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
       float4 m = m4[i], v = v4[i], p = p4[i];
@@ -111,6 +121,12 @@ bert_adam_kernel(const AdamRow* __restrict__ table, int rows,
       m4[i] = m;
       v4[i] = v;
       p4[i] = p;
+      if (t.shadow) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(p.x, p.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p.z, p.w);
+        s4[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                           *reinterpret_cast<const uint32_t*>(&hi));
+      }
     }
     tail = begin + (nvec << 2);
   }
@@ -121,6 +137,7 @@ bert_adam_kernel(const AdamRow* __restrict__ table, int rows,
     t.m[i] = m;
     t.v[i] = v;
     t.p[i] = p;
+    if (t.shadow) t.shadow[i] = __float2bfloat16_rn(p);
   }
 }
 
@@ -130,7 +147,7 @@ extern "C" {
 
 // `table`: `rows` rows of AdamRow on the device, every numel > 0, the rows'
 // first_chunk the running sum of ceil(numel / chunk) from 0, `chunks` the
-// total; clip_scale one fp32 and lr_eff fp32 [max index + 1] on the device.
+// total, each shadow null or a bf16 buffer of numel elements; clip_scale one fp32 and lr_eff fp32 [max index + 1] on the device.
 // The hyperparameters come as doubles and are rounded to fp32 here, 1 - b1
 // and 1 - b2 after the subtraction in double, as a Python float scalar is
 // rounded when it meets an fp32 tensor. Returns cudaGetLastError() after

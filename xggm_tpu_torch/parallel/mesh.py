@@ -21,16 +21,23 @@ output width is at least `min_model_dim` and divides by the model group's
 size keeps its rank's contiguous slice of the output dim, as JAX's rule
 shards it.
 
-ZeRO-1 (`maybe_zero_shard_state`): each BertAdam m and v is split along its
-first dimension that the data group's size divides and that tensor
-parallelism did not split (`_with_data_axis`), each rank keeping its slice;
-a leaf with no such dimension stays whole on every rank. The port keeps no
-bf16 shadow, so the fp32 masters, which the forward reads, stay whole, as
-the JAX package keeps the masters its forward reads. After the all-reduce
-every rank holds the whole averaged gradient, so each computes the same
-global norm and activation flags as data parallelism does, updates its
-slice of every sharded parameter, and the slices are all-gathered
-(`gather_params_`): the update is the data-parallel one, bit for bit.
+ZeRO-1 (`maybe_zero_shard_state`, the layout of JAX's
+`zero_state_shardings`): each BertAdam m and v is split along its first
+dimension that the data group's size divides and that tensor parallelism
+did not split (`_with_data_axis`), each rank keeping its slice; a leaf with
+no such dimension stays whole on every rank. With the bf16 shadow
+(`training/steps.py`) the fp32 master of each shadowed leaf is split along
+the same dimension (`BertAdamState.sliced` names them): the forward reads
+the shadow, never those masters. The masters the forward reads in fp32
+(LayerNorm, embeddings; all of them without a shadow) stay whole. A rank
+then holds 12/N + 2 bytes per shadowed parameter (its slices of the
+master, m and v, and the whole bf16 shadow). After the all-reduce every
+rank holds the whole averaged gradient, so each computes the same global
+norm and activation flags as data parallelism does and updates its slice
+of every sharded parameter; `gather_params_` then all-gathers, in one
+collective each, the fp32 slices of the whole masters and the bf16 slices
+of the refreshed shadow. Without a shadow the update is the data-parallel
+one, bit for bit.
 """
 from __future__ import annotations
 
@@ -298,8 +305,9 @@ def _with_data_axis(shape: Sequence[int], data_size: int,
 
 def zero_state_shardings(state, mesh: Mesh) -> Dict[str, Optional[int]]:
     """The ZeRO-1 layout of a TrainState: {parameter name: the dimension its
-    m and v are split along over the data group, None for a whole leaf}.
-    The masters, counters and flags stay whole."""
+    m and v (and, for a shadowed leaf, its master) are split along over the
+    data group, None for a whole leaf}. The counters, flags and the shadow
+    stay whole."""
     split = state.opt_state.split or {}
     return {n: _with_data_axis(tuple(m.shape), mesh.size, split.get(n))
             for n, m in state.opt_state.m.items()}
@@ -308,7 +316,9 @@ def zero_state_shardings(state, mesh: Mesh) -> Dict[str, Optional[int]]:
 def maybe_zero_shard_state(state, mesh: Optional[Mesh], enabled: bool):
     """Validate and apply the ZeRO-1 layout when `enabled`: each rank keeps
     its slice of every split m and v (`BertAdamState.shards` records
-    them). The one entry point both trainers call on init, --resume and
+    them) and, with a shadow, of the master of every split shadowed leaf
+    (`BertAdamState.sliced`; the parameter's data is replaced by its
+    slice). The one entry point both trainers call on init, --resume and
     --load. Returns (state, layout or None); `state` is changed in place."""
     if not enabled:
         return state, None
@@ -329,8 +339,13 @@ def maybe_zero_shard_state(state, mesh: Optional[Mesh], enabled: bool):
         return {n: x.narrow(*shards[n]).clone() if n in shards else x
                 for n, x in moments.items()}
 
+    sliced = set(shards) & set(state.shadow or {})
+    for n in sliced:
+        p = state.params[n]
+        p.data = p.data.narrow(*shards[n]).clone()
     state.opt_state = dataclasses.replace(opt, m=local(opt.m),
-                                          v=local(opt.v), shards=shards)
+                                          v=local(opt.v), shards=shards,
+                                          sliced=sliced)
     return state, dims
 
 
@@ -340,37 +355,71 @@ def axis_sharded_leaves(opt_state) -> List[str]:
     return sorted(opt_state.shards or {})
 
 
+def _whole_of(slices: Sequence[torch.Tensor],
+              shards: Sequence[Tuple[int, int, int]],
+              mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """New whole tensors of `slices` (each this rank's shard (dim, start,
+    length) of its tensor), the other ranks' slices filled in by one
+    all-gather."""
+    fulls = []
+    for x, (d, start, length) in zip(slices, shards):
+        shape = list(x.shape)
+        shape[d] = length * (mesh.size if mesh is not None else 1)
+        full = x.new_empty(shape)
+        full.narrow(d, start, length).copy_(x)
+        fulls.append(full)
+    if mesh is not None:
+        _gather_slices(fulls, list(shards), mesh)
+    return fulls
+
+
 def gathered_opt_state(opt_state, mesh: Optional[Mesh]):
     """A whole (single-rank layout) copy of a ZeRO-sharded BertAdam state,
     its split moments all-gathered; an unsharded state as it is. Every rank
     calls it."""
     if not opt_state.shards:
         return opt_state
-    m, v = dict(opt_state.m), dict(opt_state.v)
     names = list(opt_state.shards)
     slices = [opt_state.shards[n] for n in names]
-    fulls = []
-    for moments in (m, v):
-        for n, (d, _, length) in zip(names, slices):
-            shape = list(moments[n].shape)
-            shape[d] = length * (mesh.size if mesh is not None else 1)
-            full = moments[n].new_empty(shape)
-            full.narrow(*opt_state.shards[n]).copy_(moments[n])
-            moments[n] = full
-            fulls.append(full)
-    if mesh is not None:
-        _gather_slices(fulls, slices * 2, mesh)
-    return dataclasses.replace(opt_state, m=m, v=v, shards=None)
+    fulls = _whole_of([opt_state.m[n] for n in names]
+                      + [opt_state.v[n] for n in names], slices * 2, mesh)
+    m = {**opt_state.m, **dict(zip(names, fulls[:len(names)]))}
+    v = {**opt_state.v, **dict(zip(names, fulls[len(names):]))}
+    return dataclasses.replace(opt_state, m=m, v=v, shards=None,
+                               sliced=set())
+
+
+def whole_masters(state_dict: Mapping[str, torch.Tensor], opt_state,
+                  mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """`state_dict` (a model's) with the masters that `opt_state.sliced`
+    names made whole: new tensors, the other ranks' slices all-gathered in
+    one collective. Every rank calls it."""
+    out = dict(state_dict)
+    names = sorted(opt_state.sliced)
+    if names:
+        with torch.no_grad():
+            out.update(zip(names, _whole_of(
+                [out[n].detach() for n in names],
+                [opt_state.shards[n] for n in names], mesh)))
+    return out
 
 
 def gather_params_(params: Dict[str, torch.Tensor], opt_state,
-                   mesh: Optional[Mesh]) -> None:
+                   mesh: Optional[Mesh],
+                   shadow: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """After a ZeRO-1 update, in which each rank updated its slice of every
-    sharded parameter: fill in the other ranks' slices."""
+    sharded parameter (and refreshed its slice of the shadow of the sliced
+    ones): fill in the other ranks' slices, of the whole fp32 masters in
+    one all-gather and of the shadow in one bf16 all-gather."""
     shards = opt_state.shards
     if not shards or mesh is None or mesh.size == 1:
         return
-    names = list(shards)
+    sliced = opt_state.sliced
+    whole = [n for n in shards if n not in sliced]
+    low = [n for n in shards if n in sliced]
     with torch.no_grad():
-        _gather_slices([params[n].data for n in names],
-                       [shards[n] for n in names], mesh)
+        _gather_slices([params[n].data for n in whole],
+                       [shards[n] for n in whole], mesh)
+        if low:
+            _gather_slices([shadow[n] for n in low],
+                           [shards[n] for n in low], mesh)

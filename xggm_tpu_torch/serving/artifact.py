@@ -29,15 +29,15 @@ import numpy as np
 import torch
 
 from xggm_tpu_torch.checkpoint.jax_params import (
-    GGM_SUBMODULES, bf16_bits_to_float32, from_jax_params, port_name,
-    to_jax_params)
+    GGM_SUBMODULES, bf16_bits_to_float32, from_jax_params, jax_names,
+    port_name, to_jax_params)
 from xggm_tpu_torch.config import (
     MAX_SEQ_LENGTH, NUM_OBJECTS, LxmertConfig, XGGMConfig, gqa_ood_config)
 from xggm_tpu_torch.models.task_model import XGGMModel
 from xggm_tpu_torch.ops.basic import Dense
 from xggm_tpu_torch.serving.quant import (
     SCALE_KEY, Int8Dense, quantize_dense_params)
-from xggm_tpu_torch.training.steps import make_logits_step
+from xggm_tpu_torch.training.steps import bf16_param_shadow, make_logits_step
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.io import load_json
 
@@ -45,50 +45,44 @@ ARTIFACT_VERSION = 1
 _PARAMS_FILE = "params.npz"
 _META_FILE = "meta.json"
 _LAYER = re.compile(r"^lxrt/encoder/(layer|r_layer|x_layer)_(\d+)/")
-# Parent-module markers of the leaves the model reads in float32
-# (LayerNorms); every other kernel and bias is read in the compute dtype.
-_LN_MARKERS = ("layernorm", "layer_norm")
 HEADS_NOTE = "num_attention_heads"
 
 
-def _bf16_consumed(key: str) -> bool:
-    """The JAX package's bf16 parameter layout
-    (`xggm_tpu/training/steps.py::_bf16_consumed`): a `kernel` or `bias`
-    whose parent module's name holds no LayerNorm marker."""
-    parts = key.split("/")
-    parent = parts[-2].lower() if len(parts) > 1 else ""
-    return (parts[-1] in ("kernel", "bias")
-            and not any(m in parent for m in _LN_MARKERS))
-
-
-def _bf16_round(arr: np.ndarray) -> np.ndarray:
-    """float32 -> the uint16 bits of its bfloat16 (round to nearest even)."""
-    bf16 = torch.from_numpy(np.ascontiguousarray(arr)).to(torch.bfloat16)
-    return bf16.view(torch.int16).numpy().view(np.uint16)
+def _shadow_bits(t: torch.Tensor, key: str) -> np.ndarray:
+    """A bf16 shadow leaf's uint16 bits in the JAX layout of `key` (a
+    Dense kernel [in, out])."""
+    bits = t.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    return np.ascontiguousarray(np.swapaxes(bits, -1, -2)
+                                if key.endswith("/kernel") else bits)
 
 
 def export_model(model: XGGMModel, path: str, *,
                  batch_size: Optional[int] = 16,
                  label2ans: Optional[List[str]] = None,
                  bf16_weights: bool = True, quantize: Optional[str] = None,
-                 notes: Optional[dict] = None) -> str:
+                 notes: Optional[dict] = None,
+                 shadow: Optional[Mapping[str, torch.Tensor]] = None) -> str:
     """Write `model` (every parameter, the GGM parts included) as an
     artifact directory at `path`; returns `path`.
 
-    With `bf16_weights` and a bf16 model, the leaves `_bf16_consumed`
-    selects are stored in bfloat16 (as the JAX package's `_serve_params`
-    overlays its bf16 shadow). `quantize="int8"` then quantizes the Dense
-    kernels (`serving.quant.quantize_dense_params`), the bf16-rounded ones
-    where there are. `batch_size` None: any batch size."""
+    With `bf16_weights` and a bf16 model, the leaves of the bf16 parameter
+    shadow are stored in bfloat16, its bytes (`shadow`, a train state's,
+    else `training/steps.py::bf16_param_shadow` of the model: the same
+    rounding of the masters), as the JAX package's `_serve_params` overlays
+    its shadow. `quantize="int8"` then quantizes the Dense kernels
+    (`serving.quant.quantize_dense_params`), the bf16-rounded ones where
+    there are. `batch_size` None: any batch size."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}")
     flat = to_jax_params(model)
-    bf16 = set()
+    bits = {}
     if bf16_weights and model.cfg.compute_dtype == torch.bfloat16:
-        for key in flat:
-            if _bf16_consumed(key):
-                flat[key] = bf16_bits_to_float32(_bf16_round(flat[key]))
-                bf16.add(key)
+        names = jax_names(model)
+        for name, t in (shadow or bf16_param_shadow(model)).items():
+            bits[names[name]] = _shadow_bits(t, names[name])
+        for key, b in bits.items():
+            flat[key] = bf16_bits_to_float32(b)
+    bf16 = set(bits)
     if quantize == "int8":
         flat, n_q = quantize_dense_params(flat)
         if n_q == 0:
@@ -98,8 +92,7 @@ def export_model(model: XGGMModel, path: str, *,
               for k, v in flat.items()}
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, _PARAMS_FILE),
-             **{k: _bf16_round(v) if k in bf16 else v
-                for k, v in flat.items()})
+             **{k: bits[k] if k in bf16 else v for k, v in flat.items()})
     cfg = model.cfg
     meta = {
         "artifact_version": ARTIFACT_VERSION,

@@ -27,7 +27,15 @@ than the tree path and slower than kernel 7 (ROADMAP.md, item 5).
 Under ZeRO-1 (`parallel/mesh.py::maybe_zero_shard_state`) a state's m and v
 hold this rank's shard of each parameter that `shards` names; `step` and
 `fused_step` then update that shard of the parameter only, from the whole
-gradient, and the caller gathers the parameters (`training/steps.py`).
+gradient, and the caller gathers the parameters (`training/steps.py`). A
+parameter that `sliced` names holds that shard alone (the master of a leaf
+the bf16 shadow carries).
+
+Given the bf16 shadow (`training/steps.py::bf16_param_shadow`, {name: bf16
+tensor}), an update refreshes it: each updated parameter of the shadow (this
+rank's slice under ZeRO-1) becomes the bf16 rounding of the new value, on
+the tree path by one multi-tensor copy after the update, on the fused path
+by kernel 7 in the same pass.
 
 Under tensor parallelism (`parallel/tensor.py`) the parameters that `split`
 names hold this rank's slice, and so do their gradients, m and v. Given the
@@ -83,8 +91,9 @@ class BertAdamState:
     activation flags as vectors in `names` order; the global update count;
     the names that have had a gradient (the others are certainly inactive
     and are skipped); under ZeRO-1, {name: (dim, start, length)} of the
-    slice of each sharded parameter that this rank's m and v hold; and
-    under tensor parallelism, {name: dim} of the parameters whose slice
+    slice of each sharded parameter that this rank's m and v hold, and the
+    names of those whose parameter tensor itself holds only that slice;
+    and under tensor parallelism, {name: dim} of the parameters whose slice
     this rank holds (its m and v too)."""
 
     names: list
@@ -97,12 +106,18 @@ class BertAdamState:
     touched: Set[str] = field(default_factory=set)
     shards: Optional[Dict[str, Tuple[int, int, int]]] = None
     split: Optional[Dict[str, int]] = None
+    sliced: Set[str] = field(default_factory=set)
 
     def local(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole-parameter tensor `x` (all of it
         for a parameter that is not sharded)."""
         s = self.shards.get(name) if self.shards else None
         return x if s is None else x.narrow(*s)
+
+    def local_param(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of parameter `name`, whose tensor is `p`
+        (itself where the tensor holds only the slice)."""
+        return p if name in self.sliced else self.local(name, p)
 
     def leaf_counts(self) -> Dict[str, int]:
         return dict(zip(self.names, self.leaf_count.tolist()))
@@ -234,10 +249,12 @@ class BertAdam:
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, Optional[torch.Tensor]],
-             state: BertAdamState, mesh=None) -> None:
+             state: BertAdamState, mesh=None,
+             shadow: Optional[Mapping[str, torch.Tensor]] = None) -> None:
         """One update of `params` in place from `grads` (None: zero), which
         the caller has clipped; under ZeRO-1, of this rank's slices. `mesh`
-        gives the model group of a tensor-parallel state."""
+        gives the model group of a tensor-parallel state; `shadow`, the
+        bf16 shadow to refresh."""
         b1, b2 = self.b1, self.b2
         with_grad, no_grad, index = self._activate(grads, state, mesh)
         live = with_grad + no_grad
@@ -256,7 +273,7 @@ class BertAdam:
             torch._foreach_mul_([state.v[n] for n in no_grad], b2)
 
         if live:
-            ps = [state.local(n, params[n]) for n in live]
+            ps = [state.local_param(n, params[n]) for n in live]
             denom = torch._foreach_sqrt([state.v[n] for n in live])
             torch._foreach_add_(denom, self.eps)
             upd = torch._foreach_div([state.m[n] for n in live], denom)
@@ -268,17 +285,23 @@ class BertAdam:
                                device=factor.device)
             torch._foreach_mul_(upd, factor[idx].unbind())
             torch._foreach_add_(ps, upd)
+            if shadow:
+                cast_copy_([state.local(n, shadow[n]) for n in live
+                            if n in shadow],
+                           [p for n, p in zip(live, ps) if n in shadow])
         self._advance(state)
 
     @torch.no_grad()
     def fused_step(self, params: Mapping[str, torch.Tensor],
                    grads: Mapping[str, Optional[torch.Tensor]],
-                   state: BertAdamState, clip: float,
-                   mesh=None) -> torch.Tensor:
+                   state: BertAdamState, clip: float, mesh=None,
+                   shadow: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> torch.Tensor:
         """Clip to a global norm of `clip`, update and apply in one
         traversal (the counterpart of `make_fused_bert_adam_step`): the
         gradients are not scaled in place; kernel 7 applies
-        c = min(1, clip / (norm + 1e-6)) as it reads them. Parameters
+        c = min(1, clip / (norm + 1e-6)) as it reads them, and writes the
+        bf16 `shadow` of each updated parameter it carries. Parameters
         touched before with a gradient of None join with a zero gradient;
         those never touched stay out. Returns the norm before clipping.
         `mesh` gives the model group of a tensor-parallel state."""
@@ -289,28 +312,47 @@ class BertAdam:
         if live:
             norm = norm.to(state.active.device)
             scale = torch.clamp(clip / (norm + 1e-6), max=1.0)
-            self._kernel_update(params, grads, state, live, index, scale)
+            self._kernel_update(params, grads, state, live, index, scale,
+                                shadow or {})
         self._advance(state)
         return norm
 
     def _kernel_update(self, params, grads, state: BertAdamState, live,
-                       index, scale: torch.Tensor) -> None:
-        """Kernel 7 over this rank's slice of every live parameter. The
-        kernel takes contiguous tensors: a slice across a later dimension
-        is updated in a contiguous copy and written back."""
+                       index, scale: torch.Tensor,
+                       shadow: Mapping[str, torch.Tensor]) -> None:
+        """Kernel 7 over this rank's slice of every live parameter (and of
+        its shadow). The kernel takes contiguous tensors: a slice across a
+        later dimension is updated in a contiguous copy and written
+        back."""
         lr_eff = torch.where(state.active, self._rates(state), 0.0)
-        ps = [state.local(n, params[n]) for n in live]
+        ps = [state.local_param(n, params[n]) for n in live]
+        ss = [state.local(n, shadow[n]) if n in shadow else None
+              for n in live]
         work = [p if p.is_contiguous() else p.contiguous() for p in ps]
+        swork = [s if s is None or s.is_contiguous() else s.contiguous()
+                 for s in ss]
         gs = [None if grads.get(n) is None
               else state.local(n, grads[n]).contiguous() for n in live]
         fused_adam(gs, [state.m[n] for n in live],
                    [state.v[n] for n in live], work,
                    [index[n] for n in live], scale, lr_eff,
                    b1=self.b1, b2=self.b2, eps=self.eps,
-                   wd=self.weight_decay)
-        for p, w in zip(ps, work):
-            if w is not p:
-                p.copy_(w)
+                   wd=self.weight_decay, shadows=swork)
+        for x, w in zip(ps + ss, work + swork):
+            if w is not x:
+                x.copy_(w)
+
+
+def cast_copy_(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
+    """dsts[i].copy_(srcs[i]) (a cast where the dtypes differ) in one
+    multi-tensor copy per layout: the pairs of one stride (the copy's fast
+    path) together, the others (a slice across a later dimension) in a
+    second."""
+    same = [d.stride() == s.stride() for d, s in zip(dsts, srcs)]
+    for flag in (True, False):
+        pairs = [(d, s) for d, s, f in zip(dsts, srcs, same) if f == flag]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
 
 def split_flags(names: List[str], state: BertAdamState) -> List[bool]:

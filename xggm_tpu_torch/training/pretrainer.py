@@ -54,8 +54,8 @@ from xggm_tpu_torch.parallel.mesh import (
 from xggm_tpu_torch.parallel.pipeline import from_last_stage
 from xggm_tpu_torch.training.bert_adam import BertAdam
 from xggm_tpu_torch.training.steps import (
-    TrainState, _grads, apply_grads, fold_rank, on_last_stage,
-    restore_snapshot, whole_snapshot)
+    TrainState, apply_grads, fold_rank, loss_and_grads, on_last_stage,
+    restore_snapshot, shadow_overlay, whole_snapshot)
 from xggm_tpu_torch.training.trainer import split_wide_layers, use_pipeline
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
@@ -113,8 +113,9 @@ class LxmertPretrainer:
                             t_total=self.t_total,
                             weight_decay=cfg.train.weight_decay)
         self.state, _ = maybe_zero_shard_state(
-            TrainState.create(self.model, self.opt, mesh), mesh,
-            cfg.train.shard_opt_state)
+            TrainState.create(self.model, self.opt, mesh,
+                              cfg.train.bf16_params),
+            mesh, cfg.train.shard_opt_state)
         self._acc: Optional[Dict[str, Optional[torch.Tensor]]] = None
 
         self.task_qa = task_qa
@@ -166,14 +167,17 @@ class LxmertPretrainer:
         return on_last_stage(self.model.compute_losses, batch, rng,
                              self._denominators(batch))
 
+    def _losses_and_grads(self, batch: Batch, seed: int):
+        """`_losses` and the float32 gradients of its total, both from the
+        bf16 shadow where the state carries one."""
+        return loss_and_grads(self.state, self._losses, batch, seed)
+
     def train_step(self, batch: Batch, seed: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               torch.Tensor]:
         """One batch and one update: (total, losses, predicted answers)."""
-        out = self._losses(batch, seed)
-        apply_grads(self.opt, self.state,
-                    _grads(None if out is None else out[0], self.state),
-                    CLIP)
+        out, grads = self._losses_and_grads(batch, seed)
+        apply_grads(self.opt, self.state, grads, CLIP)
         return self._global(out)
 
     def _global(self, out) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
@@ -192,10 +196,10 @@ class LxmertPretrainer:
     def grad_step(self, batch: Batch, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              torch.Tensor]:
-        """One microbatch: its float32 gradients added to the accumulator,
-        no update."""
-        out = self._losses(batch, seed)
-        grads = _grads(None if out is None else out[0], self.state)
+        """One microbatch: its float32 gradients (a shadowed leaf's the
+        upcast of its bf16 gradient) added to the accumulator, no
+        update."""
+        out, grads = self._losses_and_grads(batch, seed)
         if self._acc is None:
             self._acc = {n: None if g is None else g.float().clone()
                          for n, g in grads.items()}
@@ -327,15 +331,18 @@ class LxmertPretrainer:
 
     @torch.no_grad()
     def evaluate_epoch(self) -> float:
-        """The mean deterministic loss over the validation batches, printed
-        with the QA accuracy."""
+        """The mean deterministic loss over the validation batches (from the
+        bf16 shadow where the state carries one), printed with the QA
+        accuracy."""
         bs = self.cfg.train.batch_size
         total, n = 0.0, 0
         uid2ans = {}
         for batch, uids in self._batches(self.valid_feat, bs, False,
                                          np.random.RandomState(0)):
             batch = self.put(batch)
-            loss, _, preds = self._global(self._losses(batch, None))
+            with shadow_overlay(self.state):
+                out = self._losses(batch, None)
+            loss, _, preds = self._global(out)
             total += float(loss)
             if self.valid_evaluator is not None:
                 for uid, p in zip(uids, preds.tolist()):

@@ -27,21 +27,36 @@ turns that into None), `_grads` drives the pipeline's backward and sums the
 gradients over the pipe group, so every pipe rank applies the same whole
 gradient, and the metrics come from the last stage (`from_last_stage`).
 
-The model's float32 parameters are the masters; the forward casts them to
-the compute dtype at use (bf16 on the card), which takes the place of the
-JAX package's bf16 parameter shadow. A batch is a dict of tensors on the
+The model's float32 parameters are the masters BertAdam updates. Under
+bf16 compute with `TrainConfig.bf16_params` (the default, as in the JAX
+package) the state also carries the bf16 parameter shadow
+(`bf16_param_shadow`): a bf16 copy of every leaf the model reads in bf16
+(`checkpoint/jax_params.py::bf16_consumed`, the JAX package's rule). A
+phase's forward and backward run with the shadow in place of those masters
+(`shadow_overlay`, the counterpart of `_apply_params`), so no weight is
+cast at use; the shadow's bf16 gradients are upcast to float32 in one
+multi-tensor copy (`upcast_grads`) before the data-group average, the clip
+and the update, and the update refreshes the shadow: the tree BertAdam in
+one multi-tensor cast, kernel 7 in the same pass as the update. The
+shadow is never saved: a restore rebuilds it from the masters. Under ZeRO-1
+with the shadow a rank holds only its slice of each shadowed master that
+its moments split, and the refreshed shadow is rebuilt by one bf16
+all-gather (`parallel/mesh.py`). A batch is a dict of tensors on the
 model's device: input_ids, input_mask, segment_ids [B, L] integer, feats
 [B, 36, F], boxes [B, 36, 4], target [B, num_answers], adj [B, 36, 36], and
 optionally noise_override (the GGM noise to replay).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
+    Sequence, Tuple
 
 import torch
 
+from xggm_tpu_torch.checkpoint.jax_params import bf16_consumed, jax_names
 from xggm_tpu_torch.config import TrainConfig
 from xggm_tpu_torch.models.task_model import XGGMModel
 from xggm_tpu_torch.ops.basic import DropoutRng
@@ -49,53 +64,144 @@ from xggm_tpu_torch.ops.losses import (
     bce_with_logits, score_matching_loss, symmetric_kl)
 from xggm_tpu_torch.parallel.mesh import (
     Mesh, all_reduce_mean_, gather_params_, gathered_opt_state,
-    maybe_zero_shard_state, mean_scalars)
+    maybe_zero_shard_state, mean_scalars, whole_masters)
 from xggm_tpu_torch.parallel.pipeline import (
     NotLastStage, from_last_stage, pipeline_grads, sum_over_pipe)
 from xggm_tpu_torch.parallel.pipeline_lxmert import pipeline_mesh
 from xggm_tpu_torch.parallel.tensor import (
     gather_split, local_state_dict, tp_split)
 from xggm_tpu_torch.training.bert_adam import (
-    BertAdam, BertAdamState, global_norm, split_flags)
+    BertAdam, BertAdamState, cast_copy_, global_norm, split_flags)
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
 Grads = Dict[str, Optional[torch.Tensor]]
 
 
+Shadow = Dict[str, torch.Tensor]
+
+
+def shadow_names(model: torch.nn.Module) -> List[str]:
+    """The float32 parameters of `model` that a bf16 model reads in bf16,
+    by the JAX package's rule on their JAX names (`bf16_consumed`): every
+    Dense weight and bias (the GGM's, the heads' and `lm_head.bias`
+    included), no LayerNorm or embedding table."""
+    names = jax_names(model)
+    return [n for n, p in model.named_parameters()
+            if p.dtype == torch.float32 and bf16_consumed(names[n])]
+
+
+def uses_shadow(model: torch.nn.Module, bf16_params: bool = True) -> bool:
+    """Whether a TrainState of `model` carries the bf16 shadow: with
+    `bf16_params` and bf16 compute (`model.cfg.compute_dtype`)."""
+    cfg = getattr(model, "cfg", None)
+    return (bf16_params and cfg is not None
+            and cfg.compute_dtype == torch.bfloat16)
+
+
+def bf16_param_shadow(model: torch.nn.Module) -> Shadow:
+    """{name: bf16 copy} of the `shadow_names` leaves, each a leaf tensor
+    that requires grad (the forward's weights under `shadow_overlay`)."""
+    params = dict(model.named_parameters())
+    return {n: params[n].detach().to(torch.bfloat16).requires_grad_()
+            for n in shadow_names(model)}
+
+
+@contextlib.contextmanager
+def shadow_overlay(state: "TrainState") -> Iterator[None]:
+    """Within the block the model of `state` reads each shadowed parameter
+    from the state's shadow in place of its master (the JAX package's
+    `_apply_params`); nothing changes without a shadow. A backward that
+    recomputes (remat) or drives a pipeline runs inside the block, so that
+    it reads the shadow too."""
+    swapped = []
+    try:
+        for n, t in (state.shadow or {}).items():
+            module, leaf = state.slots[n]
+            swapped.append((module, leaf, module._parameters[leaf]))
+            module._parameters[leaf] = t
+        yield
+    finally:
+        for module, leaf, p in reversed(swapped):
+            module._parameters[leaf] = p
+
+
 @dataclass
 class TrainState:
     """The model's float32 parameters (the masters, updated in place) by
-    name, the BertAdam state (with the model's tensor-parallel split), and
-    the mesh the steps run in (None: this process alone)."""
+    name, the BertAdam state (with the model's tensor-parallel split), the
+    mesh the steps run in (None: this process alone), the bf16 shadow of
+    the leaves read in bf16 (None: no shadow) and the (module, leaf name)
+    of each shadowed parameter. Under ZeRO-1 with the shadow the masters
+    that `opt_state.sliced` names hold this rank's slice alone: the state
+    owns that layout, and `whole_params`, `unshard_` and `restore_snapshot`
+    are the ways to read or write them whole."""
 
     params: Dict[str, torch.nn.Parameter]
     opt_state: BertAdamState
     mesh: Optional[Mesh] = None
+    shadow: Optional[Shadow] = None
+    slots: Dict[str, Tuple[torch.nn.Module, str]] = field(
+        default_factory=dict, repr=False)
 
     @classmethod
     def create(cls, model: torch.nn.Module, opt: BertAdam,
-               mesh: Optional[Mesh] = None) -> "TrainState":
+               mesh: Optional[Mesh] = None,
+               bf16_params: bool = True) -> "TrainState":
+        """A fresh state of `model`'s parameters as they are, whole; with
+        the shadow where `uses_shadow`."""
         params = dict(model.named_parameters())
         opt_state = opt.init(params)
         opt_state.split = tp_split(model) or None
-        return cls(params, opt_state, mesh)
+        if not uses_shadow(model, bf16_params):
+            return cls(params, opt_state, mesh)
+        shadow = bf16_param_shadow(model)
+        slots = {n: (model.get_submodule(path), leaf) for n in shadow
+                 for path, _, leaf in [n.rpartition(".")]}
+        return cls(params, opt_state, mesh, shadow, slots)
+
+    def whole_params(self) -> Dict[str, torch.Tensor]:
+        """The masters by name, whole and detached: the ZeRO-1 slices
+        gathered over the data group into new tensors (every rank calls
+        it), the others the parameters themselves."""
+        return whole_masters({n: p.detach() for n, p in self.params.items()},
+                             self.opt_state, self.mesh)
+
+    def unshard_(self) -> None:
+        """The sliced masters whole again, in place (each parameter's data
+        the gathered tensor), ending this state's ZeRO-1 slicing of them:
+        before the model's parameters are written whole or a new state is
+        made of them. Every rank calls it."""
+        sliced = self.opt_state.sliced
+        if sliced:
+            whole = self.whole_params()
+            for n in sliced:
+                self.params[n].data = whole[n]
+            self.opt_state.sliced = set()
+
+    @torch.no_grad()
+    def refresh_shadow_(self) -> None:
+        """Cast the (whole) masters into the shadow (after a load replaced
+        them)."""
+        if self.shadow:
+            cast_copy_(list(self.shadow.values()),
+                       [self.params[n] for n in self.shadow])
 
 
 def whole_snapshot(model: torch.nn.Module, state: TrainState
                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
     """The model's state dict and the BertAdam state dict in the
-    single-rank format: a ZeRO-1 state's slices gathered over the data
-    group, then the tensor-parallel slices over the model group. Every rank
-    calls it."""
+    single-rank format: a ZeRO-1 state's slices (of the moments, and of the
+    sliced masters) gathered over the data group, then the tensor-parallel
+    slices over the model group. Every rank calls it."""
     mesh = state.mesh
+    masters = {**model.state_dict(), **state.whole_params()}
     opt = gathered_opt_state(state.opt_state, mesh)
     if opt.split:
         opt = dataclasses.replace(opt, m=gather_split(opt.m, opt.split, mesh),
                                   v=gather_split(opt.v, opt.split, mesh),
                                   split=None)
-    return (gather_split(model.state_dict(), tp_split(model), mesh),
-            opt.state_dict())
+    return (gather_split(masters, tp_split(model), mesh), opt.state_dict())
 
 
 def restore_snapshot(model: torch.nn.Module, state: TrainState,
@@ -103,8 +209,9 @@ def restore_snapshot(model: torch.nn.Module, state: TrainState,
                      name: str) -> None:
     """Load a single-rank checkpoint's model and BertAdam state into
     `model` and `state`, re-sliced for this rank: the tensor-parallel
-    slices of the split leaves, then the ZeRO-1 layout under
-    `shard_opt_state`."""
+    slices of the split leaves, the shadow cast anew from the masters, then
+    the ZeRO-1 layout under `shard_opt_state`."""
+    state.unshard_()
     model.load_state_dict(local_state_dict(model, restored["model"]))
     device = next(iter(state.params.values())).device
     opt = BertAdamState.from_state_dict(restored["opt_state"], device)
@@ -119,6 +226,7 @@ def restore_snapshot(model: torch.nn.Module, state: TrainState,
         opt = dataclasses.replace(opt, m=local(opt.m), v=local(opt.v),
                                   split=split)
     state.opt_state = opt
+    state.refresh_shadow_()
     maybe_zero_shard_state(state, state.mesh, shard_opt_state)
 
 
@@ -136,15 +244,49 @@ def on_last_stage(fn: Callable, *args):
         return None
 
 
+@torch.no_grad()
+def upcast_grads(grads: Sequence[Optional[torch.Tensor]]
+                 ) -> List[Optional[torch.Tensor]]:
+    """The bf16 gradients (the shadow's) as float32 views of one new
+    buffer, filled by one multi-tensor copy (the JAX package's
+    `_upcast_grads`); the others as they are."""
+    out = list(grads)
+    low = [i for i, g in enumerate(out)
+           if g is not None and g.dtype == torch.bfloat16]
+    if low:
+        sizes = [out[i].numel() for i in low]
+        flat = torch.empty(sum(sizes), dtype=torch.float32,
+                           device=out[low[0]].device)
+        wide = [x.view(out[i].shape) for i, x in
+                zip(low, flat.split(sizes))]
+        cast_copy_(wide, [out[i] for i in low])
+        for i, w in zip(low, wide):
+            out[i] = w
+    return out
+
+
 def _grads(loss: Optional[torch.Tensor], state: TrainState) -> Grads:
-    """d loss / d params; None for a parameter outside the graph. Under
-    pipeline parallelism `loss` is None on every stage but the last; the
-    pipeline's backward runs, and the gradients are summed over the pipe
-    group, None where no stage touched a parameter."""
+    """d loss / d params, in float32; None for a parameter outside the
+    graph. A shadowed parameter's gradient is that of its shadow leaf,
+    upcast. Under pipeline parallelism `loss` is None on every stage but
+    the last; the pipeline's backward runs, and the gradients are summed
+    over the pipe group, None where no stage touched a parameter."""
     names = list(state.params)
-    params = [state.params[n] for n in names]
-    grads = sum_over_pipe(pipeline_grads(loss, params), params, state.mesh)
-    return dict(zip(names, grads))
+    shadow = state.shadow or {}
+    leaves = [shadow.get(n, state.params[n]) for n in names]
+    grads = upcast_grads(pipeline_grads(loss, leaves))
+    return dict(zip(names, sum_over_pipe(grads, leaves, state.mesh)))
+
+
+def loss_and_grads(state: TrainState, loss_fn: Callable,
+                   *args) -> Tuple[object, Grads]:
+    """`loss_fn(*args)` (its first output the loss; None on a pipeline
+    stage but the last) and `_grads` of that loss, the forward and the
+    backward reading the state's shadow."""
+    with shadow_overlay(state):
+        out = on_last_stage(loss_fn, *args)
+        grads = _grads(None if out is None else out[0], state)
+    return out, grads
 
 
 def clip_by_global_norm(grads: Grads, clip: float,
@@ -162,30 +304,26 @@ def clip_by_global_norm(grads: Grads, clip: float,
     return norm
 
 
-def _update(opt: BertAdam, state: TrainState, loss: Optional[torch.Tensor],
-            clip: float) -> None:
-    """Clip, update and apply: through `fused_step` (kernel 7) for a fused
-    BertAdam, as the JAX package's `_clip_update_apply` takes a transform's
-    `fused_step`; else clip the gradients in place, then `step`."""
-    apply_grads(opt, state, _grads(loss, state), clip)
-
-
 def apply_grads(opt: BertAdam, state: TrainState, grads: Grads,
                 clip: float) -> None:
-    """`_update` from gradients already taken (None: outside the graph; the
-    same parameters on every rank, since every rank takes the same branch).
-    In a data group of more than one rank the gradients are first averaged
-    over it, in place; on the tree path they are clipped in place. A
-    ZeRO-1 state's parameters are gathered after the update."""
+    """Clip, update and apply, from gradients already taken (None: outside
+    the graph; the same parameters on every rank, since every rank takes
+    the same branch): through `fused_step` (kernel 7) for a fused BertAdam,
+    as the JAX package's `_clip_update_apply` takes a transform's
+    `fused_step`; else clip the gradients in place, then `step`. Either
+    refreshes the shadow. In a data group of more than one rank the
+    gradients are first averaged over it, in place. A ZeRO-1 state's
+    parameters (or their shadow) are gathered after the update."""
     mesh = state.mesh
     if mesh is not None and mesh.size > 1:
         all_reduce_mean_([g for g in grads.values() if g is not None], mesh)
     if opt.fused:
-        opt.fused_step(state.params, grads, state.opt_state, clip, mesh)
+        opt.fused_step(state.params, grads, state.opt_state, clip, mesh,
+                       state.shadow)
     else:
         clip_by_global_norm(grads, clip, state.opt_state, mesh)
-        opt.step(state.params, grads, state.opt_state, mesh)
-    gather_params_(state.params, state.opt_state, mesh)
+        opt.step(state.params, grads, state.opt_state, mesh, state.shadow)
+    gather_params_(state.params, state.opt_state, mesh, state.shadow)
 
 
 def fold_rank(seed: int, mesh: Optional[Mesh]) -> int:
@@ -258,11 +396,11 @@ def make_ggm_phase(model: XGGMModel, opt: BertAdam, cfg: TrainConfig,
 
     def phase(state: TrainState, batch: Batch, dropout_seed: int,
               noise_seed: int) -> Optional[Metrics]:
-        out = on_last_stage(ggm_loss, batch, dropout_seed, noise_seed)
-        loss, metrics = out if out is not None else (None, None)
-        _update(opt, state, loss, cfg.grad_clip)
-        return None if metrics is None else {k: v.detach()
-                                             for k, v in metrics.items()}
+        out, grads = loss_and_grads(state, ggm_loss, batch, dropout_seed,
+                                    noise_seed)
+        apply_grads(opt, state, grads, cfg.grad_clip)
+        return None if out is None else {k: v.detach()
+                                         for k, v in out[1].items()}
 
     return phase
 
@@ -292,11 +430,12 @@ def make_clean_phase(model, opt: BertAdam, cfg: TrainConfig,
 
     def phase(state: TrainState, batch: Batch,
               dropout_seed: int) -> Optional[Metrics]:
-        out = on_last_stage(clean_loss, batch, dropout_seed)
-        loss, logits = out if out is not None else (None, None)
-        _update(opt, state, loss, cfg.grad_clip)
-        if loss is None:
+        out, grads = loss_and_grads(state, clean_loss, batch,
+                                    dropout_seed)
+        apply_grads(opt, state, grads, cfg.grad_clip)
+        if out is None:
             return None
+        loss, logits = out
         return {"clean_loss": loss.detach(),
                 "preds": logits.detach().argmax(dim=-1)}
 

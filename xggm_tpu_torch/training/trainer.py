@@ -33,10 +33,11 @@ snapshots (`load_lxmert`, `load_lxmert_qa`, `load` of a `.pth`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -63,7 +64,7 @@ from xggm_tpu_torch.training.bert_adam import BertAdam, lr_scale_tree
 from xggm_tpu_torch.training.metrics import MetricsLogger
 from xggm_tpu_torch.training.steps import (
     TrainState, make_clean_train_step, make_eval_step, make_ggm_train_step,
-    restore_snapshot, whole_snapshot)
+    restore_snapshot, shadow_overlay, whole_snapshot)
 from xggm_tpu_torch.utils.device import resolve_device
 from xggm_tpu_torch.utils.guard import check_step_finite
 from xggm_tpu_torch.utils.preempt import (
@@ -230,11 +231,22 @@ class XGGMTrainer:
         return self.cfg.train.seed * 2 ** 32 + train_iter
 
     def _fresh_opt_state(self) -> None:
-        """A new BertAdam state for the parameters as they are now, in its
-        ZeRO-1 layout under `shard_opt_state`."""
+        """A new BertAdam state (and bf16 shadow, under bf16 compute with
+        `bf16_params`) for the parameters as they are now, in its ZeRO-1
+        layout under `shard_opt_state`."""
         self.state, _ = maybe_zero_shard_state(
-            TrainState.create(self.model, self.opt, self.mesh), self.mesh,
-            self.cfg.train.shard_opt_state)
+            TrainState.create(self.model, self.opt, self.mesh,
+                              self.cfg.train.bf16_params),
+            self.mesh, self.cfg.train.shard_opt_state)
+
+    @contextlib.contextmanager
+    def _new_weights(self) -> Iterator[None]:
+        """Around a load that writes the model's parameters: they are whole
+        within the block (`TrainState.unshard_`), and a fresh state is made
+        of them after it."""
+        self.state.unshard_()
+        yield
+        self._fresh_opt_state()
 
     def _restore(self, restored: Dict[str, object], name: str) -> None:
         """The model and BertAdam state of a checkpoint of this format,
@@ -250,17 +262,17 @@ class XGGMTrainer:
         prefix = "bert." if any(k.startswith("bert.") for k in sd) else ""
         flat, _ = convert_lxrt_bert(sd, self.cfg.lxmert, torch_prefix=prefix,
                                     our_prefix="lxrt")
-        unmatched = merge_into(self.model, flat)
-        self._fresh_opt_state()
+        with self._new_weights():
+            unmatched = merge_into(self.model, flat)
         print(f"load_lxmert: {len(flat)} tensors, "
               f"{len(unmatched)} model params untouched")
 
     def load_lxmert_qa(self, path: str, all_ans_path: str) -> None:
         """--loadLXMERTQA: the encoder and the answer head of a torch LXMERT
         pretraining snapshot, the head's rows matched by answer string."""
-        load_lxmert_qa(path, self.model, self.label2ans, self.cfg.lxmert,
-                       all_ans_path)
-        self._fresh_opt_state()
+        with self._new_weights():
+            load_lxmert_qa(path, self.model, self.label2ans,
+                           self.cfg.lxmert, all_ans_path)
 
     def load(self, name_or_path: str) -> None:
         """--load: a reference torch task model (a .pth file), or a
@@ -271,8 +283,8 @@ class XGGMTrainer:
                                       self.cfg.lxmert, self.cfg.ggm.gnn,
                                       self.cfg.ggm.num_layers,
                                       self.cfg.ggm.gat_heads)
-            unmatched = merge_into(self.model, flat)
-            self._fresh_opt_state()
+            with self._new_weights():
+                unmatched = merge_into(self.model, flat)
             print(f"load(torch): {len(flat)} tensors, "
                   f"{len(unmatched)} untouched")
             return
@@ -476,17 +488,20 @@ class XGGMTrainer:
     def predict(self, dataset: GraphBatchDataset,
                 dump_path: Optional[str] = None) -> Dict[object, str]:
         """Answers without gradients (encoder and head), in batches of
-        max(batch_size, 64), the padding rows dropped."""
+        max(batch_size, 64), the padding rows dropped; from the bf16 shadow
+        where the state carries one."""
         feeder = self._feeder(dataset, max(self.cfg.train.batch_size, 64),
                               False)
         quesid2ans: Dict[object, str] = {}
-        for qids, batch, mask in feeder:
-            preds = to_host(self.eval_step(batch), self.mesh)
-            # the feeder pads trailing rows; preds[:len(qids)] relies on that
-            assert bool(np.all(mask[: len(qids)])) and not np.any(
-                mask[len(qids):]), "feeder mask must be trailing padding"
-            for qid, p in zip(qids, preds[: len(qids)].tolist()):
-                quesid2ans[qid] = self.label2ans[int(p)]
+        with shadow_overlay(self.state):
+            for qids, batch, mask in feeder:
+                preds = to_host(self.eval_step(batch), self.mesh)
+                # the feeder pads trailing rows; preds[:len(qids)] relies
+                # on that
+                assert bool(np.all(mask[: len(qids)])) and not np.any(
+                    mask[len(qids):]), "feeder mask must be trailing padding"
+                for qid, p in zip(qids, preds[: len(qids)].tolist()):
+                    quesid2ans[qid] = self.label2ans[int(p)]
         if dump_path and self.primary:
             self.ev_cls.dump_result(quesid2ans, dump_path)
         return quesid2ans
