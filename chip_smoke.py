@@ -2,8 +2,23 @@
 """Drive the PyTorch/CUDA port (`xggm_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --phases kernel,dropout,blhd,adjacency
+                                 # phases 1 and 2, then the named phases
+                                 # (and those they need), and the last line
+    python3 chip_smoke.py --phases ... --root ROOT
+                                 # the same with the package of the
+                                 # checkout at ROOT (e.g. the parent,
+                                 # unpacked under build/ by git archive;
+                                 # not for phases 15 and 16, whose rank
+                                 # processes import this checkout's)
     python3 chip_smoke.py --forward-device ROOT   # forward kernels' device
                                  # time, for the checkout at ROOT
+
+The phases' names (--phases): kernel (3), dropout (4), blhd (5), serving
+(6, 7), train (8), fused (9), trainer (10), vqacp (11), export (12),
+generators (13), pretrain (14), scale_out (15), model_parallel (16),
+adjacency and lineage (17), shadow (18). The kernels line (19) comes only
+from a run of every phase.
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -12,35 +27,41 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             all started together: attention_fwd.cu (kernel 1),
             attention_dropout.cu (kernels 2 and 3), attention_blhd.cu
             (kernels 4, 5 and 6) and bert_adam.cu (kernel 7), with
-            -Xptxas -v (registers, shared memory, spills); the bf16
-            tensor-core kernels' registers and spills (none allowed), the
-            backward's (kernels 3 and 6) and the forward's (kernels 1, 2, 4
-            and 5), and their dynamic shared memory at the path's shapes;
-            the scalar forward instantiated for fp32 only.
+            -Xptxas -v (registers, shared memory, spills); the registers
+            and spills of the tensor-core kernels, bf16 and fp32 (no spill
+            allowed), the backward's (kernels 3 and 6) and the forward's
+            (kernels 1, 2, 4 and 5), by key tiles of 16, and the bf16
+            bodies' dynamic shared memory at the path's shapes.
 3. kernel   kernel 1 against its plain PyTorch version at the four shapes
             of the serving path, batch 512, bf16 with and without a key
-            mask, plus one fp32 check: max abs error against the stated
-            tolerance, kernel / plain / SDPA times (CUDA events) and the
-            bandwidth bound; at the path's masks, the device's own time of
-            kernel 1 and of SDPA (torch.profiler), and the wrapper's host
-            time.
+            mask and fp32 with the path's masks: max abs error against the
+            stated tolerance (fp32: also the kernel's and the plain
+            version's distance from float64, the kernel's at most 4 times
+            the plain version's), kernel / plain / SDPA times (CUDA events)
+            and the bound (bytes at 2 or 4 bytes an element, operations at
+            the bf16 or the fp32 peak); at the path's masks, the device's
+            own time of kernel 1 and of SDPA (torch.profiler), and the
+            wrapper's host time.
 4. dropout  kernels 2 and 3, and kernel 1's backward (kernel 3 at rate 0),
             at the training batch (B = 96, H = 12), the four shapes of the
             path x {bf16, fp32}, rate 0.1: kernel 2 against the plain
             forward fed the mask ops/philox.py draws, kernel 3 and kernel
             1's backward against torch.autograd.grad through the plain
-            versions; the kernel's own mask (read out through an identity v),
-            in bf16 and fp32, against the Philox mask, its keep fraction
-            against 0.9 +- 5 sigma, and its dependence on the row and the
-            seed; kernel 2's registers and shared memory; kernel, plain
-            and library times (SDPA with dropout_p=0.1 forward and
-            forward+backward; the memory-efficient attention's backward alone
-            from a saved forward, at dropout_p 0.1 and, for kernel 1's
-            backward, 0) and the bandwidth bounds; in bf16 the device's
-            own time per launch of kernel 2, of SDPA's dropout forward, of
-            kernel 3 at rates 0.1 and 0 and of the library backward
-            (torch.profiler's kernel durations; the run fails if it records
-            none).
+            versions (fp32: and against float64, as phase 3); kernels 1 to
+            3 in fp32 at the shapes off the bodies' tiles, (1, 1), (7, 33),
+            (33, 7) and (64, 64), batch 7, every key of its first element
+            masked or no mask, rates 0.1 and 0, the same gates; the
+            kernel's own mask (read out through an identity v), in bf16 and
+            fp32, against the Philox mask, its keep fraction against 0.9 +-
+            5 sigma, and its dependence on the row and the seed; kernel 2's
+            registers and shared memory; kernel, plain and library times
+            (SDPA with dropout_p=0.1 forward and forward+backward; the
+            memory-efficient attention's backward alone from a saved
+            forward, at dropout_p 0.1 and, for kernel 1's backward, 0) and
+            the bounds; in both types the device's own time per launch of
+            kernel 2, of SDPA's dropout forward, of kernel 3 at rates 0.1
+            and 0 and of the library backward (torch.profiler's kernel
+            durations; the run fails if it records none).
 5. blhd     kernels 4, 5 and 6 (the [B, L, H, 64] layout) at the training
             batch, the four shapes x {bf16, fp32}, rate 0.1: each against its
             plain version and against kernels 1, 2 and 3 on the permuted
@@ -50,15 +71,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             5's registers and shared memory; kernel, plain and library
             times (SDPA, and the memory-efficient attention's backward from
             a saved forward, on strided views of the same BLHD storage),
-            the device's own time
-            of kernels 4, 5 and 6, of SDPA's forwards and of the library
-            backward, and the bandwidth bounds; summary lines of the backward kernels
-            (backward_device) and of the forward kernels 1, 2, 4 and 5
-            (forward_device) per pass of 34 launches, event and device
-            times against the bound; then the
-            entry points mha_blhd and mha_dropout_blhd forward and
-            backward, as many times as a training forward attends (34 per
-            kernel, 68 for kernel 6).
+            the device's own time of kernels 4, 5 and 6, of SDPA's forwards
+            and of the library backward, and the bounds, in both types;
+            summary lines of the backward kernels (backward_device) and of
+            the forward kernels 1, 2, 4 and 5 (forward_device) per pass of
+            34 launches, one of each per type, event and device times
+            against the bound; then the entry points mha_blhd and
+            mha_dropout_blhd forward and backward, as many times as a
+            training forward attends (34 per kernel, 68 for kernel 6).
 6. serving  gqa_ood_config() at full width (9/5/5 layers, hidden 768, 12
             heads, 1842 answers, 2048-d features) in bf16 with seeded random
             weights, behind the HTTP server: POSTs of 1, 16 and 64 queries,
@@ -280,7 +300,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             1e-5; the adjacency of 256 images on the card against its numpy
             recomputation within 1e-6; names per second, ms per forward,
             kernel 1 at [3072, 16, 64] fp32 (kernel, plain, SDPA, device
-            time and bound), peak memory. (b) every research-lineage module
+            time and bound; its distance from float64 at most 4 times the
+            plain version's), peak memory. (b) every research-lineage module
             (ggm/extras, score_network, graph_vae, ops/mi, debias_losses,
             models/updn) at the task model's widths (batch 96, 36 objects,
             768-d features, 1842 answers) or the JAX module's defaults:
@@ -316,7 +337,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
             1, 7, 4096 and 32771 with null rows and a misaligned shadow;
             phase 15 (b)'s two-rank ZeRO-1 runs under the shadow: bytes and
             envelope.
-19. summary the kernels line (all seven kernels; kernels 1 to 3 with their
+19. summary the kernels line (all seven kernels, kernels 1 to 6 with their
+            fp32 numbers per pass under "fp32"; kernels 1 to 3 with their
             trainer-phase, VQA-CP, served-artifact, GIN/GAT, pretraining,
             scale-out and model-parallel launches too, kernel 1 with the
             adjacency precompute's, kernel 7 with its scale-out,
@@ -362,6 +384,11 @@ LAUNCHES_PER_FORWARD = sum(s[3] for s in PATH_SHAPES)
 # different orders, so a rounding may land one ulp apart.
 BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -7)
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
+# An fp32 kernel's largest distance from the float64 function may be at
+# most this many times its plain version's (cuBLAS's fp32 products): the
+# fp32 bodies multiply on the tensor cores in three TF32 passes, whose
+# error is of the order of fp32's own.
+FLOAT64_FACTOR = 4
 # Full model, bf16, kernel vs plain attention: one-ulp differences in the
 # attention outputs carried through 19 layers; logits have std ~0.8 here.
 LOGITS_ATOL = 0.1
@@ -372,6 +399,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 SERVE_BATCHES = (1, 16, 64)
+# (Lq, Lk) off the attention bodies' tiles, and their largest; an odd batch
+EDGE_SHAPES = ((1, 1), (7, 33), (33, 7), (64, 64))
+EDGE_BATCH = 7
 KERNEL_SOURCES = ("attention_fwd", "attention_dropout", "attention_blhd",
                   "bert_adam")
 # The training path: attention-probability dropout 0.1 at the batch of the
@@ -602,38 +632,22 @@ def ptxas_entries(log: str) -> dict:
     return entries
 
 
-def bf16_kernels(builds, direction: str) -> list:
-    """ptxas' registers and spills of the bf16 tensor-core kernels by key
-    tiles of 16, direction "bwd" (kernels 3 and 6) or "fwd" (kernels 1, 2,
-    4 and 5), as attention_dropout_bwd_bf16_kernel<n>."""
+def tiled_kernels(builds, direction: str, body: str) -> list:
+    """ptxas' registers and spills of the tensor-core attention kernels of
+    one body by key tiles of 16, direction "bwd" (kernels 3 and 6) or
+    "fwd" (kernels 1, 2, 4 and 5), body "bf16" or "f32" (the fp32 bodies),
+    as attention_dropout_bwd_bf16_kernel<n>."""
     import re
 
     rows = []
     for res in builds:
         for name, info in ptxas_entries(res.log).items():
-            m = re.search(rf"(attention_[a-z_]*{direction}_bf16_kernel)"
+            m = re.search(rf"(attention_[a-z_]*{direction}_{body}_kernel)"
                           r"ILi(\d)E", name)
             if m:
                 rows.append(dict(kernel=f"{m.group(1)}<{m.group(2)}>",
                                  **info))
     return sorted(rows, key=lambda r: r["kernel"])
-
-
-def scalar_forwards(builds) -> list:
-    """The scalar forward kernels in the build logs (attention_fwd_kernel,
-    attention_dropout_fwd_kernel, attention_blhd_fwd_kernel) with their
-    mangled template arguments: "f" for fp32 (BLHD: "fLb0E" and "fLb1E",
-    without and with dropout), "13__nv_bfloat16" for bf16."""
-    import re
-
-    found = []
-    for res in builds:
-        for name in ptxas_entries(res.log):
-            m = re.search(
-                r"(attention_(?:dropout_|blhd_)?fwd_kernel)I(.+?)EEv", name)
-            if m:
-                found.append(f"{m.group(1)}<{m.group(2)}>")
-    return sorted(found)
 
 
 def forward_resources(fwd_bf16: list, kernel: str, lq: int, lk: int) -> dict:
@@ -713,22 +727,23 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
 
 def pass_bounds(lq: int, lk: int, masked: bool, b: int, elem: int):
     """Bounds of one forward (kernels 2 and 5) and one backward (kernels 3
-    and 6) at batch b: q, k, v (and g) read once, o (dq, dk, dv) written
-    once, the bias read once; 4 and 10 B H Lq Lk D FLOPs."""
+    and 6) at batch b and `elem` bytes an element: q, k, v (and g) read
+    once, o (dq, dk, dv) written once, the bias read once; 4 and 10 B H Lq
+    Lk D FLOPs at the tensor cores' bf16 peak (elem 2) or the fp32 peak
+    outside them (elem 4)."""
     bh = b * H
     bias_bytes = 4 * b * lk if masked else 0
+    peak = FP32_FLOPS if elem == 4 else BF16_FLOPS
     return (bound(elem * bh * D * (2 * lq + 2 * lk) + bias_bytes,
-                  4 * bh * lq * lk * D),
+                  4 * bh * lq * lk * D, peak),
             bound(elem * bh * D * (3 * lq + 4 * lk) + bias_bytes,
-                  10 * bh * lq * lk * D))
+                  10 * bh * lq * lk * D, peak))
 
 
 def attention_bound(lq: int, lk: int, masked: bool, elem: int):
     """Kernel 1 at B=512: each input byte read once and each output byte
-    written once, against 4 B H Lq Lk D FLOPs."""
-    bh = B * H
-    nbytes = elem * bh * D * (2 * lq + 2 * lk) + (4 * B * lk if masked else 0)
-    return bound(nbytes, 4 * bh * lq * lk * D)
+    written once, against 4 B H Lq Lk D FLOPs (the peak as pass_bounds)."""
+    return pass_bounds(lq, lk, masked, B, elem)[0]
 
 
 def within(got, want, tol) -> bool:
@@ -740,82 +755,114 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def float64_output(q, k, v, bias, keep=None):
+    """o of the dropout attention in float64 (keep None: no dropout)."""
+    import torch
+
+    s = q.double() @ k.double().transpose(-1, -2) / 8.0
+    if bias is not None:
+        s = s + bias.double().repeat_interleave(H, dim=0)[:, None, :]
+    p = torch.softmax(s, dim=-1)
+    if keep is not None:
+        p = p * keep.double()
+    return p @ v.double()
+
+
+def float64_distance(got, plain, exact) -> dict:
+    """How far an fp32 kernel's and its plain version's outputs (tensors or
+    tuples of them) lie from the float64 function, and whether the kernel
+    is within FLOAT64_FACTOR times the plain version's distance plus one
+    fp32 ulp of the largest value (where the plain version is exact, as
+    at Lk = 1, the kernel may still round once)."""
+    def pairs(x):
+        return x if isinstance(x, (tuple, list)) else (x,)
+
+    kernel = max(float((a.double() - e).abs().max())
+                 for a, e in zip(pairs(got), pairs(exact)))
+    plain = max(float((a.double() - e).abs().max())
+                for a, e in zip(pairs(plain), pairs(exact)))
+    scale = max(float(e.abs().max()) for e in pairs(exact))
+    return dict(kernel_max_abs_err_vs_float64=kernel,
+                plain_max_abs_err_vs_float64=plain,
+                within_float64_factor=kernel <= FLOAT64_FACTOR * plain
+                + 2.0 ** -23 * scale)
+
+
 def phase_kernel(torch, attn):
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for lq, lk, path_masked, per_fwd in PATH_SHAPES:
-        for masked in (True, False):
-            def randn(*shape):
-                return torch.randn(*shape, device="cuda", generator=g,
-                                   dtype=torch.float32).to(torch.bfloat16)
+    shapes = [(lq, lk, masked, path_masked, per_fwd, torch.bfloat16)
+              for lq, lk, path_masked, per_fwd in PATH_SHAPES
+              for masked in (True, False)]
+    # fp32 (--dtype float32 validation and test forwards) at the path's masks
+    shapes += [(lq, lk, masked, masked, per_fwd, torch.float32)
+               for lq, lk, masked, per_fwd in PATH_SHAPES]
+    for lq, lk, masked, path_masked, per_fwd, dtype in shapes:
+        fp32 = dtype == torch.float32
+        tol = FP32_TOL if fp32 else BF16_TOL
 
-            q, k, v = randn(B * H, lq, D), randn(B * H, lk, D), randn(B * H, lk, D)
-            bias = None
-            if masked:
-                keep = torch.rand(B, lk, device="cuda", generator=g) > 0.2
-                bias = (~keep).float() * -10000.0
-            got = attn.fused_attention(q, k, v, bias, H)
-            want = attn.attention_reference(q, k, v, bias, H)
-            torch.cuda.synchronize()
-            q4, k4, v4 = (t.view(B, H, -1, D) for t in (q, k, v))
-            mask4 = None if bias is None else \
-                bias.to(torch.bfloat16)[:, None, None, :]
-            row = dict(
-                lq=lq, lk=lk, mask=masked, dtype="bfloat16",
-                max_abs_err=max_err(got, want), tolerance=BF16_TOL,
-                within_tolerance=within(got, want, BF16_TOL),
-                kernel_ms=cuda_ms(lambda: attn.fused_attention(q, k, v, bias, H)),
-                plain_ms=cuda_ms(lambda: attn.attention_reference(q, k, v, bias, H)),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask4)))
-            row["bound_ms"], row["bound_by"] = attention_bound(lq, lk, masked, 2)
-            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        def randn(*shape):
+            return torch.randn(*shape, device="cuda", generator=g,
+                               dtype=torch.float32).to(dtype)
+
+        q, k, v = randn(B * H, lq, D), randn(B * H, lk, D), randn(B * H, lk, D)
+        bias = None
+        if masked:
+            keep = torch.rand(B, lk, device="cuda", generator=g) > 0.2
+            bias = (~keep).float() * -10000.0
+        got = attn.fused_attention(q, k, v, bias, H)
+        want = attn.attention_reference(q, k, v, bias, H)
+        torch.cuda.synchronize()
+        q4, k4, v4 = (t.view(B, H, -1, D) for t in (q, k, v))
+        mask4 = None if bias is None else bias.to(dtype)[:, None, None, :]
+        row = dict(
+            lq=lq, lk=lk, mask=masked, dtype=str(dtype).split(".")[1],
+            max_abs_err=max_err(got, want), tolerance=tol,
+            within_tolerance=within(got, want, tol),
+            kernel_ms=cuda_ms(lambda: attn.fused_attention(q, k, v, bias, H)),
+            plain_ms=cuda_ms(lambda: attn.attention_reference(q, k, v, bias, H)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask4)))
+        if fp32:
+            row.update(float64_distance(got, want,
+                                        float64_output(q, k, v, bias)))
+        row["bound_ms"], row["bound_by"] = attention_bound(
+            lq, lk, masked, q.element_size())
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        if not fp32:
             row["dynamic_smem_bytes"] = bf16_forward_smem_bytes(lq, lk)
-            row["on_path"] = masked == path_masked
-            row["launches_per_forward"] = per_fwd if row["on_path"] else 0
-            if row["on_path"]:
-                # the device's own time, without the wrapper's host work
-                # between back-to-back calls
-                dev = device_ms(lambda: attn.fused_attention(q, k, v, bias, H),
-                                row["bound_ms"])
-                lib = device_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask4), row["bound_ms"])
-                row.update(
-                    kernel_device_ms=dev["ms"], library_device_ms=lib["ms"],
-                    device_time_method=dev["method"],
-                    kernel_host_ms=host_ms(
-                        lambda: attn.fused_attention(q, k, v, bias, H)),
-                    kernel_device_kernels=dev["kernels_per_call"],
-                    library_device_kernels=lib["kernels_per_call"],
-                    device_bound_share=row["bound_ms"] / dev["ms"])
-            emit("kernel", **row)
-            rows.append(row)
+        row["on_path"] = masked == path_masked
+        row["launches_per_forward"] = per_fwd if row["on_path"] else 0
+        if row["on_path"]:
+            # the device's own time, without the wrapper's host work
+            # between back-to-back calls
+            dev = device_ms(lambda: attn.fused_attention(q, k, v, bias, H),
+                            row["bound_ms"])
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask4), row["bound_ms"])
+            row.update(
+                kernel_device_ms=dev["ms"], library_device_ms=lib["ms"],
+                device_time_method=dev["method"],
+                kernel_host_ms=host_ms(
+                    lambda: attn.fused_attention(q, k, v, bias, H)),
+                kernel_device_kernels=dev["kernels_per_call"],
+                library_device_kernels=lib["kernels_per_call"],
+                device_bound_share=row["bound_ms"] / dev["ms"])
+        emit("kernel", **row)
+        rows.append(row)
 
-    bad = [(r["lq"], r["lk"], r["mask"], r["max_abs_err"]) for r in rows
-           if not r["within_tolerance"]]
-    check(not bad, f"bf16 attention kernel vs plain, (Lq, Lk, mask, max abs "
-                   f"err) outside {BF16_TOL}: {bad}")
-
-    # the kernel's fp32 path, at the largest shape of the serving path
-    q, k, v = (torch.randn(B * H, 36, D, device="cuda", generator=g)
-               for _ in range(3))
-    bias = (torch.rand(B, 36, device="cuda", generator=g) < 0.2).float() * -1e4
-    got = attn.fused_attention(q, k, v, bias, H)
-    want = attn.attention_reference(q, k, v, bias, H)
-    ok = within(got, want, FP32_TOL)
-    # the same function in float64: how far both fp32 versions are from it
-    s64 = (q.double() @ k.double().transpose(-1, -2) / 8.0
-           + bias.double().repeat_interleave(H, dim=0)[:, None, :])
-    exact = torch.softmax(s64, dim=-1) @ v.double()
-    emit("kernel", lq=36, lk=36, mask=True, dtype="float32",
-         max_abs_err=max_err(got, want), tolerance=FP32_TOL,
-         within_tolerance=ok,
-         kernel_max_abs_err_vs_float64=float((got.double() - exact).abs().max()),
-         plain_max_abs_err_vs_float64=float((want.double() - exact).abs().max()))
-    check(ok, f"fp32 attention kernel vs plain: max abs err "
-              f"{max_err(got, want)}")
+    bad = [(r["lq"], r["lk"], r["mask"], r["dtype"], r["max_abs_err"])
+           for r in rows if not r["within_tolerance"]]
+    check(not bad, f"attention kernel vs plain, (Lq, Lk, mask, dtype, max "
+                   f"abs err) outside {BF16_TOL} (bf16) or {FP32_TOL} "
+                   f"(fp32): {bad}")
+    bad = [(r["lq"], r["lk"], r["kernel_max_abs_err_vs_float64"],
+            r["plain_max_abs_err_vs_float64"]) for r in rows
+           if r["dtype"] == "float32" and not r["within_float64_factor"]]
+    check(not bad, f"fp32 kernel 1 farther from float64 than "
+                   f"{FLOAT64_FACTOR} x its plain version: {bad}")
     return rows
 
 
@@ -856,8 +903,8 @@ def float64_grads(q, k, v, bias, keep, g):
 
 
 def phase_dropout(torch, attn, philox, train_b: int, fwd_bf16: list):
-    """Kernels 2 and 3 and kernel 1's backward at the training batch;
-    fwd_bf16: the bf16 forward kernels' ptxas rows."""
+    """Kernels 2 and 3 and kernel 1's backward at the training batch, in
+    bf16 and fp32; fwd_bf16: the bf16 forward kernels' ptxas rows."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -871,7 +918,8 @@ def phase_dropout(torch, attn, philox, train_b: int, fwd_bf16: list):
             return philox.dropout_keep(seed, bh, lq, lk, RATE, "cuda")
 
         for dtype in (torch.bfloat16, torch.float32):
-            tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+            fp32 = dtype == torch.float32
+            tol = FP32_TOL if fp32 else BF16_TOL
             q, k, v, gout = (
                 torch.randn(bh, n, D, device="cuda", generator=g).to(dtype)
                 for n in (lq, lk, lk, lq))
@@ -905,83 +953,89 @@ def phase_dropout(torch, attn, philox, train_b: int, fwd_bf16: list):
                                        for a, w in zip(k1_grads, want_k1)),
                 k1_bwd_within=all(within(a, w, tol)
                                   for a, w in zip(k1_grads, want_k1)))
-            if dtype == torch.float32:
+            if fp32:
                 # how far both fp32 versions are from float64
-                exact = float64_grads(q, k, v, bias, keep, gout)
-                row.update(
-                    bwd_kernel_max_abs_err_vs_float64=max(
-                        max_err(a, w) for a, w in zip(grads, exact)),
-                    bwd_plain_max_abs_err_vs_float64=max(
-                        max_err(a, w) for a, w in zip(want, exact)))
-            else:
-                q4, k4, v4, g4 = (t.view(train_b, H, -1, D)
-                                  for t in (q, k, v, gout))
-                mask4 = None if bias is None else \
-                    bias.to(dtype)[:, None, None, :]
-                r4 = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+                row.update({f"{name}_{key}": val for name, d in (
+                    ("fwd", float64_distance(
+                        o, want_o, float64_output(q, k, v, bias, keep))),
+                    ("bwd", float64_distance(
+                        grads, want, float64_grads(q, k, v, bias, keep,
+                                                   gout))),
+                    ("k1_bwd", float64_distance(
+                        k1_grads, want_k1, float64_grads(
+                            q, k, v, bias, torch.ones_like(keep), gout))))
+                    for key, val in d.items()})
+            q4, k4, v4, g4 = (t.view(train_b, H, -1, D)
+                              for t in (q, k, v, gout))
+            mask4 = None if bias is None else \
+                bias.to(dtype)[:, None, None, :]
+            r4 = [t.clone().requires_grad_() for t in (q4, k4, v4)]
 
-                def sdpa_fwd_bwd():
-                    out = F.scaled_dot_product_attention(
-                        *r4, attn_mask=mask4, dropout_p=RATE)
-                    torch.autograd.grad(out, r4, g4)
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(
+                    *r4, attn_mask=mask4, dropout_p=RATE)
+                torch.autograd.grad(out, r4, g4)
 
-                lib_bias = library_padded_bias(F, mask4, train_b, lq, lk)
-                library_bwd = library_backward(torch, q4, k4, v4, g4,
-                                               lib_bias, RATE)
-                library_bwd0 = library_backward(torch, q4, k4, v4, g4,
-                                                lib_bias, 0.0)
-                fwd_bound, bwd_bound = pass_bounds(lq, lk, masked, train_b, 2)
+            lib_bias = library_padded_bias(F, mask4, train_b, lq, lk)
+            library_bwd = library_backward(torch, q4, k4, v4, g4,
+                                           lib_bias, RATE)
+            library_bwd0 = library_backward(torch, q4, k4, v4, g4,
+                                            lib_bias, 0.0)
+            fwd_bound, bwd_bound = pass_bounds(lq, lk, masked, train_b,
+                                               q.element_size())
+            row.update(
+                fwd_ms=cuda_ms(lambda: attn.attention_dropout_fwd(
+                    q, k, v, bias, H, seed, RATE)),
+                bwd_ms=cuda_ms(lambda: attn.attention_dropout_bwd(
+                    q, k, v, bias, H, seed, RATE, gout)),
+                k1_bwd_ms=cuda_ms(lambda: attn.attention_dropout_bwd(
+                    q, k, v, bias, H, 0, 0.0, gout)),
+                mask_ms=cuda_ms(plain_keep),
+                plain_fwd_ms=cuda_ms(lambda: attn.attention_dropout_reference(
+                    q, k, v, bias, H, plain_keep())),
+                plain_bwd_ms=cuda_ms(
+                    lambda: attn.attention_dropout_reference_grads(
+                        q, k, v, bias, H, plain_keep(), gout)),
+                sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
+                sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd),
+                library_bwd_ms=cuda_ms(library_bwd),
+                k1_library_bwd_ms=cuda_ms(library_bwd0),
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+            row["fwd_bound_share"] = row["fwd_bound_ms"] / row["fwd_ms"]
+            row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
+            # the kernels' own device time, without the wrappers' host
+            # work between back-to-back calls
+            dev = {key: device_ms(fn, least[0]) for key, fn, least in (
+                ("fwd", lambda: attn.attention_dropout_fwd(
+                    q, k, v, bias, H, seed, RATE), fwd_bound),
+                ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, dropout_p=RATE),
+                 fwd_bound),
+                ("bwd", lambda: attn.attention_dropout_bwd(
+                    q, k, v, bias, H, seed, RATE, gout), bwd_bound),
+                ("k1_bwd", lambda: attn.attention_dropout_bwd(
+                    q, k, v, bias, H, 0, 0.0, gout), bwd_bound),
+                ("library_bwd", library_bwd, bwd_bound),
+                ("k1_library_bwd", library_bwd0, bwd_bound))}
+            row.update({f"{key}_device_ms": d["ms"]
+                        for key, d in dev.items()})
+            row.update(
+                fwd_host_ms=host_ms(lambda: attn.attention_dropout_fwd(
+                    q, k, v, bias, H, seed, RATE)),
+                fwd_device_bound_share=(row["fwd_bound_ms"]
+                                        / row["fwd_device_ms"]),
+                bwd_host_ms=host_ms(lambda: attn.attention_dropout_bwd(
+                    q, k, v, bias, H, seed, RATE, gout)),
+                device_time_method=dev["bwd"]["method"],
+                bwd_device_kernels=dev["bwd"]["kernels_per_call"],
+                library_bwd_device_kernels=dev["library_bwd"][
+                    "kernels_per_call"],
+                bwd_device_bound_share=(row["bwd_bound_ms"]
+                                        / row["bwd_device_ms"]))
+            if not fp32:
                 row.update(
-                    fwd_ms=cuda_ms(lambda: attn.attention_dropout_fwd(
-                        q, k, v, bias, H, seed, RATE)),
-                    bwd_ms=cuda_ms(lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, seed, RATE, gout)),
-                    k1_bwd_ms=cuda_ms(lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, 0, 0.0, gout)),
-                    mask_ms=cuda_ms(plain_keep),
-                    plain_fwd_ms=cuda_ms(lambda: attn.attention_dropout_reference(
-                        q, k, v, bias, H, plain_keep())),
-                    plain_bwd_ms=cuda_ms(
-                        lambda: attn.attention_dropout_reference_grads(
-                            q, k, v, bias, H, plain_keep(), gout)),
-                    sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
-                    sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd),
-                    library_bwd_ms=cuda_ms(library_bwd),
-                    k1_library_bwd_ms=cuda_ms(library_bwd0),
-                    fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
-                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
-                row["fwd_bound_share"] = row["fwd_bound_ms"] / row["fwd_ms"]
-                row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
-                # the kernels' own device time, without the wrappers' host
-                # work between back-to-back calls
-                dev = {key: device_ms(fn, least[0]) for key, fn, least in (
-                    ("fwd", lambda: attn.attention_dropout_fwd(
-                        q, k, v, bias, H, seed, RATE), fwd_bound),
-                    ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE),
-                     fwd_bound),
-                    ("bwd", lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, seed, RATE, gout), bwd_bound),
-                    ("k1_bwd", lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, 0, 0.0, gout), bwd_bound),
-                    ("library_bwd", library_bwd, bwd_bound),
-                    ("k1_library_bwd", library_bwd0, bwd_bound))}
-                row.update({f"{key}_device_ms": d["ms"]
-                            for key, d in dev.items()})
-                row.update(
-                    fwd_host_ms=host_ms(lambda: attn.attention_dropout_fwd(
-                        q, k, v, bias, H, seed, RATE)),
-                    fwd_device_bound_share=(row["fwd_bound_ms"]
-                                            / row["fwd_device_ms"]),
-                    bwd_host_ms=host_ms(lambda: attn.attention_dropout_bwd(
-                        q, k, v, bias, H, seed, RATE, gout)),
-                    device_time_method=dev["bwd"]["method"],
-                    bwd_device_kernels=dev["bwd"]["kernels_per_call"],
-                    library_bwd_device_kernels=dev["library_bwd"][
-                        "kernels_per_call"],
-                    bwd_device_bound_share=(row["bwd_bound_ms"]
-                                            / row["bwd_device_ms"]),
                     bwd_threads=32 * ((lq + 15) // 16),
                     bwd_dynamic_smem_bytes=bf16_backward_smem_bytes(lq, lk),
                     fwd_resources=forward_resources(
@@ -1003,15 +1057,72 @@ def phase_dropout(torch, attn, philox, train_b: int, fwd_bf16: list):
             emit("dropout_mask", **check_own_mask(torch, kernel_mask, seed,
                                                   keep, lq, lk, dtype))
 
-    for key in ("fwd_within", "bwd_within", "k1_bwd_within"):
-        bad = [(r["lq"], r["lk"], r["dtype"]) for r in rows if not r[key]]
+    edges = fp32_edges(torch, attn, philox)
+    for key in ("fwd_within", "bwd_within", "k1_bwd_within", "k1_within"):
+        bad = [(r["lq"], r["lk"], r["dtype"], r.get("rate"))
+               for r in rows + edges if not r.get(key, True)]
         check(not bad, f"dropout phase {key} failed at {bad}")
+    bad = [(r["lq"], r["lk"], r["mask"], r.get("rate"), key)
+           for r in rows + edges for key in r
+           if key.endswith("_within_float64_factor") and not r[key]]
+    check(not bad, f"fp32 kernels 1 to 3 farther from float64 than "
+                   f"{FLOAT64_FACTOR} x their plain versions at {bad}")
+    return rows
+
+
+def fp32_edges(torch, attn, philox) -> list:
+    """Kernel 1, and kernels 2 and 3 at rates 0.1 and 0, in fp32 at the
+    shapes off the bodies' tiles (EDGE_SHAPES) and an odd batch, masked
+    (every key of the first element) and not: each against its plain
+    version (FP32_TOL) and against the float64 function
+    (float64_distance), as k1_*, fwd_* and bwd_*."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bh = EDGE_BATCH * H
+    rows = []
+    for lq, lk in EDGE_SHAPES:
+        for masked in (True, False):
+            q, k, v, gout = (torch.randn(bh, n, D, device="cuda", generator=g)
+                             for n in (lq, lk, lk, lq))
+            bias = None
+            if masked:
+                bias = (torch.rand(EDGE_BATCH, lk, device="cuda",
+                                   generator=g) < 0.3).float() * -10000.0
+                bias[0] = -10000.0
+            o1 = attn.fused_attention(q, k, v, bias, H)
+            want_o1 = attn.attention_reference(q, k, v, bias, H)
+            k1 = float64_distance(o1, want_o1, float64_output(q, k, v, bias))
+            for rate in (RATE, 0.0):
+                seed = 7 * lq + lk
+                keep = (philox.dropout_keep(seed, bh, lq, lk, rate, "cuda")
+                        if rate else torch.ones(bh, lq, lk, device="cuda"))
+                o = attn.attention_dropout_fwd(q, k, v, bias, H, seed, rate)
+                grads = attn.attention_dropout_bwd(q, k, v, bias, H, seed,
+                                                   rate, gout)
+                want_o = attn.attention_dropout_reference(q, k, v, bias, H,
+                                                          keep)
+                want = attn.attention_dropout_reference_grads(
+                    q, k, v, bias, H, keep, gout)
+                row = dict(lq=lq, lk=lk, mask=masked, rate=rate,
+                           dtype="float32", batch=EDGE_BATCH,
+                           k1_within=within(o1, want_o1, FP32_TOL),
+                           fwd_within=within(o, want_o, FP32_TOL),
+                           bwd_within=all(within(a, w, FP32_TOL)
+                                          for a, w in zip(grads, want)))
+                row.update({f"{name}_{key}": val for name, d in (
+                    ("k1", k1),
+                    ("fwd", float64_distance(
+                        o, want_o, float64_output(q, k, v, bias, keep))),
+                    ("bwd", float64_distance(grads, want, float64_grads(
+                        q, k, v, bias, keep, gout))))
+                    for key, val in d.items()})
+                emit("fp32_edge", **row)
+                rows.append(row)
     return rows
 
 
 def phase_blhd(torch, attn, philox, train_b: int, fwd_bf16: list):
-    """Kernels 4, 5 and 6 at the training batch, in the BLHD layout;
-    fwd_bf16: the bf16 forward kernels' ptxas rows."""
+    """Kernels 4, 5 and 6 at the training batch, in the BLHD layout, in
+    bf16 and fp32; fwd_bf16: the bf16 forward kernels' ptxas rows."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1082,73 +1193,73 @@ def phase_blhd(torch, attn, philox, train_b: int, fwd_bf16: list):
                 vs_kernels_1_to_3_within_one_bf16_ulp=all(
                     within(a, blhd_of(w), BF16_TOL)
                     for a, w in zip(ours, flat)))
+            # the library on strided [B, H, L, D] views of the same
+            # BLHD storage: no copy
+            q4, k4, v4, g4 = (t.transpose(1, 2) for t in (q, k, v, gout))
+            mask4 = None if bias is None else \
+                bias.to(dtype)[:, None, None, :]
+            library_bwd = library_backward(
+                torch, q4, k4, v4, g4,
+                library_padded_bias(F, mask4, train_b, lq, lk), RATE)
+            fwd_bound, bwd_bound = pass_bounds(lq, lk, masked, train_b,
+                                               q.element_size())
+            row.update(
+                k4_ms=cuda_ms(lambda: attn._attention_blhd_fwd(
+                    q, k, v, bias)),
+                k5_ms=cuda_ms(lambda: attn.attention_dropout_blhd_fwd(
+                    q, k, v, bias, seed, RATE)),
+                k6_ms=cuda_ms(lambda: attn.attention_dropout_blhd_bwd(
+                    q, k, v, bias, seed, RATE, gout)),
+                k4_bwd_ms=cuda_ms(lambda: attn.attention_dropout_blhd_bwd(
+                    q, k, v, bias, 0, 0.0, gout)),
+                plain_k4_ms=cuda_ms(lambda: attn.attention_blhd_reference(
+                    q, k, v, bias)),
+                plain_k5_ms=cuda_ms(
+                    lambda: attn.attention_dropout_blhd_reference(
+                        q, k, v, bias, plain_keep())),
+                plain_k6_ms=cuda_ms(
+                    lambda: attn.attention_dropout_blhd_reference_grads(
+                        q, k, v, bias, plain_keep(), gout)),
+                sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4)),
+                sdpa_dropout_fwd_ms=cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
+                library_bwd_ms=cuda_ms(library_bwd),
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+            dev = {key: device_ms(fn, least[0]) for key, fn, least in (
+                ("k4", lambda: attn._attention_blhd_fwd(q, k, v, bias),
+                 fwd_bound),
+                ("k5", lambda: attn.attention_dropout_blhd_fwd(
+                    q, k, v, bias, seed, RATE), fwd_bound),
+                ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4), fwd_bound),
+                ("sdpa_dropout_fwd", lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, dropout_p=RATE),
+                 fwd_bound),
+                ("k6", lambda: attn.attention_dropout_blhd_bwd(
+                    q, k, v, bias, seed, RATE, gout), bwd_bound),
+                ("k4_bwd", lambda: attn.attention_dropout_blhd_bwd(
+                    q, k, v, bias, 0, 0.0, gout), bwd_bound),
+                ("library_bwd", library_bwd, bwd_bound))}
+            row.update({f"{key}_device_ms": d["ms"]
+                        for key, d in dev.items()})
+            row.update(k4_host_ms=host_ms(
+                           lambda: attn._attention_blhd_fwd(
+                               q, k, v, bias)),
+                       k4_device_bound_share=(row["fwd_bound_ms"]
+                                              / row["k4_device_ms"]),
+                       k6_host_ms=host_ms(
+                           lambda: attn.attention_dropout_blhd_bwd(
+                               q, k, v, bias, seed, RATE, gout)),
+                       device_time_method=dev["k6"]["method"],
+                       k6_device_bound_share=(row["bwd_bound_ms"]
+                                              / row["k6_device_ms"]))
             if dtype == torch.bfloat16:
-                # the library on strided [B, H, L, D] views of the same
-                # BLHD storage: no copy
-                q4, k4, v4, g4 = (t.transpose(1, 2) for t in (q, k, v, gout))
-                mask4 = None if bias is None else \
-                    bias.to(dtype)[:, None, None, :]
-                library_bwd = library_backward(
-                    torch, q4, k4, v4, g4,
-                    library_padded_bias(F, mask4, train_b, lq, lk), RATE)
-                fwd_bound, bwd_bound = pass_bounds(lq, lk, masked, train_b, 2)
-                row.update(
-                    k4_ms=cuda_ms(lambda: attn._attention_blhd_fwd(
-                        q, k, v, bias)),
-                    k5_ms=cuda_ms(lambda: attn.attention_dropout_blhd_fwd(
-                        q, k, v, bias, seed, RATE)),
-                    k6_ms=cuda_ms(lambda: attn.attention_dropout_blhd_bwd(
-                        q, k, v, bias, seed, RATE, gout)),
-                    k4_bwd_ms=cuda_ms(lambda: attn.attention_dropout_blhd_bwd(
-                        q, k, v, bias, 0, 0.0, gout)),
-                    plain_k4_ms=cuda_ms(lambda: attn.attention_blhd_reference(
-                        q, k, v, bias)),
-                    plain_k5_ms=cuda_ms(
-                        lambda: attn.attention_dropout_blhd_reference(
-                            q, k, v, bias, plain_keep())),
-                    plain_k6_ms=cuda_ms(
-                        lambda: attn.attention_dropout_blhd_reference_grads(
-                            q, k, v, bias, plain_keep(), gout)),
-                    sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask4)),
-                    sdpa_dropout_fwd_ms=cuda_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q4, k4, v4, attn_mask=mask4, dropout_p=RATE)),
-                    library_bwd_ms=cuda_ms(library_bwd),
-                    fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
-                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
-                dev = {key: device_ms(fn, least[0]) for key, fn, least in (
-                    ("k4", lambda: attn._attention_blhd_fwd(q, k, v, bias),
-                     fwd_bound),
-                    ("k5", lambda: attn.attention_dropout_blhd_fwd(
-                        q, k, v, bias, seed, RATE), fwd_bound),
-                    ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask4), fwd_bound),
-                    ("sdpa_dropout_fwd", lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask4, dropout_p=RATE),
-                     fwd_bound),
-                    ("k6", lambda: attn.attention_dropout_blhd_bwd(
-                        q, k, v, bias, seed, RATE, gout), bwd_bound),
-                    ("k4_bwd", lambda: attn.attention_dropout_blhd_bwd(
-                        q, k, v, bias, 0, 0.0, gout), bwd_bound),
-                    ("library_bwd", library_bwd, bwd_bound))}
-                row.update({f"{key}_device_ms": d["ms"]
-                            for key, d in dev.items()})
-                row.update(k4_host_ms=host_ms(
-                               lambda: attn._attention_blhd_fwd(
-                                   q, k, v, bias)),
-                           k4_device_bound_share=(row["fwd_bound_ms"]
-                                                  / row["k4_device_ms"]),
-                           k6_host_ms=host_ms(
-                               lambda: attn.attention_dropout_blhd_bwd(
-                                   q, k, v, bias, seed, RATE, gout)),
-                           device_time_method=dev["k6"]["method"],
-                           k6_device_bound_share=(row["bwd_bound_ms"]
-                                                  / row["k6_device_ms"]),
-                           k5_resources=forward_resources(
-                               fwd_bf16,
-                               "attention_blhd_dropout_fwd_bf16_kernel", lq,
-                               lk))
+                row["k5_resources"] = forward_resources(
+                    fwd_bf16, "attention_blhd_dropout_fwd_bf16_kernel", lq,
+                    lk)
             emit("blhd", **row)
             rows.append(row)
 
@@ -1204,13 +1315,14 @@ def phase_blhd(torch, attn, philox, train_b: int, fwd_bf16: list):
     return rows, launches
 
 
-def emit_backward_device(drop_rows, blhd_rows, train_b: int) -> None:
+def emit_backward_device(drop_rows, blhd_rows, train_b: int,
+                         dtype: str) -> None:
     """Kernels 3 and 6 and the library backward per pass of the path's 34
-    launches at the training batch in bf16: CUDA events around back-to-back
-    calls (the wrapper's host work included) and the device's own time,
-    against the bound."""
-    drop = [r for r in drop_rows if "bwd_device_ms" in r]
-    blhd = [r for r in blhd_rows if "k6_device_ms" in r]
+    launches at the training batch in `dtype`: CUDA events around
+    back-to-back calls (the wrapper's host work included) and the device's
+    own time, against the bound."""
+    drop = [r for r in drop_rows if r["dtype"] == dtype]
+    blhd = [r for r in blhd_rows if r["dtype"] == dtype]
 
     def per_pass(key, table):
         return sum(r[key] * r["launches_per_forward"] for r in table)
@@ -1221,6 +1333,7 @@ def emit_backward_device(drop_rows, blhd_rows, train_b: int) -> None:
             "k3_host_ms": ("bwd_host_ms", drop),
             "k3_rate0_ms": ("k1_bwd_ms", drop),
             "k3_rate0_device_ms": ("k1_bwd_device_ms", drop),
+            "plain_k3_ms": ("plain_bwd_ms", drop),
             "library_bwd_ms": ("library_bwd_ms", drop),
             "library_bwd_device_ms": ("library_bwd_device_ms", drop),
             "library_bwd_rate0_ms": ("k1_library_bwd_ms", drop),
@@ -1229,30 +1342,32 @@ def emit_backward_device(drop_rows, blhd_rows, train_b: int) -> None:
             "k6_device_ms": ("k6_device_ms", blhd),
             "k6_host_ms": ("k6_host_ms", blhd),
             "k6_rate0_device_ms": ("k4_bwd_device_ms", blhd),
+            "plain_k6_ms": ("plain_k6_ms", blhd),
             "library_bwd_blhd_ms": ("library_bwd_ms", blhd),
             "library_bwd_blhd_device_ms": ("library_bwd_device_ms", blhd)}
     passes = {name: per_pass(key, table)
               for name, (key, table) in keys.items()}
-    emit("backward_device", per_pass=passes, bound_ms=bound_ms,
+    emit("backward_device", dtype=dtype, per_pass=passes, bound_ms=bound_ms,
          share_of_bound={name: bound_ms / ms for name, ms in passes.items()
-                         if "host" not in name},
+                         if "host" not in name and "plain" not in name},
          method=drop[0]["device_time_method"],
          over=f"one training backward's {LAUNCHES_PER_FORWARD} launches at "
-              f"B={train_b}, bf16; *_ms: CUDA events around back-to-back "
+              f"B={train_b}, {dtype}; *_ms: CUDA events around back-to-back "
               "calls, *_device_ms: the device's own time, *_host_ms: the "
               "host's time per wrapper call")
 
 
-def emit_forward_device(rows, drop_rows, blhd_rows, train_b: int) -> None:
+def emit_forward_device(rows, drop_rows, blhd_rows, train_b: int,
+                        dtype: str) -> None:
     """The forward kernels (1, 2, 4 and 5) and the library's forward per
-    pass of the path's 34 launches in bf16: kernel 1 and SDPA per served
+    pass of the path's 34 launches in `dtype`: kernel 1 and SDPA per served
     forward at B = 512, kernels 2, 4 and 5 and SDPA per training forward at
     the training batch; CUDA events around back-to-back calls (the
     wrapper's host work included) and the device's own time, against the
     bound."""
-    path = [r for r in rows if "kernel_device_ms" in r]
-    drop = [r for r in drop_rows if "fwd_device_ms" in r]
-    blhd = [r for r in blhd_rows if "k4_device_ms" in r]
+    path = [r for r in rows if r["dtype"] == dtype and r["on_path"]]
+    drop = [r for r in drop_rows if r["dtype"] == dtype]
+    blhd = [r for r in blhd_rows if r["dtype"] == dtype]
 
     def per_pass(key, table):
         return sum(r[key] * r["launches_per_forward"] for r in table)
@@ -1263,13 +1378,15 @@ def emit_forward_device(rows, drop_rows, blhd_rows, train_b: int) -> None:
         return dict(per_pass=passes, bound_ms=bound_ms,
                     share_of_bound={name: bound_ms / ms
                                     for name, ms in passes.items()
-                                    if "host" not in name},
+                                    if "host" not in name
+                                    and "plain" not in name},
                     over=over)
 
     served = report(per_pass("bound_ms", path), {
         "k1_ms": ("kernel_ms", path),
         "k1_device_ms": ("kernel_device_ms", path),
         "k1_host_ms": ("kernel_host_ms", path),
+        "plain_k1_ms": ("plain_ms", path),
         "library_ms": ("library_ms", path),
         "library_device_ms": ("library_device_ms", path)},
         f"one served forward's {LAUNCHES_PER_FORWARD} launches at B={B}")
@@ -1277,13 +1394,16 @@ def emit_forward_device(rows, drop_rows, blhd_rows, train_b: int) -> None:
         "k2_ms": ("fwd_ms", drop),
         "k2_device_ms": ("fwd_device_ms", drop),
         "k2_host_ms": ("fwd_host_ms", drop),
+        "plain_k2_ms": ("plain_fwd_ms", drop),
         "library_dropout_ms": ("sdpa_fwd_ms", drop),
         "library_dropout_device_ms": ("sdpa_fwd_device_ms", drop),
         "k4_ms": ("k4_ms", blhd),
         "k4_device_ms": ("k4_device_ms", blhd),
         "k4_host_ms": ("k4_host_ms", blhd),
+        "plain_k4_ms": ("plain_k4_ms", blhd),
         "k5_ms": ("k5_ms", blhd),
         "k5_device_ms": ("k5_device_ms", blhd),
+        "plain_k5_ms": ("plain_k5_ms", blhd),
         "library_blhd_ms": ("sdpa_fwd_ms", blhd),
         "library_blhd_device_ms": ("sdpa_fwd_device_ms", blhd),
         "library_dropout_blhd_ms": ("sdpa_dropout_fwd_ms", blhd),
@@ -1292,7 +1412,7 @@ def emit_forward_device(rows, drop_rows, blhd_rows, train_b: int) -> None:
         f"one training forward's {LAUNCHES_PER_FORWARD} launches at "
         f"B={train_b}; library_*: SDPA, *_blhd on strided views of the "
         "BLHD tensors, *_dropout at dropout_p 0.1")
-    emit("forward_device", served=served, training=training,
+    emit("forward_device", dtype=dtype, served=served, training=training,
          method=path[0]["device_time_method"],
          times="*_ms: CUDA events around back-to-back calls, *_device_ms: "
                "the device's own time, *_host_ms: the host's time per "
@@ -4760,6 +4880,7 @@ def phase_adjacency(torch, attn, card: str, t_start: float) -> dict:
     got = attn.fused_attention(q, k, v, bias, 12)
     ref = attn.attention_reference(q, k, v, bias, 12)
     k1_err = max_err(got, ref)
+    vs_float64 = float64_distance(got, ref, float64_output(q, k, v, bias))
     nbytes = 4 * rows * ADJ_LEN * D * 4 + 4 * ADJ_BS * ADJ_LEN
     bound_ms, bound_by = bound(nbytes, 4 * rows * ADJ_LEN * ADJ_LEN * D,
                                FP32_FLOPS)
@@ -4776,7 +4897,8 @@ def phase_adjacency(torch, attn, card: str, t_start: float) -> dict:
         device_ms=dev["ms"], library_device_ms=lib["ms"],
         device_kernels=dev["kernels_per_call"],
         library_device_kernels=lib["kernels_per_call"],
-        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=k1_err)
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=k1_err,
+        device_bound_share=bound_ms / dev["ms"], **vs_float64)
     emit("adjacency", card=card, width="bert-base-uncased, fp32",
          layers=ADJ_LAYERS, vocab=ADJ_VOCAB, names=[ADJ_OBJECTS, ADJ_ATTRS],
          batch=ADJ_BS, max_len=ADJ_LEN, forwards=ADJ_FORWARDS,
@@ -4793,6 +4915,9 @@ def phase_adjacency(torch, attn, card: str, t_start: float) -> dict:
     check(pooled_err <= POOLED_ATOL,
           f"pooled embeddings vs the plain attention: {pooled_err}")
     check(k1_err <= FP32_TOL["atol"], f"kernel 1 fp32 at L=16: {k1_err}")
+    check(vs_float64["within_float64_factor"],
+          f"kernel 1 fp32 at L=16 farther from float64 than "
+          f"{FLOAT64_FACTOR} x the plain version: {vs_float64}")
     check(list(dev["kernels_per_call"].values()) == [1.0],
           f"kernel 1 is one launch a call: {dev['kernels_per_call']}")
     check(adj.is_cuda and adj.shape == (ADJ_IMAGES, 36, 36),
@@ -5547,89 +5672,19 @@ def post(url: str, payload: dict, timeout: float = 600) -> dict:
         return json.load(resp)
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs a CUDA card", file=sys.stderr)
-        return 1
-
-    from xggm_tpu_torch.config import gqa_ood_config
+def phase_serving(torch, attn, cfg, card: str, t_start: float) -> int:
+    """Phases 6 and 7: the full-width model behind the HTTP server, its
+    answers, launches and logits against the plain attention, then served
+    pairs/s, p50 and predict_logits pairs/s. Returns kernel 1's launches
+    over the POSTs."""
     from xggm_tpu_torch.data.synthetic import (
         ANSWERS, synthetic_obj36, synthetic_questions, vocab_tokens)
     from xggm_tpu_torch.data.tokenizer import BertTokenizer
     from xggm_tpu_torch.models.task_model import XGGMModel
-    from xggm_tpu_torch.ops import attention as attn
-    from xggm_tpu_torch.ops import build, philox
-    from xggm_tpu_torch.ops import fused_adam as fa
     from xggm_tpu_torch.ops.basic import init_weights
     from xggm_tpu_torch.serving.artifact import ServingModel
     from xggm_tpu_torch.serving.server import InferenceEngine, make_server
 
-    t_start = time.perf_counter()
-    # 1. device
-    name = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    emit("device", kind=name, count=count, nvidia_smi=card,
-         torch=torch.__version__, cuda=torch.version.cuda,
-         tf32="off: torch.backends.cuda.matmul.allow_tf32 = False")
-
-    # 2. build: one nvcc per source, all started together
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        builds = list(pool.map(build.build, KERNEL_SOURCES))
-    for src, res in zip(KERNEL_SOURCES, builds):
-        emit("build", kernel=src, seconds=res.seconds, library=res.path,
-             ptxas=[ln.strip() for ln in res.log.splitlines()
-                    if "ptxas info" in ln or "spill" in ln])
-    emit("build", wall_seconds=time.perf_counter() - t0)
-    bwd_bf16 = bf16_kernels(builds, "bwd")
-    emit("build_bwd_bf16", kernels=bwd_bf16,
-         dynamic_smem_bytes_at_path_shapes={
-             f"{lq}x{lk}": bf16_backward_smem_bytes(lq, lk)
-             for lq, lk, _, _ in PATH_SHAPES})
-    fwd_bf16 = bf16_kernels(builds, "fwd")
-    scalar_fwd = scalar_forwards(builds)
-    emit("build_fwd_bf16", kernels=fwd_bf16,
-         dynamic_smem_bytes_at_path_shapes={
-             f"{lq}x{lk}": bf16_forward_smem_bytes(lq, lk)
-             for lq, lk, _, _ in PATH_SHAPES},
-         scalar_forwards=scalar_fwd)
-    # kernels 1 and 2, and kernel 4 with and without dropout (5), in fp32
-    check(len(scalar_fwd) == 4
-          and all(k.split("<")[1].startswith("f") for k in scalar_fwd),
-          f"expected the scalar forward for fp32 only: {scalar_fwd}")
-    # backward: kernels 3 and 6; forward: kernels 1, 2, 4 and 5
-    for kind, found, want in (("backward", bwd_bf16, 8),
-                              ("forward", fwd_bf16, 16)):
-        check(len(found) == want, f"expected {want} bf16 {kind} kernels in "
-                                  f"the build log, found {len(found)}")
-        spills = [r["kernel"] for r in found
-                  if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
-        check(not spills, f"bf16 {kind} kernels spill: {spills}")
-
-    # 3. kernel check and times
-    rows = phase_kernel(torch, attn)
-
-    # 4. dropout kernels at the training batch
-    cfg = gqa_ood_config()
-    train_b = cfg.train.batch_size
-    drop_rows = phase_dropout(torch, attn, philox, train_b, fwd_bf16)
-
-    # 5. the BLHD kernels at the training batch, and their entry points
-    blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b,
-                                          fwd_bf16)
-    emit_backward_device(drop_rows, blhd_rows, train_b)
-    emit_forward_device(rows, drop_rows, blhd_rows, train_b)
-
-    # 6. serving at full width
     lx = cfg.lxmert.replace(dtype="bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = init_weights(XGGMModel(lx, cfg.num_answers, device="cuda"), gen)
@@ -5725,76 +5780,226 @@ def main() -> int:
         server.server_close()
         thread.join(timeout=60)
 
-    # free the serving model, so that the training peak memory is its own
-    del server, engine, sm, model, batch, big, logits, plain
-    gc.collect()
-    torch.cuda.empty_cache()
+    return launches
+
+
+# The phases a run may name (`--phases`), in the order they run, and the
+# phases whose results each one needs, which run with it.
+PHASES = ("kernel", "dropout", "blhd", "serving", "train", "fused",
+          "trainer", "vqacp", "export", "generators", "pretrain",
+          "scale_out", "model_parallel", "adjacency", "lineage", "shadow")
+PHASE_NEEDS = {"fused": ("train",), "trainer": ("train",),
+               "vqacp": ("trainer",), "export": ("trainer",),
+               "shadow": ("fused", "scale_out")}
+
+
+def phases_to_run(names) -> list:
+    """The named phases and those they need, in PHASES' order."""
+    run = set()
+
+    def add(name):
+        check(name in PHASES, f"unknown phase {name!r}; the phases are "
+                              f"{', '.join(PHASES)}")
+        run.add(name)
+        for need in PHASE_NEEDS.get(name, ()):
+            add(need)
+
+    for name in names:
+        add(name)
+    return [p for p in PHASES if p in run]
+
+
+def main(phases=PHASES, root=None) -> int:
+    """Phases 1 and 2, then `phases` (a phases_to_run list), then the card's
+    name and the result line; the kernels line only when every phase ran.
+    root: import the package of the checkout there (another commit's, such
+    as the parent unpacked under build/) and build its kernels; the build
+    log's count of this checkout's kernels is then not checked. It is for
+    the phases that run in this process: the rank processes of phases 15
+    and 16 import this checkout's package."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    if root is not None:
+        root = os.path.abspath(root)
+        sys.path.insert(0, root)
+
+    from xggm_tpu_torch.config import gqa_ood_config
+    from xggm_tpu_torch.ops import attention as attn
+    from xggm_tpu_torch.ops import build, philox
+    from xggm_tpu_torch.ops import fused_adam as fa
+
+    if root is not None:
+        check(attn.__file__.startswith(root + os.sep),
+              f"imported {attn.__file__}, not the package under {root}")
+    run = set(phases)
+    t_start = time.perf_counter()
+    # 1. device
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", kind=name, count=count, nvidia_smi=card,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         tf32="off: torch.backends.cuda.matmul.allow_tf32 = False",
+         phases=list(phases),
+         package=os.path.dirname(os.path.dirname(attn.__file__)))
+
+    # 2. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = list(pool.map(build.build, KERNEL_SOURCES))
+    for src, res in zip(KERNEL_SOURCES, builds):
+        emit("build", kernel=src, seconds=res.seconds, library=res.path,
+             ptxas=[ln.strip() for ln in res.log.splitlines()
+                    if "ptxas info" in ln or "spill" in ln])
+    emit("build", wall_seconds=time.perf_counter() - t0)
+    bwd_bf16 = tiled_kernels(builds, "bwd", "bf16")
+    emit("build_bwd_bf16", kernels=bwd_bf16,
+         dynamic_smem_bytes_at_path_shapes={
+             f"{lq}x{lk}": bf16_backward_smem_bytes(lq, lk)
+             for lq, lk, _, _ in PATH_SHAPES})
+    fwd_bf16 = tiled_kernels(builds, "fwd", "bf16")
+    emit("build_fwd_bf16", kernels=fwd_bf16,
+         dynamic_smem_bytes_at_path_shapes={
+             f"{lq}x{lk}": bf16_forward_smem_bytes(lq, lk)
+             for lq, lk, _, _ in PATH_SHAPES})
+    bwd_f32, fwd_f32 = (tiled_kernels(builds, d, "f32")
+                        for d in ("bwd", "fwd"))
+    emit("build_f32", backward=bwd_f32, forward=fwd_f32)
+    # backward: kernels 3 and 6; forward: kernels 1, 2, 4 and 5; each by key
+    # tiles of 16, in each body
+    for kind, found, want in (("bf16 backward", bwd_bf16, 8),
+                              ("bf16 forward", fwd_bf16, 16),
+                              ("fp32 backward", bwd_f32, 8),
+                              ("fp32 forward", fwd_f32, 16)):
+        if root is None:
+            check(len(found) == want, f"expected {want} {kind} kernels in "
+                                      f"the build log, found {len(found)}")
+        spills = [r["kernel"] for r in found
+                  if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+        check(not spills, f"{kind} kernels spill: {spills}")
+
+    cfg = gqa_ood_config()
+    train_b = cfg.train.batch_size
+    rows, drop_rows, blhd_rows = [], [], []
+    # 3. kernel check and times
+    if "kernel" in run:
+        rows = phase_kernel(torch, attn)
+
+    # 4. dropout kernels at the training batch
+    if "dropout" in run:
+        drop_rows = phase_dropout(torch, attn, philox, train_b, fwd_bf16)
+
+    # 5. the BLHD kernels at the training batch, and their entry points
+    if "blhd" in run:
+        blhd_rows, blhd_launches = phase_blhd(torch, attn, philox, train_b,
+                                              fwd_bf16)
+    if {"kernel", "dropout", "blhd"} <= run:
+        for dtype in ("bfloat16", "float32"):
+            emit_backward_device(drop_rows, blhd_rows, train_b, dtype)
+            emit_forward_device(rows, drop_rows, blhd_rows, train_b, dtype)
+
+    # 6. and 7. serving at full width, and its timing
+    if "serving" in run:
+        launches = phase_serving(torch, attn, cfg, card, t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 8. training at full width
-    train_launches, tree_profile = phase_train(torch, attn, philox)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "train" in run:
+        train_launches, tree_profile = phase_train(torch, attn, philox)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 9. training with the fused BertAdam (kernel 7)
-    fused_launches, adam = phase_fused_train(torch, attn, fa, tree_profile)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "fused" in run:
+        fused_launches, adam = phase_fused_train(torch, attn, fa,
+                                                 tree_profile)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 10. the trainer and its CLI: an epoch and the test arm; its BEST_0
     # stays on disk for phase 12
-    trainer_dir = tempfile.mkdtemp(prefix="xggm_trainer_")
-    try:
-        trainer_launches, handoff = phase_trainer(
-            torch, attn, tree_profile["timed_ms_per_batch"], t_start,
-            trainer_dir)
-        gc.collect()
-        torch.cuda.empty_cache()
+    if "trainer" in run:
+        trainer_dir = tempfile.mkdtemp(prefix="xggm_trainer_")
+        try:
+            trainer_launches, handoff = phase_trainer(
+                torch, attn, tree_profile["timed_ms_per_batch"], t_start,
+                trainer_dir)
+            gc.collect()
+            torch.cuda.empty_cache()
 
-        # 11. the VQA-CP v2 recipe: snapshot, epoch, preemption, resume,
-        # test arm, baseline
-        vqacp_launches = phase_vqacp(torch, attn, trainer_launches, t_start)
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # 12. phase 10's BEST_0 exported in bf16 and int8, and served
-        served_launches = phase_export_serve(torch, attn, handoff, card,
+            # 11. the VQA-CP v2 recipe: snapshot, epoch, preemption,
+            # resume, test arm, baseline
+            if "vqacp" in run:
+                vqacp_launches = phase_vqacp(torch, attn, trainer_launches,
                                              t_start)
-    finally:
-        shutil.rmtree(trainer_dir, ignore_errors=True)
-    del handoff
-    gc.collect()
-    torch.cuda.empty_cache()
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            # 12. phase 10's BEST_0 exported in bf16 and int8, and served
+            if "export" in run:
+                served_launches = phase_export_serve(torch, attn, handoff,
+                                                     card, t_start)
+        finally:
+            shutil.rmtree(trainer_dir, ignore_errors=True)
+        del handoff
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 13. training with the GIN and the GAT generators
-    generator_launches = phase_generators(torch, attn, philox, card, t_start)
+    if "generators" in run:
+        generator_launches = phase_generators(torch, attn, philox, card,
+                                              t_start)
 
     # 14. LXMERT pretraining through its CLI, batch 256 and accumulated
-    pretrain_launches = phase_pretrain(torch, attn, philox, card, t_start)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "pretrain" in run:
+        pretrain_launches = phase_pretrain(torch, attn, philox, card,
+                                           t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 15. scale-out: a world of one, two ranks, remat
-    scale_out, zero_rows = phase_scale_out(torch, attn, fa, t_start)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "scale_out" in run:
+        scale_out, zero_rows = phase_scale_out(torch, attn, fa, t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 16. the stacked layout, tensor and pipeline parallelism
-    model_parallel = phase_model_parallel(torch, t_start)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "model_parallel" in run:
+        model_parallel = phase_model_parallel(torch, t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 17. the modules off the main path: the adjacency precompute through
     # kernel 1 in fp32, then each research-lineage module against the CPU
-    adjacency = phase_adjacency(torch, attn, card, t_start)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_lineage(torch, card, t_start)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "adjacency" in run:
+        adjacency = phase_adjacency(torch, attn, card, t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "lineage" in run:
+        phase_lineage(torch, card, t_start)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 18. the bf16 parameter shadow: with and without it, kernel 7's shadow
     # store, ZeRO-1 of the shadowed masters
-    shadow = phase_shadow(torch, fa, adam, zero_rows, card, t_start)
+    if "shadow" in run:
+        shadow = phase_shadow(torch, fa, adam, zero_rows, card, t_start)
+
+    if run != set(PHASES):
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        return 0
 
     def vqacp(kernel):
         return {run: counts[kernel] for run, counts in vqacp_launches.items()}
@@ -5812,14 +6017,25 @@ def main() -> int:
 
     # 19. summary: one entry per kernel. Kernel 1 over one forward's
     # launches at B=512; kernels 2 to 6 over one training forward's or
-    # backward's launches at B=96, in bf16 (the path's type); kernel 7 per
-    # update of every parameter.
-    path = [r for r in rows if r["on_path"]]
-    drop_path = [r for r in drop_rows if "fwd_ms" in r]
-    blhd_path = [r for r in blhd_rows if "k4_ms" in r]
+    # backward's launches at B=96, in bf16 (the path's type), and the same
+    # passes in fp32 (--dtype float32) under "fp32"; kernel 7 per update of
+    # every parameter.
+    path = [r for r in rows if r["on_path"] and r["dtype"] == "bfloat16"]
+    drop_path = [r for r in drop_rows if r["dtype"] == "bfloat16"]
+    blhd_path = [r for r in blhd_rows if r["dtype"] == "bfloat16"]
 
     def per_forward(key, table=path):
         return sum(r[key] * r["launches_per_forward"] for r in table)
+
+    def fp32(table, over, **keys):
+        """The fp32 body's numbers per pass (the same passes as bf16's):
+        ms, device_ms, plain_ms, library_ms, library_device_ms, bound_ms
+        from the rows' keys, and the bound's share of the device time."""
+        table = [r for r in table
+                 if r["dtype"] == "float32" and r.get("on_path", True)]
+        out = {name: per_forward(key, table) for name, key in keys.items()}
+        out["device_bound_share"] = out["bound_ms"] / out["device_ms"]
+        return dict(out, timed_over=over)
 
     def bound_by(key, table):
         return ("bytes" if all(r[key] == "bytes" for r in table)
@@ -5860,7 +6076,13 @@ def main() -> int:
                                f"launches of kernel 3 at rate 0, B={train_b}; "
                                "backward_library_ms is _scaled_dot_product_"
                                "efficient_attention_backward at dropout_p 0 "
-                               "from a saved forward"},
+                               "from a saved forward",
+        "fp32": fp32(rows, f"one forward's launches at B={B}; library: "
+                           "SDPA in fp32", ms="kernel_ms",
+                     device_ms="kernel_device_ms", plain_ms="plain_ms",
+                     library_ms="library_ms",
+                     library_device_ms="library_device_ms",
+                     bound_ms="bound_ms")},
         {"name": "attention_dropout_fwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:237",
@@ -5881,7 +6103,12 @@ def main() -> int:
          "library_device_ms": per_forward("sdpa_fwd_device_ms", drop_path),
          "timed_over": f"one training forward's {LAUNCHES_PER_FORWARD} "
                        f"launches at B={train_b}; device_ms: the device's "
-                       "own time"},
+                       "own time",
+         "fp32": fp32(drop_rows, "as bf16; library: SDPA at dropout_p 0.1",
+                      ms="fwd_ms", device_ms="fwd_device_ms",
+                      plain_ms="plain_fwd_ms", library_ms="sdpa_fwd_ms",
+                      library_device_ms="sdpa_fwd_device_ms",
+                      bound_ms="fwd_bound_ms")},
         {"name": "attention_dropout_bwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:250",
@@ -5903,7 +6130,12 @@ def main() -> int:
                        f"launches at B={train_b}; library_ms is "
                        "_scaled_dot_product_efficient_attention_backward "
                        "from a saved forward, library_fwd_bwd_ms SDPA "
-                       "forward + backward"},
+                       "forward + backward",
+         "fp32": fp32(drop_rows, "as bf16", ms="bwd_ms",
+                      device_ms="bwd_device_ms", plain_ms="plain_bwd_ms",
+                      library_ms="library_bwd_ms",
+                      library_device_ms="library_bwd_device_ms",
+                      bound_ms="bwd_bound_ms")},
         {"name": "attention_blhd_fwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:477",
@@ -5921,7 +6153,12 @@ def main() -> int:
          "backward_ms": per_forward("k4_bwd_ms", blhd_path),
          "timed_over": f"{blhd_over}; library_ms is SDPA on strided views "
                        "of the BLHD tensors; backward_ms is kernel 6 at "
-                       "rate 0; device_ms: the device's own time"},
+                       "rate 0; device_ms: the device's own time",
+         "fp32": fp32(blhd_rows, "as bf16", ms="k4_ms",
+                      device_ms="k4_device_ms", plain_ms="plain_k4_ms",
+                      library_ms="sdpa_fwd_ms",
+                      library_device_ms="sdpa_fwd_device_ms",
+                      bound_ms="fwd_bound_ms")},
         {"name": "attention_dropout_blhd_fwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:553",
@@ -5937,7 +6174,12 @@ def main() -> int:
                                           blhd_path),
          "timed_over": f"{blhd_over}; library_ms is SDPA with dropout_p "
                        "0.1 on strided views of the BLHD tensors; device_ms: "
-                       "the device's own time"},
+                       "the device's own time",
+         "fp32": fp32(blhd_rows, "as bf16", ms="k5_ms",
+                      device_ms="k5_device_ms", plain_ms="plain_k5_ms",
+                      library_ms="sdpa_dropout_fwd_ms",
+                      library_device_ms="sdpa_dropout_fwd_device_ms",
+                      bound_ms="fwd_bound_ms")},
         {"name": "attention_dropout_blhd_bwd", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/attention_blhd.cu",
          "replaces": "xggm_tpu/ops/pallas_attention.py:574",
@@ -5952,7 +6194,12 @@ def main() -> int:
          "library_ms": per_forward("library_bwd_ms", blhd_path),
          "timed_over": f"{blhd_over}; library_ms is "
                        "_scaled_dot_product_efficient_attention_backward "
-                       "from a saved forward, on strided views"},
+                       "from a saved forward, on strided views",
+         "fp32": fp32(blhd_rows, "as bf16", ms="k6_ms",
+                      device_ms="k6_device_ms", plain_ms="plain_k6_ms",
+                      library_ms="library_bwd_ms",
+                      library_device_ms="library_bwd_device_ms",
+                      bound_ms="bwd_bound_ms")},
         {"name": "bert_adam", "route": "cuda",
          "source": "xggm_tpu_torch/csrc/bert_adam.cu",
          "replaces": "xggm_tpu/ops/pallas_optim.py:38",
@@ -5981,6 +6228,24 @@ def main() -> int:
     return 0
 
 
+def parse_args(argv) -> dict:
+    """`--phases a,b,...` (default: every phase) and `--root ROOT`."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one CUDA card.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after the "
+                             "device and build steps, with the phases they "
+                             f"need: {', '.join(PHASES)}")
+    parser.add_argument("--root", default=None,
+                        help="time the package of the checkout at ROOT")
+    args = parser.parse_args(argv)
+    return dict(phases=phases_to_run(
+                    [p for p in args.phases.split(",") if p]),
+                root=args.root)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--forward-device":
         sys.exit(forward_device_of(sys.argv[2]))
@@ -5993,4 +6258,4 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--model-parallel-rank":
         sys.exit(model_parallel_rank(sys.argv[2], int(sys.argv[3]),
                                      sys.argv[4]))
-    sys.exit(main())
+    sys.exit(main(**parse_args(sys.argv[1:])))

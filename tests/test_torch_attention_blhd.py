@@ -17,8 +17,8 @@ kernels 1 to 3.
 - The BLHD plain versions equal the flattened ones on permuted inputs with
   the same seed, exactly: head h of batch b draws row b * H + h's mask.
 - `gpu`: kernels 4 to 6 against their plain versions and against kernels 1
-  to 3 on the permuted inputs, kernels 4 to 6 in bf16 also at shapes off
-  their 16 x 16 tiles (kernels 4 and 5 with every key of one element
+  to 3 on the permuted inputs, kernels 4 to 6 in bf16 and fp32 also at
+  shapes off their tiles (kernels 4 and 5 with every key of one element
   masked).
   This file imports JAX only inside the tests that compare with it, so
   that the card test runs where JAX is absent:
@@ -27,6 +27,7 @@ kernels 1 to 3.
 Tests loop over their cases (see tests/test_torch_attention_dropout.py for
 why the files hold few tests).
 """
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -321,9 +322,9 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
     0 and 0.1 against the plain gradients; each against kernels 1 to 3 on
     the permuted inputs with the same seed, bit for bit; kernel 5's own mask
     against the Philox mask of row b * H + h; one launch each. Then kernels
-    4 to 6 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and not: kernel 4
-    (masked: every key of the first element masked) against its plain
-    version and against kernel 1 on the permuted inputs, bit for bit;
+    4 to 6 in bf16 and fp32 at EDGE_SHAPES and EDGE_BATCH, masked and not:
+    kernel 4 (masked: every key of the first element masked) against its
+    plain version and against kernel 1 on the permuted inputs, bit for bit;
     kernel 5 (the same mask) at rates 0.1 and 0 against its plain version
     fed the Philox mask and against kernel 2 on the permuted inputs, bit
     for bit; kernel 6 at rates 0.1 and 0 against the plain gradients, and
@@ -385,51 +386,51 @@ def test_blhd_kernels_match_plain_and_flattened_kernels(cuda):
         keep = dropout_keep(seed, b * H, lq, lk, RATE, cuda) > 0
         assert torch.equal(_rows(drawn), keep), dtype
 
-    for lq, lk in EDGE_SHAPES:
-        for masked in (True, False):
-            q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked,
-                                       torch.bfloat16, cuda, seed=lq + lk)
-            flat = [_rows(t) for t in (q, k, v, g)]
-            where = f"{(lq, lk)} mask {masked} kernel 4"
-            bias4 = None
-            if masked:
-                bias4 = bias.clone()
-                bias4[0] = -10000.0  # every key of the first element
-            o4 = attn._attention_blhd_fwd(q, k, v, bias4)
+    for dtype, (lq, lk), masked in itertools.product(
+            (torch.bfloat16, torch.float32), EDGE_SHAPES, (True, False)):
+        q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked, dtype, cuda,
+                                   seed=lq + lk)
+        flat = [_rows(t) for t in (q, k, v, g)]
+        where = f"{(lq, lk)} {dtype} mask {masked} kernel 4"
+        bias4 = None
+        if masked:
+            bias4 = bias.clone()
+            bias4[0] = -10000.0  # every key of the first element
+        o4 = attn._attention_blhd_fwd(q, k, v, bias4)
+        torch.testing.assert_close(
+            o4.float(),
+            attn.attention_blhd_reference(q, k, v, bias4).float(),
+            msg=lambda m, where=where: f"{where}: {m}",
+            **TOLS[dtype])
+        o1 = attn._attention_fwd(*flat[:3], bias4, H)
+        assert torch.equal(o4, _blhd(o1, EDGE_BATCH)), where
+        for rate in (RATE, 0.0):
+            where = f"{(lq, lk)} {dtype} mask {masked} rate {rate}"
+            keep = (dropout_keep(seed, EDGE_BATCH * H, lq, lk, rate, cuda)
+                    if rate else None)
+            o5 = attn.attention_dropout_blhd_fwd(q, k, v, bias4, seed,
+                                                 rate)
+            want = attn.attention_dropout_blhd_reference(q, k, v, bias4,
+                                                         keep)
+            assert o5.dtype == want.dtype and o5.shape == want.shape, \
+                where
             torch.testing.assert_close(
-                o4.float(),
-                attn.attention_blhd_reference(q, k, v, bias4).float(),
-                msg=lambda m, where=where: f"{where}: {m}",
-                **TOLS[torch.bfloat16])
-            o1 = attn._attention_fwd(*flat[:3], bias4, H)
-            assert torch.equal(o4, _blhd(o1, EDGE_BATCH)), where
-            for rate in (RATE, 0.0):
-                where = f"{(lq, lk)} mask {masked} rate {rate}"
-                keep = (dropout_keep(seed, EDGE_BATCH * H, lq, lk, rate, cuda)
-                        if rate else None)
-                o5 = attn.attention_dropout_blhd_fwd(q, k, v, bias4, seed,
-                                                     rate)
-                want = attn.attention_dropout_blhd_reference(q, k, v, bias4,
-                                                             keep)
-                assert o5.dtype == want.dtype and o5.shape == want.shape, \
-                    where
+                o5.float(), want.float(),
+                msg=lambda m, where=where: f"{where}: kernel 5: {m}",
+                **TOLS[dtype])
+            o2 = attn.attention_dropout_fwd(*flat[:3], bias4, H, seed,
+                                            rate)
+            assert torch.equal(o5, _blhd(o2, EDGE_BATCH)), where
+            g6 = attn.attention_dropout_blhd_bwd(q, k, v, bias, seed,
+                                                 rate, g)
+            wants = attn.attention_dropout_blhd_reference_grads(
+                q, k, v, bias, keep, g)
+            g3 = attn.attention_dropout_bwd(*flat[:3], bias, H, seed,
+                                            rate, flat[3])
+            for a, w, f in zip(g6, wants, g3):
+                assert a.dtype == w.dtype and a.shape == w.shape, where
                 torch.testing.assert_close(
-                    o5.float(), want.float(),
-                    msg=lambda m, where=where: f"{where}: kernel 5: {m}",
-                    **TOLS[torch.bfloat16])
-                o2 = attn.attention_dropout_fwd(*flat[:3], bias4, H, seed,
-                                                rate)
-                assert torch.equal(o5, _blhd(o2, EDGE_BATCH)), where
-                g6 = attn.attention_dropout_blhd_bwd(q, k, v, bias, seed,
-                                                     rate, g)
-                wants = attn.attention_dropout_blhd_reference_grads(
-                    q, k, v, bias, keep, g)
-                g3 = attn.attention_dropout_bwd(*flat[:3], bias, H, seed,
-                                                rate, flat[3])
-                for a, w, f in zip(g6, wants, g3):
-                    assert a.dtype == w.dtype and a.shape == w.shape, where
-                    torch.testing.assert_close(
-                        a.float(), w.float(),
-                        msg=lambda m, where=where: f"{where}: {m}",
-                        **TOLS[torch.bfloat16])
-                    assert torch.equal(a, _blhd(f, EDGE_BATCH)), where
+                    a.float(), w.float(),
+                    msg=lambda m, where=where: f"{where}: {m}",
+                    **TOLS[dtype])
+                assert torch.equal(a, _blhd(f, EDGE_BATCH)), where

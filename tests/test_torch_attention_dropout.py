@@ -12,8 +12,8 @@ kernels 2 and 3) and its Philox mask (ops/philox.py).
 - The autograd.Function's backward against autograd through the plain
   version with the same mask, and the Philox mask's keep rate.
 - `gpu`-marked card tests: kernels 2 and 3, and kernel 1's backward, against
-  their plain versions; the bf16 bodies of kernels 2 and 3 also at shapes
-  off their 16 x 16 tiles. They skip without a card. This file imports JAX
+  their plain versions; the bodies of kernels 2 and 3, bf16 and fp32, also
+  at shapes off their tiles. They skip without a card. This file imports JAX
   only inside the tests that compare with it, so that the card tests run
   where JAX is absent:
   `python -m pytest --noconftest -m gpu tests/test_torch_attention_dropout.py`.
@@ -23,6 +23,8 @@ holds few tests: pytest-xdist's `--dist loadfile` queues the files with the
 most tests first, and a file of many quick tests would be scheduled ahead of
 the suite's long files.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -250,10 +252,10 @@ def test_kernels_match_plain_versions(cuda):
     forward and kernel 3 against the plain gradients, both fed the mask
     ops/philox.py draws on the card; kernel 1's backward (kernel 3 at rate
     0) against the plain gradients of attention_reference; one launch each.
-    Then kernels 2 and 3 in bf16 at EDGE_SHAPES and EDGE_BATCH, masked and
-    not, at rates 0.1 and 0: kernel 2 (masked: every key of the first
-    element masked) against the plain forward fed the Philox mask, kernel 3
-    against the plain gradients."""
+    Then kernels 2 and 3 in bf16 and fp32 at EDGE_SHAPES and EDGE_BATCH,
+    masked and not, at rates 0.1 and 0: kernel 2 (masked: every key of the
+    first element masked) against the plain forward fed the Philox mask,
+    kernel 3 against the plain gradients."""
     seed = 2024
     for dtype in (torch.bfloat16, torch.float32):
         for lq, lk, masked in PATH_SHAPES:
@@ -287,33 +289,32 @@ def test_kernels_match_plain_versions(cuda):
                     torch.testing.assert_close(a.float(), w.float(), msg=msg,
                                                **TOLS[dtype])
 
-    for lq, lk in EDGE_SHAPES:
-        for masked in (True, False):
-            q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked,
-                                       torch.bfloat16, cuda, seed=lq + lk)
-            bias2 = None
-            if masked:
-                bias2 = bias.clone()
-                bias2[0] = -10000.0  # every key of the first element
-            for rate in (RATE, 0.0):
-                where = f"{(lq, lk)} mask {masked} rate {rate}"
-                keep = (dropout_keep(seed, q.shape[0], lq, lk, rate, cuda)
-                        if rate else None)
-                o = attn.attention_dropout_fwd(q, k, v, bias2, H, seed, rate)
-                want = attn.attention_dropout_reference(q, k, v, bias2, H,
-                                                        keep)
-                assert o.dtype == want.dtype and o.shape == want.shape, where
+    for dtype, (lq, lk), masked in itertools.product(
+            (torch.bfloat16, torch.float32), EDGE_SHAPES, (True, False)):
+        q, k, v, bias, g = _inputs(EDGE_BATCH, lq, lk, masked, dtype, cuda,
+                                   seed=lq + lk)
+        bias2 = None
+        if masked:
+            bias2 = bias.clone()
+            bias2[0] = -10000.0  # every key of the first element
+        for rate in (RATE, 0.0):
+            where = f"{(lq, lk)} {dtype} mask {masked} rate {rate}"
+            keep = (dropout_keep(seed, q.shape[0], lq, lk, rate, cuda)
+                    if rate else None)
+            o = attn.attention_dropout_fwd(q, k, v, bias2, H, seed, rate)
+            want = attn.attention_dropout_reference(q, k, v, bias2, H, keep)
+            assert o.dtype == want.dtype and o.shape == want.shape, where
+            torch.testing.assert_close(
+                o.float(), want.float(),
+                msg=lambda m, where=where: f"{where}: kernel 2: {m}",
+                **TOLS[dtype])
+            grads = attn.attention_dropout_bwd(q, k, v, bias, H, seed, rate,
+                                               g)
+            wants = attn.attention_dropout_reference_grads(
+                q, k, v, bias, H, keep, g)
+            for a, w in zip(grads, wants):
+                assert a.dtype == w.dtype and a.shape == w.shape, where
                 torch.testing.assert_close(
-                    o.float(), want.float(),
-                    msg=lambda m, where=where: f"{where}: kernel 2: {m}",
-                    **TOLS[torch.bfloat16])
-                grads = attn.attention_dropout_bwd(q, k, v, bias, H, seed,
-                                                   rate, g)
-                wants = attn.attention_dropout_reference_grads(
-                    q, k, v, bias, H, keep, g)
-                for a, w in zip(grads, wants):
-                    assert a.dtype == w.dtype and a.shape == w.shape, where
-                    torch.testing.assert_close(
-                        a.float(), w.float(),
-                        msg=lambda m, where=where: f"{where}: {m}",
-                        **TOLS[torch.bfloat16])
+                    a.float(), w.float(),
+                    msg=lambda m, where=where: f"{where}: {m}",
+                    **TOLS[dtype])

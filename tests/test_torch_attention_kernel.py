@@ -5,8 +5,8 @@ absent (`python -m pytest --noconftest -m gpu tests/test_torch_attention_kernel.
 On the CPU the wrapper runs its plain version; the `gpu` tests build the
 kernel with nvcc and hold it against that plain version, and skip without a
 card. Besides the four shapes of the serving path they take shapes off the
-bf16 body's 16 x 16 tiles and its largest, at an odd batch whose first
-element has every key masked (-10000).
+bodies' tiles (bf16 and fp32) and their largest, at an odd batch whose
+first element has every key masked (-10000).
 """
 import numpy as np
 import pytest
@@ -16,7 +16,7 @@ from xggm_tpu_torch.ops import attention as attn
 
 H = 4
 SHAPES = [(20, 20), (36, 36), (20, 36), (36, 20)]
-# (Lq, Lk) off the 16 x 16 tiles of the bf16 body, and its largest
+# (Lq, Lk) off the tiles of the bf16 and fp32 bodies, and their largest
 EDGE_SHAPES = [(1, 1), (7, 33), (33, 7), (64, 64)]
 EDGE_BATCH = 7
 

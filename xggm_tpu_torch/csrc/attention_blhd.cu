@@ -29,19 +29,16 @@
 // FLOPs; the layout changes only the addresses).
 //
 // Design: kernels 1 to 3's bodies (attention_common.cuh), given H heads
-// between positions where kernels 1 to 3 give 1. In bf16, kernels 4 and 5
-// run attention_forward_block_bf16 (the tensor-core forward of kernels 1
-// and 2, kernel 5 with the dropout multiplier: one warp per 16 queries,
-// one block per (b, h); attention_fwd.cu sets out why) and kernel 6
-// attention_backward_block_bf16 (attention_dropout.cu sets out why); all
-// three copy their inputs by cp.async. fp32 inputs keep the first port's
-// scalar forward (attention_forward_block: one block of four warps per
-// (b, h)) or backward (attention_backward_block). The row of one position
-// of one head is 64 contiguous elements (128 bytes in bf16), so each staged
-// row is still read with coalesced 16-byte loads, and kernels 4 and 5 write
-// o 16 bytes a lane; rows lie H * 64 elements apart instead of 64. No
-// transpose is ever materialised, and kernels 4 to 6 give the bits of
-// kernels 1 to 3 on the permuted inputs.
+// between positions where kernels 1 to 3 give 1. Kernels 4 and 5 run the
+// forward (attention_forward_block_bf16 or _f32, kernel 5 with the dropout
+// multiplier: one warp per 16 queries, one block per (b, h);
+// attention_fwd.cu sets out why) and kernel 6 the backward
+// (attention_backward_block_bf16 or _f32; attention_dropout.cu sets out
+// why); all copy their inputs by cp.async. The row of one position of one
+// head is 64 contiguous elements (128 bytes in bf16, 256 in fp32), so each
+// staged row is still read with coalesced 16-byte loads; rows lie H * 64
+// elements apart instead of 64. No transpose is ever materialised, and
+// kernels 4 to 6 give the bits of kernels 1 to 3 on the permuted inputs.
 
 #include <type_traits>
 
@@ -49,33 +46,9 @@
 
 namespace {
 
-// The scalar forward, launched for fp32 only.
-template <typename T, bool kDropout>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_blhd_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ bias, T* __restrict__ o,
-                          int lq, int lk, int heads, float scale,
-                          Dropout drop) {
-  attention_forward_block<T, kDropout>(q, k, v, bias, o, lq, lk, heads,
-                                       heads, scale, drop);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32, kBackwardBlocksPerSm)
-attention_blhd_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ bias,
-                          const T* __restrict__ g, T* __restrict__ dq,
-                          T* __restrict__ dk, T* __restrict__ dv, int lq,
-                          int lk, int heads, float scale, Dropout drop) {
-  attention_backward_block<T>(q, k, v, bias, g, dq, dk, dv, lq, lk, heads,
-                              heads, scale, drop);
-}
-
 // Kernel 4 in bf16 on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBf16MaxThreads,
+__global__ void __launch_bounds__(kMaxThreads,
                                   kForwardBf16MinBlocks<kKeyTiles>)
 attention_blhd_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
@@ -94,7 +67,7 @@ const Bf16ForwardKernel kBlhdFwdBf16[4] = {
 
 // Kernel 5 in bf16: kernel 4's body with the dropout multiplier.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBf16MaxThreads,
+__global__ void __launch_bounds__(kMaxThreads,
                                   kForwardBf16MinBlocks<kKeyTiles>)
 attention_blhd_dropout_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                        const __nv_bfloat16* __restrict__ k,
@@ -113,6 +86,45 @@ const Bf16ForwardKernel kBlhdDropoutFwdBf16[4] = {
     attention_blhd_dropout_fwd_bf16_kernel<3>,
     attention_blhd_dropout_fwd_bf16_kernel<4>};
 
+// Kernel 4 in fp32 (scores by FMAs, the other products on the
+// tensor cores in three TF32 passes), keys up to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kForwardF32MinBlocks<kKeyTiles>)
+attention_blhd_fwd_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ bias,
+                              float* __restrict__ o, int lq, int lk,
+                              int heads, float scale, Dropout drop) {
+  attention_forward_block_f32<kKeyTiles, false>(q, k, v, bias, o, lq, lk,
+                                                heads, heads, scale, drop);
+}
+
+const F32ForwardKernel kBlhdFwdF32[4] = {
+    attention_blhd_fwd_f32_kernel<1>, attention_blhd_fwd_f32_kernel<2>,
+    attention_blhd_fwd_f32_kernel<3>, attention_blhd_fwd_f32_kernel<4>};
+
+// Kernel 5 in fp32: kernel 4's body with the dropout multiplier.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kForwardF32MinBlocks<kKeyTiles>)
+attention_blhd_dropout_fwd_f32_kernel(const float* __restrict__ q,
+                                      const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ bias,
+                                      float* __restrict__ o, int lq, int lk,
+                                      int heads, float scale, Dropout drop) {
+  attention_forward_block_f32<kKeyTiles, true>(q, k, v, bias, o, lq, lk,
+                                               heads, heads, scale, drop);
+}
+
+const F32ForwardKernel kBlhdDropoutFwdF32[4] = {
+    attention_blhd_dropout_fwd_f32_kernel<1>,
+    attention_blhd_dropout_fwd_f32_kernel<2>,
+    attention_blhd_dropout_fwd_f32_kernel<3>,
+    attention_blhd_dropout_fwd_f32_kernel<4>};
+
 template <typename T, bool kDropout>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, int bh, int lq, int lk,
@@ -125,22 +137,18 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
     return launch_forward_bf16(kernels, q, k, v, bias, o, bh, lq, lk, heads,
                                drop, stream);
   } else {
-    const size_t smem = forward_smem_bytes(lq, lk);
-    const cudaError_t err =
-        allow_smem(attention_blhd_fwd_kernel<T, kDropout>, smem);
-    if (err != cudaSuccess) return err;
-    attention_blhd_fwd_kernel<T, kDropout>
-        <<<bh, kWarps * 32, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const float*>(bias),
-            static_cast<T*>(o), lq, lk, heads, head_scale(), drop);
-    return cudaGetLastError();
+    const F32ForwardKernel(&kernels)[4] =
+        kDropout ? kBlhdDropoutFwdF32 : kBlhdFwdF32;
+    static const cudaError_t prepared = prefer_shared_memory(kernels);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_forward_f32(kernels, q, k, v, bias, o, bh, lq, lk, heads,
+                              drop, stream);
   }
 }
 
 // The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBf16MaxThreads,
+__global__ void __launch_bounds__(kMaxThreads,
                                   kBackwardBf16MinBlocks<kKeyTiles>)
 attention_blhd_bwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -158,6 +166,25 @@ const Bf16BackwardKernel kBlhdBwdBf16[4] = {
     attention_blhd_bwd_bf16_kernel<3>,
     attention_blhd_bwd_bf16_kernel<4>};
 
+// Kernel 6 in fp32 (scores by FMAs, the other products on the
+// tensor cores in three TF32 passes), keys up to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kBackwardF32MinBlocks<kKeyTiles>)
+attention_blhd_bwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ g, float* __restrict__ dq,
+    float* __restrict__ dk, float* __restrict__ dv, int lq, int lk,
+    int heads, float scale, Dropout drop) {
+  attention_backward_block_f32<kKeyTiles>(q, k, v, bias, g, dq, dk, dv, lq,
+                                          lk, heads, heads, scale, drop);
+}
+
+const F32BackwardKernel kBlhdBwdF32[4] = {
+    attention_blhd_bwd_f32_kernel<1>, attention_blhd_bwd_f32_kernel<2>,
+    attention_blhd_bwd_f32_kernel<3>, attention_blhd_bwd_f32_kernel<4>};
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* bias, const void* g, void* dq, void* dk,
@@ -167,15 +194,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     return launch_backward_bf16(kBlhdBwdBf16, q, k, v, bias, g, dq, dk, dv,
                                 bh, lq, lk, heads, drop, stream);
   } else {
-    const size_t smem = backward_smem_bytes(lq, lk);
-    const cudaError_t err = allow_smem(attention_blhd_bwd_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    attention_blhd_bwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-        static_cast<T*>(dv), lq, lk, heads, head_scale(), drop);
-    return cudaGetLastError();
+    static const cudaError_t prepared = prefer_shared_memory(kBlhdBwdF32);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_backward_f32(kBlhdBwdF32, q, k, v, bias, g, dq, dk, dv, bh,
+                               lq, lk, heads, drop, stream);
   }
 }
 

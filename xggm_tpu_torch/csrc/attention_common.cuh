@@ -1,24 +1,27 @@
 // Code shared by the port's attention kernels (attention_fwd.cu,
-// attention_dropout.cu and attention_blhd.cu): fp32 <-> input-type
-// conversions that round as the TPU kernels' astype does, 16-byte staging of
-// [rows, 64] tiles into shared memory as fp32, warp reductions, the
+// attention_dropout.cu and attention_blhd.cu): the two layouts, the
 // Philox4x32-10 generator of the dropout masks (the same generator as
-// xggm_tpu_torch/ops/philox.py), the row softmax, the two layouts, and the
+// xggm_tpu_torch/ops/philox.py), cp.async staging, the row softmax, and the
 // bodies of the forward (kernels 1, 2, 4 and 5, which differ only in the
 // dropout multiplier and the layout) and of the backward (kernels 3 and 6,
-// which differ only in the layout).
+// which differ only in the layout), one of each per input type.
 //
-// bf16, the type of the training and serving paths, runs on the tensor
-// cores (cp.async into bf16 shared memory, mma.sync m16n8k16 with fp32
-// accumulation, ldmatrix; one warp per 16 queries) in two bodies that share
-// the scores, the softmax (softmax_bf16) and the mask draw (dropout_quad,
-// one Philox call per four keys): the forward, kernels 1 and 4 without
-// dropout and kernels 2 and 5 with it (attention_forward_block_bf16), and
-// the backward, kernels 3 and 6 (attention_backward_block_bf16). Their
-// notes set out the designs. fp32 inputs cannot be bf16 tensor-core
-// operands, and fp32 is on no path, so fp32 keeps the first port's scalar
-// bodies (attention_forward_block, attention_backward_block), instantiated
-// for float only.
+// Both types run one block per (batch * head) row and one warp per 16
+// queries, the inputs copied once by cp.async into shared memory, the
+// products on the tensor cores with mma.sync, the softmax in registers over
+// the quad's shuffles (softmax_tiles) and the mask drawn one Philox call
+// per four keys (dropout_quad):
+// - bf16, the type of the training and serving paths: m16n8k16 with bf16
+//   operands and fp32 accumulation, operands by ldmatrix; the forward
+//   (attention_forward_block_bf16) and the backward
+//   (attention_backward_block_bf16).
+// - fp32 (--dtype float32 training and evaluation, the adjacency
+//   precompute): the scores by fp32 FMAs in the plain version's order, the
+//   other products m16n8k8 in TF32 with fp32 accumulation in three passes
+//   (hi and lo TF32 parts, a b = a_hi b_hi + a_hi b_lo + a_lo b_hi), which
+//   keeps fp32's accuracy; the forward (attention_forward_block_f32) and
+//   the backward (attention_backward_block_f32).
+// Their notes set out the designs.
 #pragma once
 
 #include <math.h>
@@ -30,75 +33,7 @@
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kMaxKeys = 64;           // two keys per lane
-constexpr int kWarps = 4;
-constexpr int kKeyPitch = kHeadDim + 1;
-// The fp32 backward kernels' __launch_bounds__ minimum of blocks per SM: 8
-// caps them at 64 registers, and ptxas then takes 64 without spills; left
-// to itself it took 32 to 48 and spilled.
-constexpr int kBackwardBlocksPerSm = 8;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
-
-// 16 bytes of T as fp32 values, unpacked by bit operations so that the
-// vector stays in registers. bf16 is the upper half of an fp32, and element
-// 0 sits in the low half of each 32-bit word.
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int kLen = 4;
-  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kLen = 8;
-  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-// Copy `rows` rows of 64 elements, `stride` elements apart in device memory,
-// into shared memory as fp32, `pitch` floats apart, with one 16-byte load per
-// thread and step. A row is 128 (bf16) or 256 (fp32) contiguous bytes, so
-// the loads of one row coalesce whatever the stride.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, float* dst,
-                                      int rows, int pitch, int stride) {
-  constexpr int kVec = Vec16<T>::kLen;
-  const int n = rows * kHeadDim / kVec;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = (i * kVec) / kHeadDim;
-    const int c = (i * kVec) % kHeadDim;
-    float f[kVec];
-    Vec16<T>::unpack(
-        *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c), f);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) dst[r * pitch + c + j] = f[j];
-  }
-}
+constexpr int kMaxKeys = 64;  // Lq and Lk: at most four tiles of 16
 
 // Where the (batch * head) row `row` of a tensor of sequence length `len`
 // lies, in a layout of `lh` heads between positions. BLHD [B, L, H, 64]
@@ -114,20 +49,6 @@ struct Layout {
         kv(((row / lh) * (size_t)lk * lh + row % lh) * kHeadDim),
         stride(lh * kHeadDim) {}
 };
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
 
 // Philox4x32-10 (Salmon et al., SC 2011; the Random123 round and
 // constants): counter c under key k -> four uint32 words.
@@ -145,26 +66,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
   }
   return c;
-}
-
-// Dropout multiplier of score (row, i, j): keep_scale where the draw is at
-// or above `threshold`, else 0. The draw is word j % 4 of Philox at counter
-// (row, i, j / 4, 0) under key (seed + row, 0), the layout of
-// ops/philox.py. threshold 0 keeps everything without drawing. The draw of
-// the scalar bodies (fp32); the bf16 bodies take the same bits four keys
-// a call (dropout_quad).
-__device__ __forceinline__ float dropout_multiplier(uint32_t seed,
-                                                    uint32_t row, int i,
-                                                    int j, uint32_t threshold,
-                                                    float keep_scale) {
-  if (threshold == 0u) return keep_scale;
-  const uint4 w = philox4x32_10(
-      make_uint4(row, (uint32_t)i, (uint32_t)(j >> 2), 0u),
-      make_uint2(seed + row, 0u));
-  const int lane4 = j & 3;
-  const uint32_t bits =
-      lane4 == 0 ? w.x : lane4 == 1 ? w.y : lane4 == 2 ? w.z : w.w;
-  return bits >= threshold ? keep_scale : 0.f;
 }
 
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.
@@ -190,222 +91,6 @@ struct Dropout {
   uint32_t threshold;
   float keep_scale;
 };
-
-// Scores of query row qi against keys lane and lane + 32, softmaxed across
-// the warp: (p0, p1), 0 for lanes past lk.
-__device__ __forceinline__ float2 softmax_row(const float* qi,
-                                              const float* k0,
-                                              const float* k1, bool has0,
-                                              bool has1, float b0, float b1,
-                                              float scale) {
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < kHeadDim; ++d) {
-    const float qd = qi[d];
-    s0 = fmaf(qd, k0[d], s0);
-    s1 = fmaf(qd, k1[d], s1);
-  }
-  s0 = has0 ? s0 * scale + b0 : -INFINITY;
-  s1 = has1 ? s1 * scale + b1 : -INFINITY;
-  const float m = warp_max(fmaxf(s0, s1));
-  const float e0 = has0 ? expf(s0 - m) : 0.f;
-  const float e1 = has1 ? expf(s1 - m) : 0.f;
-  const float sum = warp_sum(e0 + e1);
-  return make_float2(e0 / sum, e1 / sum);
-}
-
-// Shared memory of the forward: q [lq][64], k [lk][65], v [lk][64] in fp32.
-inline size_t forward_smem_bytes(int lq, int lk) {
-  return sizeof(float) *
-         (size_t)(lq * kHeadDim + lk * kKeyPitch + lk * kHeadDim);
-}
-
-// Shared memory of the backward: q and g [lq][64], k and v [lk][65], p * m
-// and ds [lq][lk], in fp32.
-inline size_t backward_smem_bytes(int lq, int lk) {
-  return sizeof(float) * (size_t)(2 * lq * kHeadDim + 2 * lk * kKeyPitch +
-                                  2 * lq * lk);
-}
-
-// The scalar forward of kernels 1, 2, 4 and 5 in fp32 (bf16 runs
-// attention_forward_block_bf16), for the (batch * head) row blockIdx.x of
-// this block of kWarps warps, in the layout of `lh` heads (1: flattened,
-// heads: BLHD): o = round(p * m) v, with p the fp32 softmax of q k^T *
-// scale + bias, m the dropout multiplier (1 without kDropout), round = to
-// the input type (the TPU kernels' astype before p @ v), the product
-// accumulated in fp32 and written in the input type. q, k and v
-// are staged in shared memory as fp32, k's rows padded to 65 floats so that
-// the 32 lanes, one key each, read 32 different banks. Each warp takes query
-// rows in turn: lane j holds keys j and j + 32, and the p @ v product
-// broadcasts p_j by shuffle while lane d accumulates output dims d, d + 32.
-template <typename T, bool kDropout>
-__device__ __forceinline__ void attention_forward_block(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ bias,
-    T* __restrict__ o, int lq, int lk, int heads, int lh, float scale,
-    Dropout drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;                     // [lq][64]
-  float* ks = qs + lq * kHeadDim;       // [lk][65]
-  float* vs = ks + lk * kKeyPitch;      // [lk][64]
-
-  const size_t row = blockIdx.x;
-  const Layout at(row, lq, lk, lh);
-  stage(q + at.q, qs, lq, kHeadDim, at.stride);
-  stage(k + at.kv, ks, lk, kKeyPitch, at.stride);
-  stage(v + at.kv, vs, lk, kHeadDim, at.stride);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool has0 = lane < lk;
-  const bool has1 = lane + 32 < lk;
-  const float* brow = bias ? bias + (row / heads) * lk : nullptr;
-  const float b0 = (brow && has0) ? brow[lane] : 0.f;
-  const float b1 = (brow && has1) ? brow[lane + 32] : 0.f;
-  // lanes past lk read row 0 and discard the result
-  const float* k0 = ks + (has0 ? lane : 0) * kKeyPitch;
-  const float* k1 = ks + (has1 ? lane + 32 : 0) * kKeyPitch;
-
-  for (int i = warp; i < lq; i += kWarps) {
-    float2 p = softmax_row(qs + i * kHeadDim, k0, k1, has0, has1, b0, b1,
-                           scale);
-    if (kDropout) {
-      p.x *= has0 ? dropout_multiplier(drop.seed, (uint32_t)row, i, lane,
-                                       drop.threshold, drop.keep_scale)
-                  : 0.f;
-      p.y *= has1 ? dropout_multiplier(drop.seed, (uint32_t)row, i,
-                                       lane + 32, drop.threshold,
-                                       drop.keep_scale)
-                  : 0.f;
-    }
-    const float pm0 = to_float(from_float<T>(p.x));
-    const float pm1 = to_float(from_float<T>(p.y));
-
-    float o0 = 0.f, o1 = 0.f;  // output dims lane and lane + 32
-    for (int j = 0; j < lk; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, j < 32 ? pm0 : pm1, j & 31);
-      o0 = fmaf(pj, vs[j * kHeadDim + lane], o0);
-      o1 = fmaf(pj, vs[j * kHeadDim + lane + 32], o1);
-    }
-    T* orow = o + at.q + (size_t)i * at.stride;
-    orow[lane] = from_float<T>(o0);
-    orow[lane + 32] = from_float<T>(o1);
-  }
-}
-
-// The fp32 backward of kernels 3 and 6 for the (batch * head) row
-// blockIdx.x of this block of kWarps warps, in the layout of `lh` heads:
-// dq, dk and dv of round(p * m) v at output gradient g, all in fp32 from the
-// same m, rounded once to the input type (attention_dropout.cu sets out the
-// math). q, g, k
-// and v are staged as fp32, k and v padded to 65 floats; p * m and ds are
-// kept in shared memory ([lq][lk] fp32 each): a first pass over query rows
-// computes them and dq, a second pass over key rows sums dv and dk.
-template <typename T>
-__device__ __forceinline__ void attention_backward_block(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ bias,
-    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int lq, int lk, int heads, int lh, float scale,
-    Dropout drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;                     // [lq][64]
-  float* gs = qs + lq * kHeadDim;       // [lq][64]
-  float* ks = gs + lq * kHeadDim;       // [lk][65]
-  float* vs = ks + lk * kKeyPitch;      // [lk][65]
-  float* pms = vs + lk * kKeyPitch;     // [lq][lk]  p * m
-  float* dss = pms + lq * lk;           // [lq][lk]  ds
-
-  const size_t row = blockIdx.x;
-  const Layout at(row, lq, lk, lh);
-  stage(q + at.q, qs, lq, kHeadDim, at.stride);
-  stage(g + at.q, gs, lq, kHeadDim, at.stride);
-  stage(k + at.kv, ks, lk, kKeyPitch, at.stride);
-  stage(v + at.kv, vs, lk, kKeyPitch, at.stride);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool has0 = lane < lk;
-  const bool has1 = lane + 32 < lk;
-  const float* brow = bias ? bias + (row / heads) * lk : nullptr;
-  const float b0 = (brow && has0) ? brow[lane] : 0.f;
-  const float b1 = (brow && has1) ? brow[lane + 32] : 0.f;
-  const int j0 = has0 ? lane : 0;  // lanes past lk read row 0, discard it
-  const int j1 = has1 ? lane + 32 : 0;
-  const float* k0 = ks + j0 * kKeyPitch;
-  const float* k1 = ks + j1 * kKeyPitch;
-  const float* v0 = vs + j0 * kKeyPitch;
-  const float* v1 = vs + j1 * kKeyPitch;
-
-  // pass 1, over query rows: p, m, dp, ds; p * m and ds to shared memory;
-  // dq[i] = scale * sum_j ds[i][j] k[j]
-  for (int i = warp; i < lq; i += kWarps) {
-    const float* qi = qs + i * kHeadDim;
-    const float* gi = gs + i * kHeadDim;
-    const float2 p = softmax_row(qi, k0, k1, has0, has1, b0, b1, scale);
-    const float m0 = has0 ? dropout_multiplier(drop.seed, (uint32_t)row, i,
-                                               lane, drop.threshold,
-                                               drop.keep_scale)
-                          : 0.f;
-    const float m1 = has1 ? dropout_multiplier(drop.seed, (uint32_t)row, i,
-                                               lane + 32, drop.threshold,
-                                               drop.keep_scale)
-                          : 0.f;
-    float gv0 = 0.f, gv1 = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kHeadDim; ++d) {
-      const float gd = gi[d];
-      gv0 = fmaf(gd, v0[d], gv0);
-      gv1 = fmaf(gd, v1[d], gv1);
-    }
-    const float dp0 = m0 * gv0;  // m is 0 past lk
-    const float dp1 = m1 * gv1;
-    const float rowsum = warp_sum(dp0 * p.x + dp1 * p.y);
-    const float ds0 = p.x * (dp0 - rowsum);
-    const float ds1 = p.y * (dp1 - rowsum);
-    if (has0) {
-      pms[i * lk + lane] = p.x * m0;
-      dss[i * lk + lane] = ds0;
-    }
-    if (has1) {
-      pms[i * lk + lane + 32] = p.y * m1;
-      dss[i * lk + lane + 32] = ds1;
-    }
-
-    float a0 = 0.f, a1 = 0.f;  // dq dims lane and lane + 32
-    for (int j = 0; j < lk; ++j) {
-      const float dsj = __shfl_sync(0xffffffffu, j < 32 ? ds0 : ds1, j & 31);
-      a0 = fmaf(dsj, ks[j * kKeyPitch + lane], a0);
-      a1 = fmaf(dsj, ks[j * kKeyPitch + lane + 32], a1);
-    }
-    T* out = dq + at.q + (size_t)i * at.stride;
-    out[lane] = from_float<T>(a0 * scale);
-    out[lane + 32] = from_float<T>(a1 * scale);
-  }
-  __syncthreads();
-
-  // pass 2, over key rows: dv[j] = sum_i pm[i][j] g[i],
-  // dk[j] = scale * sum_i ds[i][j] q[i]
-  for (int j = warp; j < lk; j += kWarps) {
-    float v0acc = 0.f, v1acc = 0.f, k0acc = 0.f, k1acc = 0.f;
-    for (int i = 0; i < lq; ++i) {
-      const float pm = pms[i * lk + j];  // one address: a broadcast
-      const float ds = dss[i * lk + j];
-      v0acc = fmaf(pm, gs[i * kHeadDim + lane], v0acc);
-      v1acc = fmaf(pm, gs[i * kHeadDim + lane + 32], v1acc);
-      k0acc = fmaf(ds, qs[i * kHeadDim + lane], k0acc);
-      k1acc = fmaf(ds, qs[i * kHeadDim + lane + 32], k1acc);
-    }
-    T* dvrow = dv + at.kv + (size_t)j * at.stride;
-    T* dkrow = dk + at.kv + (size_t)j * at.stride;
-    dvrow[lane] = from_float<T>(v0acc);
-    dvrow[lane + 32] = from_float<T>(v1acc);
-    dkrow[lane] = from_float<T>(k0acc * scale);
-    dkrow[lane + 32] = from_float<T>(k1acc * scale);
-  }
-}
 
 // ---- the bf16 backward of kernels 3 and 6, on the tensor cores -----------
 //
@@ -539,47 +224,16 @@ __device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int rows,
   return r < rows ? base + 2u * (uint32_t)(r * pitch + col) : zeros;
 }
 
-// The scores and the softmax of both bf16 bodies (forward and backward),
-// for this warp's queries i0 + lane / 4 (e = 0, 1) and i0 + lane / 4 + 8
-// (e = 2, 3) against every key: s = q k^T by mma.sync, the A fragments of
-// the staged q at qa and the B fragments of the staged k at ka by ldmatrix
-// (rows past lq or lk read the zeros at z), then p = softmax(s * scale +
-// bias) in fp32 over the quad's shuffles, the score -inf and so p = 0 past
-// lk. p is left in s: m16n8 tile n holds keys 8n + 2 (lane % 4) + {0, 1}.
-// brow is the row's fp32 bias [lk] or null.
-template <int kKeyTiles>
-__device__ __forceinline__ void softmax_bf16(float (&s)[2 * kKeyTiles][4],
-                                             uint32_t qa, uint32_t ka,
-                                             uint32_t z, int i0, int lq,
-                                             int lk, const float* brow,
-                                             float scale) {
-  constexpr int kN = 2 * kKeyTiles;
-  const int lane = threadIdx.x & 31;
-  const int gc = 2 * (lane & 3);
-  const int mat = lane >> 3, mrow = lane & 7;
-  // ldmatrix rows and columns of the A fragment (16 x 16: matrices
-  // top-left, bottom-left, top-right, bottom-right) and of two B fragments
-  // of K^T (key rows: top-left, top-right, bottom-left, bottom-right)
-  const int a_row = mrow + 8 * (mat & 1), a_col = 8 * (mat >> 1);
-  const int bt_row = mrow + 8 * (mat >> 1), bt_col = 8 * (mat & 1);
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
-    uint32_t a[4];
-    ldsm_x4(a, tile_addr(qa, i0 + a_row, lq, kPitch, 16 * kd + a_col, z));
-#pragma unroll
-    for (int p = 0; p < kKeyTiles; ++p) {
-      uint32_t b[4];
-      ldsm_x4(b, tile_addr(ka, 16 * p + bt_row, lk, kPitch,
-                           16 * kd + bt_col, z));
-      mma_bf16(s[2 * p], a, b[0], b[1]);
-      mma_bf16(s[2 * p + 1], a, b[2], b[3]);
-    }
-  }
-
+// The softmax of every body over m16n8 accumulator tiles of scores, in
+// place: tile n holds, for this thread's queries (row lane / 4 in e = 0, 1,
+// that row + 8 in e = 2, 3), keys 8n + 2 (lane % 4) + {0, 1}. p =
+// softmax(s * scale + bias) in fp32 over the quad's shuffles, the score
+// -inf and so p = 0 past lk; brow is the row's fp32 bias [lk] or null.
+template <int kN>
+__device__ __forceinline__ void softmax_tiles(float (&s)[kN][4], int lk,
+                                              const float* brow,
+                                              float scale) {
+  const int gc = 2 * (threadIdx.x & 3);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int n = 0; n < kN; ++n)
@@ -608,6 +262,48 @@ __device__ __forceinline__ void softmax_bf16(float (&s)[2 * kKeyTiles][4],
     for (int e = 0; e < 4; ++e) s[n][e] /= sum[e >> 1];  // p
 }
 
+// The scores and the softmax of both bf16 bodies (forward and backward),
+// for this warp's queries i0 + lane / 4 (e = 0, 1) and i0 + lane / 4 + 8
+// (e = 2, 3) against every key: s = q k^T by mma.sync, the A fragments of
+// the staged q at qa and the B fragments of the staged k at ka by ldmatrix
+// (rows past lq or lk read the zeros at z), then p = softmax(s * scale +
+// bias) by softmax_tiles. p is left in s: m16n8 tile n holds keys 8n + 2
+// (lane % 4) + {0, 1}. brow is the row's fp32 bias [lk] or null.
+template <int kKeyTiles>
+__device__ __forceinline__ void softmax_bf16(float (&s)[2 * kKeyTiles][4],
+                                             uint32_t qa, uint32_t ka,
+                                             uint32_t z, int i0, int lq,
+                                             int lk, const float* brow,
+                                             float scale) {
+  constexpr int kN = 2 * kKeyTiles;
+  const int lane = threadIdx.x & 31;
+  const int mat = lane >> 3, mrow = lane & 7;
+  // ldmatrix rows and columns of the A fragment (16 x 16: matrices
+  // top-left, bottom-left, top-right, bottom-right) and of two B fragments
+  // of K^T (key rows: top-left, top-right, bottom-left, bottom-right)
+  const int a_row = mrow + 8 * (mat & 1), a_col = 8 * (mat >> 1);
+  const int bt_row = mrow + 8 * (mat >> 1), bt_col = 8 * (mat & 1);
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+    uint32_t a[4];
+    ldsm_x4(a, tile_addr(qa, i0 + a_row, lq, kPitch, 16 * kd + a_col, z));
+#pragma unroll
+    for (int p = 0; p < kKeyTiles; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, tile_addr(ka, 16 * p + bt_row, lk, kPitch,
+                           16 * kd + bt_col, z));
+      mma_bf16(s[2 * p], a, b[0], b[1]);
+      mma_bf16(s[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+
+  softmax_tiles<kN>(s, lk, brow, scale);
+}
+
 // The dropout multipliers of this thread's scores in the m16n8 tile n of
 // the warp's queries i and i + 8 (i = first query + lane / 4): keys 8n +
 // 2 (lane % 4) + {0, 1}, as m[0], m[1] (query i) and m[2], m[3] (i + 8).
@@ -615,7 +311,8 @@ __device__ __forceinline__ void softmax_bf16(float (&s)[2 * kKeyTiles][4],
 // lanes 2c and 2c + 1 of a quad need the same two counters (queries i and
 // i + 8, block 2n + c): the even lane draws query i, the odd lane i + 8,
 // and each hands its partner the two words it needs, with the bits of
-// dropout_multiplier and ops/philox.py. Called by the whole warp.
+// ops/philox.py. Called by the whole warp. The m16n8k8 accumulators of the
+// fp32 bodies hold the same keys, so both bodies draw with it.
 __device__ __forceinline__ void dropout_quad(const Dropout& drop,
                                              uint32_t row, int i, int n,
                                              int lk, float (&m)[4]) {
@@ -641,8 +338,9 @@ __device__ __forceinline__ void dropout_quad(const Dropout& drop,
     m[e] = bits[e] >= drop.threshold ? drop.keep_scale : 0.f;
 }
 
-// Threads of a bf16 block, forward or backward: one warp per 16 queries.
-inline int bf16_threads(int lq) { return 32 * ((lq + 15) / 16); }
+// Threads of a block of either type, forward or backward: one warp per 16
+// queries.
+inline int attention_threads(int lq) { return 32 * ((lq + 15) / 16); }
 
 // Shared memory of a bf16 backward block: q and g [lq][kPitch], k and v
 // [lk][kPitch], p * m and ds as hi and lo [lq][pad16(lk) + 8], and one
@@ -654,15 +352,15 @@ inline size_t backward_bf16_smem_bytes(int lq, int lk) {
          16;
 }
 
-// __launch_bounds__ of the bf16 kernels: at most 4 warps (Lq 64), and the
-// blocks per SM that the shared memory allows by key tiles (Lk up to 16 *
-// kKeyTiles). The backward at Lk 20 on the path: 12 blocks of 2 warps at
-// (20, 20), 8 of 3 at (36, 20); Lk 36: 6 of 3 warps at (36, 36), 8 of 2 at
-// (20, 36); Lk 64: 3 of 4 warps at (64, 64). 6, 4 and 3 blocks of 4 warps
-// cap a thread at 80, 128 and 168 registers. At 5 (96 registers) the Lk 36
-// body spilled 8 bytes; what it takes under 128 allows 5 to 6 blocks of 3
-// warps.
-constexpr int kBf16MaxThreads = 32 * (kMaxKeys / 16);
+// __launch_bounds__ of every attention kernel: at most 4 warps (Lq 64); of
+// the bf16 backward, the blocks per SM that the shared memory allows by key
+// tiles (Lk up to 16 * kKeyTiles). The backward at Lk 20 on the path: 12
+// blocks of 2 warps at (20, 20), 8 of 3 at (36, 20); Lk 36: 6 of 3 warps
+// at (36, 36), 8 of 2 at (20, 36); Lk 64: 3 of 4 warps at (64, 64). 6, 4
+// and 3 blocks of 4 warps cap a thread at 80, 128 and 168 registers. At 5
+// (96 registers) the Lk 36 body spilled 8 bytes; what it takes under 128
+// allows 5 to 6 blocks of 3 warps.
+constexpr int kMaxThreads = 32 * (kMaxKeys / 16);
 template <int kKeyTiles>
 constexpr int kBackwardBf16MinBlocks =
     kKeyTiles <= 2 ? 6 : kKeyTiles == 3 ? 4 : 3;
@@ -670,7 +368,7 @@ constexpr int kBackwardBf16MinBlocks =
 // The bf16 backward of kernels 3 and 6 for the (batch * head) row
 // blockIdx.x, keys padded to 16 * kKeyTiles (the note above sets out the
 // design; attention_dropout.cu the math). blockDim.x is
-// bf16_threads(lq), the dynamic shared memory
+// attention_threads(lq), the dynamic shared memory
 // backward_bf16_smem_bytes(lq, lk).
 template <int kKeyTiles>
 __device__ __forceinline__ void attention_backward_block_bf16(
@@ -899,7 +597,7 @@ inline cudaError_t launch_backward_bf16(
   void* args[] = {&q,  &k,  &v,  &bias,  &g,     &dq,  &dk,
                   &dv, &lq, &lk, &heads, &scale, &drop};
   return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
-                          dim3(bf16_threads(lq)), args, smem, stream);
+                          dim3(attention_threads(lq)), args, smem, stream);
 }
 
 // ---- the bf16 forward of kernels 1, 2, 4 and 5, on the tensor cores ------
@@ -962,7 +660,7 @@ constexpr int kForwardBf16MinBlocks =
 // The bf16 forward for (batch * head) row blockIdx.x, in the layout of `lh`
 // heads, keys padded to 16 * kKeyTiles (the note above sets out the
 // design): kernels 1 and 4 without kDropout (drop unread), kernels 2 and 5
-// with it. blockDim.x is bf16_threads(lq), the dynamic shared memory
+// with it. blockDim.x is attention_threads(lq), the dynamic shared memory
 // forward_bf16_smem_bytes(lq, lk).
 template <int kKeyTiles, bool kDropout>
 __device__ __forceinline__ void attention_forward_block_bf16(
@@ -1069,13 +767,13 @@ using Bf16ForwardKernel = void (*)(const __nv_bfloat16*,
                                    __nv_bfloat16*, int, int, int, float,
                                    Dropout);
 
-// Ask each kernel of a bf16 forward to prefer the most shared memory per SM
-// (up to 16 blocks of 8.6 to 15.6 KB at the path's shapes). A host call:
-// each source makes it once, before its first launch, and not on each of a
-// forward's 34 launches.
-inline cudaError_t prefer_shared_memory(
-    const Bf16ForwardKernel (&kernels)[4]) {
-  for (const Bf16ForwardKernel kernel : kernels) {
+// Ask each kernel of a forward (and of an fp32 backward) to prefer the most
+// shared memory per SM (bf16: up to 16 blocks of 8.6 to 15.6 KB at the
+// path's shapes). A host call: each source makes it once, before its first
+// launch, and not on each of a forward's 34 launches.
+template <typename Kernel>
+inline cudaError_t prefer_shared_memory(const Kernel (&kernels)[4]) {
+  for (const Kernel kernel : kernels) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
@@ -1095,8 +793,519 @@ inline cudaError_t launch_forward_bf16(const Bf16ForwardKernel (&kernels)[4],
   float scale = head_scale();
   void* args[] = {&q, &k, &v, &bias, &o, &lq, &lk, &heads, &scale, &drop};
   return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
-                          dim3(bf16_threads(lq)), args,
+                          dim3(attention_threads(lq)), args,
                           forward_bf16_smem_bytes(lq, lk), stream);
+}
+
+// ---- the fp32 bodies of kernels 1 to 6: FMAs and TF32 tensor cores ------
+//
+// Replace, for fp32, the six TPU kernels of xggm_tpu/ops/pallas_attention.py
+// that the bf16 bodies replace (kernels 1, 2, 4 and 5: the forward; 3 and
+// 6: the backward), with the same math: the softmax, the mask and the
+// backward's ds in fp32, p * m not rounded (round to fp32 is the identity),
+// every product accumulated in fp32 and the outputs written once.
+// Bound by bytes, as in bf16 but twice the bytes: at Lq = Lk = 36 a
+// training backward row reads q, k, v, g and writes dq, dk, dv, 64.5 KB,
+// for 10 Lq Lk 64 FLOPs; at the FFMA peak (67 TFLOP/s) those FLOPs take
+// half of the byte bound (0.28 of 0.567 ms per training backward), so a
+// body of FMAs alone has little room to reach the bound.
+//
+// The scores (q k^T, and the backward's g v^T) are fp32 FMAs, register
+// tiled, each lane summing the 64 dims in order from 0 (scores_f32): the
+// order of the plain version's product, so the scores are its scores bit
+// for bit. A key mask adds -10000 to a masked score, where fp32's spacing
+// is 2^-10; a score summed in another order rounds to a neighbour now and
+// then, which moves that p by 1e-3 of itself: with every key of an element
+// masked, tensor-core scores put o 3.2e-4 from the plain version's on an
+// H100 (PERF.md), though no farther from float64.
+//
+// The other products (p v; ds k, (p * m)^T g, ds^T q) run on the tensor
+// cores, mma.sync m16n8k8 with TF32 operands (wgmma takes tiles of 64
+// rows; a row here has at most 36 queries on the path). A TF32 operand
+// keeps 10 of fp32's 23 mantissa bits, so one pass leaves about 2^-11 of
+// each product: outside the port's fp32 tolerance
+// (tests/test_torch_attention_fp32_numerics.py). Each fp32 operand x is
+// split into hi = tf32(x) and lo = x - hi, whose top 11 bits the tensor
+// cores take (split_tf32), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
+// (three passes, mma_3xtf32; a_lo b_lo and lo's dropped bits, about 2^-21
+// of the product, are lost).
+//
+// Tiling: the bf16 bodies', by tiles of 8 keys where bf16 has 16. One
+// block per (batch * head) row, one warp per 16 queries; keys in m16n8
+// tiles of 8 (Lk 36: 5 tiles; tiles past Lk are skipped, warp-uniformly),
+// the body instantiated for 16 * kKeyTiles keys. q, k, v and g are copied
+// once by cp.async into fp32 shared memory, rows 68 floats apart (a
+// lane's rows r = lane / 4 or 2 (lane % 4) + {0, 1} start 4r words apart
+// mod 32, so a warp's loads hit distinct banks), q and k in a first group
+// so that the scores start while v and g are in flight; the rows past Lq
+// (to 16 per warp) and Lk (to 8 per tile) are zeros, so that padded
+// queries and keys add nothing. The m16n8 accumulator of a tile of 8 keys
+// holds keys 2 (lane % 4) + {0, 1}; as the A fragment of the next
+// product's k8 step it is read with k = lane % 4 standing for key
+// 2 (lane % 4) and k = lane % 4 + 4 for key 2 (lane % 4) + 1, and the B
+// fragment's rows are permuted alike, so p and ds enter p v and ds k from
+// registers with no shuffle.
+//   forward: s = q k^T; p = softmax_tiles (the bf16 bodies' code); with
+//     kDropout, m from dropout_quad (the same bits) and p *= m; o = p v,
+//     stored from the accumulators, 8 floats (32 bytes) a quad and row.
+//   backward, phase 1, warp w on queries 16w..16w+15: s = q k^T, p, then
+//     t = g v^T; m, dp = m t, ds = p (dp - rowsum(dp p)), the kept keys
+//     as a bit mask; dq = ds k * scale. After a barrier, p * m and ds go to
+//     shared memory over k and v (no longer read), zeros for rows past Lq.
+//   backward, phase 2, after a barrier, work items (16 keys, dv or dk) in
+//     turn: dv = (p * m)^T g, dk = ds^T q * scale, the transposes read as
+//     A fragments from the [query][key] tiles (rows 16 kKeyTiles + 4 floats
+//     apart: conflict-free).
+
+constexpr int kF32Pitch = kHeadDim + 4;  // floats per staged row: 272 bytes
+
+// Fragments of n fp32 values as TF32 hi and lo parts, x = hi + lo: hi
+// rounded to TF32 (10 mantissa bits) to nearest, ties away from zero
+// (cvt.rna), and lo = x - hi, exact in fp32, of which the tensor cores read
+// the top 19 bits (they ignore an operand's low 13): a truncation of about
+// 2^-21 of x.
+template <int n>
+__device__ __forceinline__ void split_tf32(const float (&x)[n],
+                                           uint32_t (&hi)[n],
+                                           uint32_t (&lo)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi[i]) : "f"(x[i]));
+    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// d += a b (m16n8k8, TF32 operands, fp32 accumulation): a the A fragment
+// (a[0] at row lane / 4, column lane % 4; a[1] eight rows below; a[2],
+// a[3] four columns right of a[0], a[1]), b the B fragment (b[0] at row
+// lane % 4, column lane / 4; b[1] four rows below), d the accumulator (as
+// in bf16's mma).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in three TF32 passes, the small terms first, a split into (ah,
+// al) by the caller (an A fragment serves several B fragments), b here. The
+// passes sum from 0 and the k8 step's sum is added to d in fp32: the
+// tensor cores' accumulation truncates, and three passes a step into d
+// itself put the gradients 4.4 times as far from float64 as the plain
+// version's on an H100 (PERF.md).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const float (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b, bh, bl);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// Fragment loads from shared memory, `pitch` floats between rows, at this
+// thread's gr = lane / 4, tc = lane % 4:
+// the B fragment of t, row-major [k][n], its k rows permuted as the
+// accumulators' keys: k = tc is row 2 tc, k = tc + 4 row 2 tc + 1;
+__device__ __forceinline__ void frag_b_kn(float (&b)[2], const float* t,
+                                          int pitch) {
+  const int gr = (threadIdx.x & 31) >> 2, tc = threadIdx.x & 3;
+  b[0] = t[2 * tc * pitch + gr];
+  b[1] = t[(2 * tc + 1) * pitch + gr];
+}
+
+// the A fragment of t^T, t row-major [k][m], its k rows permuted alike.
+__device__ __forceinline__ void frag_a_t(float (&a)[4], const float* t,
+                                         int pitch) {
+  const int gr = (threadIdx.x & 31) >> 2, tc = threadIdx.x & 3;
+  a[0] = t[2 * tc * pitch + gr];
+  a[1] = t[2 * tc * pitch + gr + 8];
+  a[2] = t[(2 * tc + 1) * pitch + gr];
+  a[3] = t[(2 * tc + 1) * pitch + gr + 8];
+}
+
+// An m16n8 accumulator tile of 8 keys as the A fragment of a k8 step over
+// those keys (k = tc: key 2 tc; k = tc + 4: key 2 tc + 1).
+__device__ __forceinline__ void acc_as_a(float (&a)[4], const float (&c)[4]) {
+  a[0] = c[0];
+  a[1] = c[2];
+  a[2] = c[1];
+  a[3] = c[3];
+}
+
+// Copy `rows` rows of 64 fp32, `stride` elements apart in device memory,
+// into shared memory kF32Pitch apart, 16 bytes a thread and copy, and zero
+// the rows from `rows` to `padded`.
+__device__ __forceinline__ void stage_async_f32(const float* src, float* dst,
+                                                int rows, int padded,
+                                                int stride) {
+  for (int i = threadIdx.x; i < padded * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) * 4;
+    if (r < rows)
+      cp_async16(smem_u32(dst + r * kF32Pitch + c),
+                 src + (size_t)r * stride + c);
+    else
+      *reinterpret_cast<float4*>(dst + r * kF32Pitch + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// s[n] = x k^T for this warp's 16 rows of x (at xs) against the key tiles
+// n < n8 of ks (tiles past n8 are left 0), in the m16n8 accumulator layout
+// (tile n: rows lane / 4 and + 8, keys 8n + 2 (lane % 4) + {0, 1}), by fp32
+// FMAs over the 64 dims in order from 0: the order in which the plain
+// version's product (cuBLAS) sums them, so that the scores are its scores
+// bit for bit (the note above says why). Each lane reads 16 bytes of its
+// two rows and of its two keys per tile and step of 4 dims.
+template <int kN>
+__device__ __forceinline__ void scores_f32(float (&s)[kN][4], const float* xs,
+                                           const float* ks, int n8) {
+  const int gr = (threadIdx.x & 31) >> 2, tc = threadIdx.x & 3;
+  const float* x0 = xs + gr * kF32Pitch;
+  const float* x1 = x0 + 8 * kF32Pitch;
+  const float* k0 = ks + 2 * tc * kF32Pitch;
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll 1
+  for (int d = 0; d < kHeadDim; d += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(x0 + d);
+    const float4 a1 = *reinterpret_cast<const float4*>(x1 + d);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      if (n < n8) {
+        const float* kn = k0 + 8 * n * kF32Pitch + d;
+        const float4 b0 = *reinterpret_cast<const float4*>(kn);
+        const float4 b1 = *reinterpret_cast<const float4*>(kn + kF32Pitch);
+        const float4 a[2] = {a0, a1}, b[2] = {b0, b1};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 x = a[e >> 1], y = b[e & 1];
+          float acc = s[n][e];
+          acc = fmaf(x.x, y.x, acc);
+          acc = fmaf(x.y, y.y, acc);
+          acc = fmaf(x.z, y.z, acc);
+          s[n][e] = fmaf(x.w, y.w, acc);
+        }
+      }
+    }
+  }
+}
+
+// acc[d] (64 output dims in 8 tiles) += the k8 steps n < n8 of a b, a from
+// the accumulator tiles c (keys or queries), b the rows of ys (row-major
+// [keys][64], rows permuted by frag_b_kn).
+template <int kN>
+__device__ __forceinline__ void product_f32(float (&acc)[8][4],
+                                            const float (&c)[kN][4],
+                                            const float* ys, int n8) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    if (n < n8) {
+      float a[4];
+      acc_as_a(a, c[n]);
+      uint32_t ah[4], al[4];
+      split_tf32(a, ah, al);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        float b[2];
+        frag_b_kn(b, ys + 8 * n * kF32Pitch + 8 * d, kF32Pitch);
+        mma_3xtf32(acc[d], ah, al, b);
+      }
+    }
+  }
+}
+
+// Store the accumulators of 16 rows (from r0, rows < rows only) and 64
+// columns, times f, to row-major out `stride` floats apart, 8 bytes a
+// thread: a quad writes 32 contiguous bytes of a row.
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&acc)[8][4],
+                                               int r0, int rows, int stride,
+                                               float f) {
+  const int gr = (threadIdx.x & 31) >> 2, tc = threadIdx.x & 3;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    float* at = out + 8 * d + 2 * tc;
+    if (r0 + gr < rows)
+      *reinterpret_cast<float2*>(at + (size_t)(r0 + gr) * stride) =
+          make_float2(acc[d][0] * f, acc[d][1] * f);
+    if (r0 + gr + 8 < rows)
+      *reinterpret_cast<float2*>(at + (size_t)(r0 + gr + 8) * stride) =
+          make_float2(acc[d][2] * f, acc[d][3] * f);
+  }
+}
+
+// Shared memory of an fp32 forward block: q [pad16(lq)][68], k and v
+// [pad8(lk)][68] fp32. 34,816 bytes at Lq = Lk = 36.
+inline size_t forward_f32_smem_bytes(int lq, int lk) {
+  return sizeof(float) * kF32Pitch *
+         (size_t)(16 * ((lq + 15) / 16) + 2 * 8 * ((lk + 7) / 8));
+}
+
+// The pitch of the backward's p * m and ds tiles: 16 kKeyTiles + 4 floats,
+// which is 4 mod 16, so that frag_a_t's rows 2 tc hit banks 8 tc apart.
+inline int f32_prob_pitch(int lk) { return 16 * ((lk + 15) / 16) + 4; }
+
+// Shared memory of an fp32 backward block: q and g [pad16(lq)][68], then k
+// and v [pad8(lk)][68], over which phase 2 lays p * m and ds
+// [pad16(lq)][f32_prob_pitch(lk)]. 47,872 bytes at Lq = Lk = 36.
+inline size_t backward_f32_smem_bytes(int lq, int lk) {
+  const size_t qrows = 16 * ((lq + 15) / 16), krows = 8 * ((lk + 7) / 8);
+  const size_t kv = 2 * krows * kF32Pitch;
+  const size_t probs = 2 * qrows * f32_prob_pitch(lk);
+  return sizeof(float) * (2 * qrows * kF32Pitch + (kv > probs ? kv : probs));
+}
+
+// __launch_bounds__ of the fp32 kernels: at most 4 warps (Lq 64), and the
+// blocks of 4 warps per SM by key tiles of 16. The forward: 5 (at most 102
+// registers; ptxas takes 90 to 95) up to 3 key tiles, where 128 let it
+// take 112 to 115 and so 5 blocks of 3 warps per SM at (36, 36), not the 6
+// that shared memory allows, and ran 5 to 6% slower on an H100
+// (PERF.md); 4 at Lk 64 (128), which spilled under 102, as up to 2 key
+// tiles spill under 85. The backward: 3 (168), whose phase 1 holds p, ds
+// and dq's accumulators and which spilled under 128, and 2 at Lk 64 (255),
+// which spilled under 168.
+template <int kKeyTiles>
+constexpr int kForwardF32MinBlocks = kKeyTiles == 4 ? 4 : 5;
+template <int kKeyTiles>
+constexpr int kBackwardF32MinBlocks = kKeyTiles == 4 ? 2 : 3;
+
+// The fp32 forward for (batch * head) row blockIdx.x, in the layout of `lh`
+// heads, keys up to 16 * kKeyTiles (the note above sets out the design):
+// kernels 1 and 4 without kDropout (drop unread), kernels 2 and 5 with it.
+// blockDim.x is attention_threads(lq), the dynamic shared memory
+// forward_f32_smem_bytes(lq, lk).
+template <int kKeyTiles, bool kDropout>
+__device__ __forceinline__ void attention_forward_block_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ bias,
+    float* __restrict__ o, int lq, int lk, int heads, int lh, float scale,
+    Dropout drop) {
+  constexpr int kN = 2 * kKeyTiles;  // m16n8 tiles of 8 keys
+  extern __shared__ float4 f32_fwd_smem[];
+  const int n8 = (lk + 7) >> 3;  // tiles that hold keys
+  float* qs = reinterpret_cast<float*>(f32_fwd_smem);
+  float* ks = qs + 16 * (blockDim.x >> 5) * kF32Pitch;
+  float* vs = ks + 8 * n8 * kF32Pitch;
+  const size_t row = blockIdx.x;
+  const Layout at(row, lq, lk, lh);
+  stage_async_f32(q + at.q, qs, lq, 16 * (blockDim.x >> 5), at.stride);
+  stage_async_f32(k + at.kv, ks, lk, 8 * n8, at.stride);
+  cp_async_commit();
+  stage_async_f32(v + at.kv, vs, lk, 8 * n8, at.stride);
+  cp_async_commit();
+
+  const int i0 = 16 * (threadIdx.x >> 5);  // this warp's first query
+
+  // p from s = q k^T (q and k arrived)
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[kN][4];
+  scores_f32<kN>(s, qs + i0 * kF32Pitch, ks, n8);
+  softmax_tiles<kN>(s, lk, bias ? bias + (row / heads) * lk : nullptr,
+                    scale);
+  if constexpr (kDropout) {  // p *= m, while v is in flight
+    const int i = i0 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      float m[4];
+      dropout_quad(drop, (uint32_t)row, i, n, lk, m);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= m[e];
+    }
+  }
+
+  // o = (p * m) v (v arrived)
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[8][4];
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  product_f32<kN>(acc, s, vs, n8);
+  store_rows_f32(o + at.q, acc, i0, lq, at.stride, 1.f);
+}
+
+// The fp32 backward of kernels 3 and 6 for the (batch * head) row
+// blockIdx.x, keys up to 16 * kKeyTiles (the note above sets out the
+// design; attention_dropout.cu the math). blockDim.x is
+// attention_threads(lq), the dynamic shared memory
+// backward_f32_smem_bytes(lq, lk).
+template <int kKeyTiles>
+__device__ __forceinline__ void attention_backward_block_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ g, float* __restrict__ dq,
+    float* __restrict__ dk, float* __restrict__ dv, int lq, int lk,
+    int heads, int lh, float scale, Dropout drop) {
+  constexpr int kN = 2 * kKeyTiles;  // m16n8 tiles of 8 keys
+  extern __shared__ float4 f32_bwd_smem[];
+  const int warps = blockDim.x >> 5;
+  const int qrows = 16 * warps;
+  const int n8 = (lk + 7) >> 3;
+  const int pp = 16 * kKeyTiles + 4;  // f32_prob_pitch(lk)
+  float* qs = reinterpret_cast<float*>(f32_bwd_smem);
+  float* gs = qs + qrows * kF32Pitch;
+  float* ks = gs + qrows * kF32Pitch;
+  float* vs = ks + 8 * n8 * kF32Pitch;
+  float* pms = ks;               // phase 2: p * m [qrows][pp] over k, v
+  float* dss = pms + qrows * pp;  // and ds
+  const size_t row = blockIdx.x;
+  const Layout at(row, lq, lk, lh);
+  stage_async_f32(q + at.q, qs, lq, qrows, at.stride);
+  stage_async_f32(k + at.kv, ks, lk, 8 * n8, at.stride);
+  cp_async_commit();
+  stage_async_f32(g + at.q, gs, lq, qrows, at.stride);
+  stage_async_f32(v + at.kv, vs, lk, 8 * n8, at.stride);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5;
+  const int gr = (threadIdx.x & 31) >> 2, tc = threadIdx.x & 3;
+  const int i0 = 16 * warp;  // this warp's first query
+
+  // phase 1: p from s = q k^T (q, k arrived), then t = g v^T
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[kN][4];
+  scores_f32<kN>(s, qs + i0 * kF32Pitch, ks, n8);
+  softmax_tiles<kN>(s, lk, bias ? bias + (row / heads) * lk : nullptr,
+                    scale);
+  cp_async_wait<0>();
+  __syncthreads();
+  float t[kN][4];
+  scores_f32<kN>(t, gs + i0 * kF32Pitch, vs, n8);
+
+  // m (kept: bit 4n + e), dp = m t, rowsum(dp p), then ds = p (dp - rs)
+  uint32_t kept = 0u;
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    float m[4];
+    dropout_quad(drop, (uint32_t)row, i0 + gr, n, lk, m);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t[n][e] *= m[e];
+      rs[e >> 1] += t[n][e] * s[n][e];
+      kept |= (m[e] != 0.f ? 1u : 0u) << (4 * n + e);
+    }
+  }
+  rs[0] = quad_sum(rs[0]);
+  rs[1] = quad_sum(rs[1]);
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[n][e] = s[n][e] * (t[n][e] - rs[e >> 1]);
+
+  // dq = ds k * scale
+  float acc[8][4];
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  product_f32<kN>(acc, t, ks, n8);
+  store_rows_f32(dq + at.q, acc, i0, lq, at.stride, scale);
+
+  // p * m and ds over k and v, once every warp is done with them; rows
+  // past lq are 0 (their p is not; their ds is)
+  __syncthreads();
+  const bool row0 = i0 + gr < lq, row1 = i0 + gr + 8 < lq;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    float pm[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pm[e] = (kept >> (4 * n + e)) & 1u ? s[n][e] * drop.keep_scale : 0.f;
+    const int off = (i0 + gr) * pp + 8 * n + 2 * tc;
+    *reinterpret_cast<float2*>(pms + off) =
+        row0 ? make_float2(pm[0], pm[1]) : make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(pms + off + 8 * pp) =
+        row1 ? make_float2(pm[2], pm[3]) : make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(dss + off) = make_float2(t[n][0], t[n][1]);
+    *reinterpret_cast<float2*>(dss + off + 8 * pp) =
+        make_float2(t[n][2], t[n][3]);
+  }
+  __syncthreads();
+
+  // phase 2: items (keys 16 (it / 2) .., dv for even it, dk for odd)
+  for (int it = warp; it < kN; it += warps) {
+    const int j0 = 16 * (it >> 1);
+    const bool is_dk = it & 1;
+    const float* xs = (is_dk ? dss : pms) + j0;
+    const float* ys = is_dk ? qs : gs;
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+#pragma unroll 1
+    for (int iq = 0; iq < lq; iq += 8) {
+      float a[4];
+      frag_a_t(a, xs + iq * pp, pp);
+      uint32_t ah[4], al[4];
+      split_tf32(a, ah, al);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        float b[2];
+        frag_b_kn(b, ys + iq * kF32Pitch + 8 * d, kF32Pitch);
+        mma_3xtf32(acc[d], ah, al, b);
+      }
+    }
+    store_rows_f32((is_dk ? dk : dv) + at.kv, acc, j0, lk, at.stride,
+                   is_dk ? scale : 1.f);
+  }
+}
+
+// The kernels of one fp32 forward or backward, by key tiles of 16 (1 to
+// 4), each with the C signature of its source's launch; launched with
+// cudaLaunchKernel.
+using F32ForwardKernel = void (*)(const float*, const float*, const float*,
+                                  const float*, float*, int, int, int, float,
+                                  Dropout);
+using F32BackwardKernel = void (*)(const float*, const float*, const float*,
+                                   const float*, const float*, float*,
+                                   float*, float*, int, int, int, float,
+                                   Dropout);
+
+// Launch an fp32 forward over bh rows, one block per row.
+inline cudaError_t launch_forward_f32(const F32ForwardKernel (&kernels)[4],
+                                      const void* q, const void* k,
+                                      const void* v, const void* bias,
+                                      void* o, int bh, int lq, int lk,
+                                      int heads, Dropout drop,
+                                      cudaStream_t stream) {
+  const F32ForwardKernel kernel = kernels[(lk + 15) / 16 - 1];
+  const size_t smem = forward_f32_smem_bytes(lq, lk);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  float scale = head_scale();
+  void* args[] = {&q, &k, &v, &bias, &o, &lq, &lk, &heads, &scale, &drop};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
+                          dim3(attention_threads(lq)), args, smem, stream);
+}
+
+// Launch an fp32 backward over bh rows, one block per row.
+inline cudaError_t launch_backward_f32(
+    const F32BackwardKernel (&kernels)[4], const void* q, const void* k,
+    const void* v, const void* bias, const void* g, void* dq, void* dk,
+    void* dv, int bh, int lq, int lk, int heads, Dropout drop,
+    cudaStream_t stream) {
+  const F32BackwardKernel kernel = kernels[(lk + 15) / 16 - 1];
+  const size_t smem = backward_f32_smem_bytes(lq, lk);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  float scale = head_scale();
+  void* args[] = {&q,  &k,  &v,  &bias,  &g,     &dq,  &dk,
+                  &dv, &lq, &lk, &heads, &scale, &drop};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(bh),
+                          dim3(attention_threads(lq)), args, smem, stream);
 }
 
 }  // namespace

@@ -40,7 +40,10 @@
 // fp32, ran q k^T and p v as scalar FMAs (p broadcast by shuffle, one key
 // at a time) and made one Philox call per key: 1.65 ms per training
 // forward against a 0.162 ms bound on an H100 (700 W), slower than SDPA at
-// dropout 0.1. fp32 inputs keep it (attention_forward_block).
+// dropout 0.1. In fp32 (--dtype float32 training) kernel 2 is kernel 1's
+// fp32 body with the same multiplier (attention_forward_block_f32 with
+// kDropout: the scores by FMAs, p v on the tensor cores in three TF32
+// passes); the scalar body ran fp32 at 18% of its bound on an H100 (700 W).
 //
 // The backward (kernel 3) in bf16 is attention_backward_block_bf16, shared
 // with kernel 6 of attention_blhd.cu. The first port of it, a scalar-FMA
@@ -52,9 +55,13 @@
 // and ds as bf16 hi + lo), copies q, k, v and g once with cp.async into
 // bf16 shared memory, reads the transposes with ldmatrix.trans, draws one
 // Philox call per four keys, and runs one warp per 16 queries: 2 or 3 warps
-// and 18 to 37 KB per row on the path, 6 to 12 rows per SM. fp32 inputs
-// keep the first port's body (attention_backward_block): they cannot be
-// bf16 tensor-core operands, and fp32 is on no path. The mask is drawn
+// and 18 to 37 KB per row on the path, 6 to 12 rows per SM. In fp32 the
+// backward is attention_backward_block_f32 (the scalar body ran fp32 at 16%
+// of its bound): the same warps and items, q k^T and g v^T by FMAs, the
+// other three products on mma.sync m16n8k8 in three TF32 passes, q, k, v
+// and g by cp.async into fp32 shared memory, p * m and ds laid over k and v
+// once dq has read them (48 KB at 36 x 36), the kept keys held as a bit
+// mask between the draw and p * m. The mask is drawn
 // with the same bits by every body of kernels 2 and 3.
 
 #include <type_traits>
@@ -63,33 +70,9 @@
 
 namespace {
 
-// The scalar forward, launched for fp32 only.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const float* __restrict__ bias,
-                             T* __restrict__ o, int lq, int lk, int heads,
-                             float scale, Dropout drop) {
-  attention_forward_block<T, true>(q, k, v, bias, o, lq, lk, heads, 1,
-                                   scale, drop);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32, kBackwardBlocksPerSm)
-attention_dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const float* __restrict__ bias,
-                             const T* __restrict__ g, T* __restrict__ dq,
-                             T* __restrict__ dk, T* __restrict__ dv, int lq,
-                             int lk, int heads, float scale, Dropout drop) {
-  attention_backward_block<T>(q, k, v, bias, g, dq, dk, dv, lq, lk, heads, 1,
-                              scale, drop);
-}
-
 // The bf16 forward on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBf16MaxThreads,
+__global__ void __launch_bounds__(kMaxThreads,
                                   kForwardBf16MinBlocks<kKeyTiles>)
 attention_dropout_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k,
@@ -108,6 +91,25 @@ const Bf16ForwardKernel kDropoutFwdBf16[4] = {
     attention_dropout_fwd_bf16_kernel<3>,
     attention_dropout_fwd_bf16_kernel<4>};
 
+// The fp32 forward (scores by FMAs, the other products on the
+// tensor cores in three TF32 passes), keys up to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kForwardF32MinBlocks<kKeyTiles>)
+attention_dropout_fwd_f32_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ bias,
+                                 float* __restrict__ o, int lq, int lk,
+                                 int heads, float scale, Dropout drop) {
+  attention_forward_block_f32<kKeyTiles, true>(q, k, v, bias, o, lq, lk,
+                                               heads, 1, scale, drop);
+}
+
+const F32ForwardKernel kDropoutFwdF32[4] = {
+    attention_dropout_fwd_f32_kernel<1>, attention_dropout_fwd_f32_kernel<2>,
+    attention_dropout_fwd_f32_kernel<3>, attention_dropout_fwd_f32_kernel<4>};
+
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, int bh, int lq, int lk,
@@ -118,20 +120,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
     return launch_forward_bf16(kDropoutFwdBf16, q, k, v, bias, o, bh, lq, lk,
                                heads, drop, stream);
   } else {
-    const size_t smem = forward_smem_bytes(lq, lk);
-    const cudaError_t err = allow_smem(attention_dropout_fwd_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    attention_dropout_fwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(o), lq, lk, heads, head_scale(), drop);
-    return cudaGetLastError();
+    static const cudaError_t prepared = prefer_shared_memory(kDropoutFwdF32);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_forward_f32(kDropoutFwdF32, q, k, v, bias, o, bh, lq, lk,
+                              heads, drop, stream);
   }
 }
 
 // The bf16 backward on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBf16MaxThreads,
+__global__ void __launch_bounds__(kMaxThreads,
                                   kBackwardBf16MinBlocks<kKeyTiles>)
 attention_dropout_bwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -149,6 +147,25 @@ const Bf16BackwardKernel kDropoutBwdBf16[4] = {
     attention_dropout_bwd_bf16_kernel<3>,
     attention_dropout_bwd_bf16_kernel<4>};
 
+// The fp32 backward (scores by FMAs, the other products on the
+// tensor cores in three TF32 passes), keys up to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kBackwardF32MinBlocks<kKeyTiles>)
+attention_dropout_bwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ g, float* __restrict__ dq,
+    float* __restrict__ dk, float* __restrict__ dv, int lq, int lk,
+    int heads, float scale, Dropout drop) {
+  attention_backward_block_f32<kKeyTiles>(q, k, v, bias, g, dq, dk, dv, lq,
+                                          lk, heads, 1, scale, drop);
+}
+
+const F32BackwardKernel kDropoutBwdF32[4] = {
+    attention_dropout_bwd_f32_kernel<1>, attention_dropout_bwd_f32_kernel<2>,
+    attention_dropout_bwd_f32_kernel<3>, attention_dropout_bwd_f32_kernel<4>};
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* bias, const void* g, void* dq, void* dk,
@@ -158,15 +175,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     return launch_backward_bf16(kDropoutBwdBf16, q, k, v, bias, g, dq, dk, dv,
                                 bh, lq, lk, heads, drop, stream);
   } else {
-    const size_t smem = backward_smem_bytes(lq, lk);
-    const cudaError_t err = allow_smem(attention_dropout_bwd_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    attention_dropout_bwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-        static_cast<T*>(dv), lq, lk, heads, head_scale(), drop);
-    return cudaGetLastError();
+    static const cudaError_t prepared = prefer_shared_memory(kDropoutBwdF32);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_backward_f32(kDropoutBwdF32, q, k, v, bias, g, dq, dk, dv,
+                               bh, lq, lk, heads, drop, stream);
   }
 }
 

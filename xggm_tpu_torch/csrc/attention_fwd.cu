@@ -12,7 +12,8 @@
 // scores and the softmax in fp32, p rounded to the input type before the
 // second product (as the TPU kernel's p.astype(v.dtype)), the second product
 // accumulated in fp32 and the output written in the input type. Inputs are
-// bf16 (the serving path) or fp32.
+// bf16 (the serving path) or fp32 (--dtype float32 evaluation, the
+// adjacency precompute's BertTextModel).
 //
 // What bounds it: memory bandwidth. At Lq = Lk = 36 in bf16 a row reads
 // q, k, v and writes o, about 18.4 KB, for about 0.33 MFLOP: some
@@ -24,20 +25,26 @@
 //
 // Design, bf16 (the serving path; attention_common.cuh,
 // attention_forward_block_bf16, shared with kernels 2, 4 and 5): both
-// products on the
-// tensor cores, mma.sync m16n8k16 with bf16 operands and fp32 accumulation,
-// one warp per 16 queries; q, k and v copied by cp.async into bf16 shared
-// memory, the operands read by ldmatrix; the scores and the fp32 softmax
-// are the code of kernel 3's bf16 body (softmax_bf16), and p enters p v
+// products on the tensor cores, mma.sync m16n8k16 with bf16 operands and
+// fp32 accumulation, one warp per 16 queries; q, k and v copied by cp.async
+// into bf16 shared memory, the operands read by ldmatrix; the scores'
+// fp32 softmax is the code of every body (softmax_tiles), and p enters p v
 // from registers, rounded to bf16. mma.sync and not wgmma: wgmma takes
 // tiles of 64 rows, and a row here has at most 36 queries on the path.
 // One block per row: on an H100 that beat persistent blocks with a
 // two-stage cp.async ring. The first port's scalar body (fp32 in shared
 // memory, one warp per query row, two scalar FMAs per shared-memory load
 // pair) ran at 12% of its bound on an H100 (700 W); by a count of its
-// instructions, shared-memory loads held it. fp32 inputs keep it
-// (attention_forward_block): fp32 cannot be a bf16 tensor-core operand, and
-// fp32 is on no path.
+// instructions, shared-memory loads held it.
+//
+// Design, fp32 (attention_forward_block_f32, shared with kernels 2, 4 and
+// 5): the same warps, keys in tiles of 8; q, k and v by cp.async into fp32
+// shared memory; the scores by register-tiled fp32 FMAs in the plain
+// version's order (a -10000 key mask amplifies any other order's
+// roundings); p v on mma.sync m16n8k8 with TF32 operands in three passes
+// (hi and lo parts) to keep fp32's accuracy, p from registers unrounded.
+// It replaces the first port's scalar body, which ran fp32 at 17% of its
+// bound on an H100 (700 W) and slower than SDPA.
 
 #include <type_traits>
 
@@ -45,19 +52,9 @@
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ o, int lq, int lk, int heads,
-                     float scale) {
-  attention_forward_block<T, false>(q, k, v, bias, o, lq, lk, heads, 1,
-                                    scale, Dropout{0u, 0u, 1.f});
-}
-
 // The bf16 forward on the tensor cores, keys padded to 16 * kKeyTiles.
 template <int kKeyTiles>
-__global__ void __launch_bounds__(kBf16MaxThreads,
+__global__ void __launch_bounds__(kMaxThreads,
                                   kForwardBf16MinBlocks<kKeyTiles>)
 attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -73,6 +70,25 @@ const Bf16ForwardKernel kFwdBf16[4] = {
     attention_fwd_bf16_kernel<1>, attention_fwd_bf16_kernel<2>,
     attention_fwd_bf16_kernel<3>, attention_fwd_bf16_kernel<4>};
 
+// The fp32 forward (scores by FMAs, the other products on the
+// tensor cores in three TF32 passes), keys up to 16 * kKeyTiles.
+template <int kKeyTiles>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kForwardF32MinBlocks<kKeyTiles>)
+attention_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ bias,
+                         float* __restrict__ o, int lq, int lk, int heads,
+                         float scale, Dropout drop) {
+  attention_forward_block_f32<kKeyTiles, false>(q, k, v, bias, o, lq, lk,
+                                                heads, 1, scale, drop);
+}
+
+const F32ForwardKernel kFwdF32[4] = {
+    attention_fwd_f32_kernel<1>, attention_fwd_f32_kernel<2>,
+    attention_fwd_f32_kernel<3>, attention_fwd_f32_kernel<4>};
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* o, int bh, int lq, int lk,
@@ -83,14 +99,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return launch_forward_bf16(kFwdBf16, q, k, v, bias, o, bh, lq, lk, heads,
                                Dropout{0u, 0u, 1.f}, stream);
   } else {
-    const size_t smem = forward_smem_bytes(lq, lk);
-    const cudaError_t err = allow_smem(attention_fwd_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    attention_fwd_kernel<T><<<bh, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(o), lq, lk, heads, head_scale());
-    return cudaGetLastError();
+    static const cudaError_t prepared = prefer_shared_memory(kFwdF32);
+    if (prepared != cudaSuccess) return prepared;
+    return launch_forward_f32(kFwdF32, q, k, v, bias, o, bh, lq, lk, heads,
+                              Dropout{0u, 0u, 1.f}, stream);
   }
 }
 

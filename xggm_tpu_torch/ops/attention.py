@@ -9,16 +9,17 @@ layout (BLHD): the counterpart of
 Six hand-written CUDA kernels, each behind a wrapper that counts its
 launches (`<wrapper>.launches`):
 - kernel 1, `csrc/attention_fwd.cu`: softmax(q k^T / 8 + bias) v, behind
-  `fused_attention` (which counts). In bf16 it runs on the tensor cores
-  (`attention_common.cuh`, `attention_forward_block_bf16`, which kernels 2,
-  4 and 5 share); fp32 keeps a scalar body.
+  `fused_attention` (which counts). Its products run on the tensor cores
+  (`attention_common.cuh`: `attention_forward_block_bf16`, and in fp32
+  `attention_forward_block_f32`, the scores by FMAs and p v in three TF32
+  passes; kernels 2, 4 and 5 share them);
 - kernel 2, `csrc/attention_dropout.cu`: the same with in-kernel dropout on
-  the probabilities, behind `attention_dropout_fwd`; in bf16 the same body
-  with the dropout multiplier;
+  the probabilities, behind `attention_dropout_fwd`: the same bodies with
+  the dropout multiplier;
 - kernel 3, `csrc/attention_dropout.cu`: the backward of kernel 2, behind
-  `attention_dropout_bwd`. At rate 0 it is also kernel 1's backward. In
-  bf16 it runs on the tensor cores (`attention_common.cuh`,
-  `attention_backward_block_bf16`); fp32 keeps a scalar body.
+  `attention_dropout_bwd`. At rate 0 it is also kernel 1's backward. It
+  runs on the tensor cores (`attention_common.cuh`,
+  `attention_backward_block_bf16` and `attention_backward_block_f32`);
 - kernels 4, 5 and 6, `csrc/attention_blhd.cu`: kernels 1, 2 and 3 on q
   [B, Lq, H, 64], k and v [B, Lk, H, 64], behind `fused_attention_blhd`
   (which counts kernel 4), `attention_dropout_blhd_fwd` and
@@ -56,8 +57,7 @@ from xggm_tpu_torch.ops.philox import (
     MASK32, dropout_keep, keep_scale, keep_threshold)
 
 HEAD_DIM = 64
-# the scalar bodies hold two keys per lane of one warp; the bf16 bodies pad
-# Lq and Lk to at most four tiles of 16
+# the bodies pad Lq and Lk to at most four tiles of 16
 MAX_LEN = 64
 _FWD = "attention_fwd"
 _DROPOUT = "attention_dropout"
